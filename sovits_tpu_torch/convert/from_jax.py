@@ -1,0 +1,214 @@
+"""Carry the JAX package's parameters into the port (numpy only).
+
+``synthesizer`` is the inverse of ``sovits_tpu/convert/from_torch.py::
+synthesizer``: a flax param tree -> a so-vits-svc ``SynthesizerTrn``
+state_dict (weight-normed convs as weight_g / weight_v). ``wav2vec2`` is the
+inverse of ``sovits_tpu/encoders/convert.py::from_fairseq_hubert``: flax
+Wav2Vec2Encoder params -> a fairseq HuBERT state_dict. Values come back as
+numpy arrays; load them with ``{k: torch.from_numpy(v)}``.
+
+Layout maps (flax -> torch):
+- Conv1d        kernel (kw, in, out)  -> weight (out, in, kw)
+- ConvT1d       kernel (kw, in, out)  -> weight_v (in, out, kw)
+- weight norm   g (out,) / g_in (in,) -> weight_g (n, 1, 1)
+- Dense 1x1     kernel (in, out)      -> weight (out, in, 1)
+- Linear        kernel (in, out)      -> weight (out, in)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def _np(x) -> np.ndarray:
+    return np.array(x, order="C")  # a writable copy: torch.from_numpy shares it
+
+
+def _put(sd: dict, prefix: str, params: dict) -> None:
+    for k, v in params.items():
+        sd[prefix + k] = v
+
+
+def conv1d(p: dict) -> dict:
+    out = {"weight": _np(np.transpose(p["kernel"], (2, 1, 0)))}
+    if "bias" in p:
+        out["bias"] = _np(p["bias"])
+    return out
+
+
+def conv1d_wn(p: dict) -> dict:
+    out = {
+        "weight_v": _np(np.transpose(p["kernel"], (2, 1, 0))),
+        "weight_g": _np(np.asarray(p["g"]).reshape(-1, 1, 1)),
+    }
+    if "bias" in p:
+        out["bias"] = _np(p["bias"])
+    return out
+
+
+def conv1d_maybe_wn(p: dict) -> dict:
+    return conv1d_wn(p) if "g" in p else conv1d(p)
+
+
+def conv_transpose1d_wn(p: dict) -> dict:
+    out = {
+        "weight_v": _np(np.transpose(p["kernel"], (1, 2, 0))),
+        "weight_g": _np(np.asarray(p["g_in"]).reshape(-1, 1, 1)),
+    }
+    if "bias" in p:
+        out["bias"] = _np(p["bias"])
+    return out
+
+
+def conv1x1_from_dense(p: dict) -> dict:
+    out = {"weight": _np(np.transpose(p["kernel"], (1, 0))[:, :, None])}
+    if "bias" in p:
+        out["bias"] = _np(p["bias"])
+    return out
+
+
+def linear(p: dict) -> dict:
+    out = {"weight": _np(np.transpose(p["kernel"], (1, 0)))}
+    if "bias" in p:
+        out["bias"] = _np(p["bias"])
+    return out
+
+
+def _count(p: dict, stem: str) -> int:
+    return sum(1 for k in p if k.startswith(stem) and k[len(stem):].isdigit())
+
+
+def wavenet(sd: dict, prefix: str, p: dict) -> None:
+    if "cond" in p:
+        _put(sd, prefix + "cond_layer.", conv1d_wn(p["cond"]))
+    for i in range(_count(p, "in_")):
+        _put(sd, prefix + f"in_layers.{i}.", conv1d_wn(p[f"in_{i}"]))
+        _put(sd, prefix + f"res_skip_layers.{i}.", conv1d_wn(p[f"res_skip_{i}"]))
+
+
+def mha(sd: dict, prefix: str, p: dict) -> None:
+    for name, torch_name in (("query", "conv_q"), ("key", "conv_k"), ("value", "conv_v"), ("out", "conv_o")):
+        _put(sd, prefix + torch_name + ".", conv1x1_from_dense(p[name]))
+    if "emb_rel_k" in p:
+        sd[prefix + "emb_rel_k"] = _np(p["emb_rel_k"])
+        sd[prefix + "emb_rel_v"] = _np(p["emb_rel_v"])
+
+
+def _layer_norm(p: dict) -> dict:
+    return {"gamma": _np(p["scale"]), "beta": _np(p["bias"])}
+
+
+def _ffn(sd: dict, prefix: str, p: dict) -> None:
+    _put(sd, prefix + "conv_1.", conv1d(p["conv1"]))
+    _put(sd, prefix + "conv_2.", conv1d(p["conv2"]))
+
+
+def attn_encoder(sd: dict, prefix: str, p: dict) -> None:
+    for i in range(_count(p, "attn_")):
+        mha(sd, prefix + f"attn_layers.{i}.", p[f"attn_{i}"])
+        _put(sd, prefix + f"norm_layers_1.{i}.", _layer_norm(p[f"norm1_{i}"]))
+        _ffn(sd, prefix + f"ffn_layers.{i}.", p[f"ffn_{i}"])
+        _put(sd, prefix + f"norm_layers_2.{i}.", _layer_norm(p[f"norm2_{i}"]))
+
+
+def attn_fft(sd: dict, prefix: str, p: dict) -> None:
+    if "cond" in p:
+        _put(sd, prefix + "cond_layer.", conv1d_wn(p["cond"]))
+        _put(sd, prefix + "cond_pre.", conv1d(p["cond_pre"]))
+    for i in range(_count(p, "attn_")):
+        mha(sd, prefix + f"self_attn_layers.{i}.", p[f"attn_{i}"])
+        _put(sd, prefix + f"norm_layers_0.{i}.", _layer_norm(p[f"norm0_{i}"]))
+        _ffn(sd, prefix + f"ffn_layers.{i}.", p[f"ffn_{i}"])
+        _put(sd, prefix + f"norm_layers_1.{i}.", _layer_norm(p[f"norm1_{i}"]))
+
+
+def generator(sd: dict, prefix: str, p: dict, n_kernels: int, n_dilations: int) -> None:
+    _put(sd, prefix + "conv_pre.", conv1d_wn(p["conv_pre"]))
+    _put(sd, prefix + "conv_post.", conv1d_wn(p["conv_post"]))
+    sd[prefix + "m_source.l_linear.weight"] = _np(np.transpose(p["m_source"]["merge_kernel"], (1, 0)))
+    sd[prefix + "m_source.l_linear.bias"] = _np(p["m_source"]["merge_bias"])
+    if "cond" in p:
+        _put(sd, prefix + "cond.", conv1d(p["cond"]))
+    for i in range(_count(p, "up_")):
+        _put(sd, prefix + f"ups.{i}.", conv_transpose1d_wn(p[f"up_{i}"]))
+        _put(sd, prefix + f"noise_convs.{i}.", conv1d(p[f"noise_conv_{i}"]))
+        for j in range(n_kernels):
+            rb = p[f"resblock_{i}_{j}"]
+            rp = prefix + f"resblocks.{i * n_kernels + j}."
+            for d in range(n_dilations):
+                _put(sd, rp + f"convs1.{d}.", conv1d_maybe_wn(rb[f"conv1_{d}"]))
+                _put(sd, rp + f"convs2.{d}.", conv1d_maybe_wn(rb[f"conv2_{d}"]))
+
+
+def synthesizer(params: dict, hps) -> dict:
+    """flax Synthesizer params -> so-vits-svc SynthesizerTrn state_dict (numpy).
+
+    Covers the configuration the port runs: ResBlock1 vocoder, WN flow
+    without parameter sharing, no volume embedding.
+    """
+    m = hps.model
+    if str(m.resblock) != "1" or m.use_transformer_flow or m.flow_share_parameter or m.vol_embedding:
+        raise NotImplementedError("from_jax.synthesizer covers resblock '1', WN flow, no vol embedding")
+    sd: dict = {}
+    sd["emb_g.weight"] = _np(params["emb_g"]["embedding"])
+    sd["emb_uv.weight"] = _np(params["emb_uv"]["embedding"])
+    _put(sd, "pre.", conv1d(params["pre"]))
+    enc_p = params["enc_p"]
+    sd["enc_p.f0_emb.weight"] = _np(enc_p["f0_emb"]["embedding"])
+    attn_encoder(sd, "enc_p.enc_.", enc_p["enc"])
+    _put(sd, "enc_p.proj.", conv1d(enc_p["proj"]))
+    if "enc_q" in params:  # a compressed release model has no posterior encoder
+        enc_q = params["enc_q"]
+        _put(sd, "enc_q.pre.", conv1d(enc_q["pre"]))
+        wavenet(sd, "enc_q.enc.", enc_q["enc"])
+        _put(sd, "enc_q.proj.", conv1d(enc_q["proj"]))
+    for i in range(_count(params["flow"], "coupling_")):
+        cp = params["flow"][f"coupling_{i}"]
+        prefix = f"flow.flows.{2 * i}."
+        _put(sd, prefix + "pre.", conv1d(cp["pre"]))
+        wavenet(sd, prefix + "enc.", cp["enc"])
+        _put(sd, prefix + "post.", conv1d(cp["post"]))
+    if "f0_decoder" in params:
+        fd = params["f0_decoder"]
+        for name in ("prenet", "proj", "f0_prenet", "cond"):
+            _put(sd, f"f0_decoder.{name}.", conv1d(fd[name]))
+        attn_fft(sd, "f0_decoder.decoder.", fd["decoder"])
+    generator(sd, "dec.", params["dec"], len(m.resblock_kernel_sizes), len(m.resblock_dilation_sizes[0]))
+    return sd
+
+
+def wav2vec2(params: dict, cfg) -> dict:
+    """flax Wav2Vec2Encoder params -> fairseq HuBERT state_dict (numpy)."""
+    fe = params["feature_extractor"]
+    sd: dict = {}
+    for i in range(_count(fe, "conv_")):
+        sd[f"feature_extractor.conv_layers.{i}.0.weight"] = _np(np.transpose(fe[f"conv_{i}"]["kernel"], (2, 1, 0)))
+    sd["feature_extractor.conv_layers.0.2.weight"] = _np(fe["group_norm"]["scale"])
+    sd["feature_extractor.conv_layers.0.2.bias"] = _np(fe["group_norm"]["bias"])
+    sd["layer_norm.weight"] = _np(params["feat_norm"]["scale"])
+    sd["layer_norm.bias"] = _np(params["feat_norm"]["bias"])
+    _put(sd, "post_extract_proj.", linear(params["feat_proj"]))
+    pc = params["pos_conv"]
+    sd["encoder.pos_conv.0.weight_v"] = _np(np.transpose(pc["kernel"], (2, 1, 0)))
+    sd["encoder.pos_conv.0.weight_g"] = _np(np.asarray(pc["g_k"]).reshape(1, 1, -1))
+    sd["encoder.pos_conv.0.bias"] = _np(pc["bias"])
+    sd["encoder.layer_norm.weight"] = _np(params["encoder_norm"]["scale"])
+    sd["encoder.layer_norm.bias"] = _np(params["encoder_norm"]["bias"])
+    d = cfg.d_model
+    for i in range(_count(params, "layer_")):
+        lp = params[f"layer_{i}"]
+        pre = f"encoder.layers.{i}."
+        att = lp["self_attn"]
+        for name, torch_name in (("query", "q_proj"), ("key", "k_proj"), ("value", "v_proj")):
+            sd[pre + f"self_attn.{torch_name}.weight"] = _np(np.asarray(att[name]["kernel"]).reshape(d, d).T)
+            sd[pre + f"self_attn.{torch_name}.bias"] = _np(np.asarray(att[name]["bias"]).reshape(d))
+        sd[pre + "self_attn.out_proj.weight"] = _np(np.asarray(att["out"]["kernel"]).reshape(d, d).T)
+        sd[pre + "self_attn.out_proj.bias"] = _np(att["out"]["bias"])
+        _put(sd, pre + "fc1.", linear(lp["fc1"]))
+        _put(sd, pre + "fc2.", linear(lp["fc2"]))
+        for name, torch_name in (("norm1", "self_attn_layer_norm"), ("norm2", "final_layer_norm")):
+            sd[pre + f"{torch_name}.weight"] = _np(lp[name]["scale"])
+            sd[pre + f"{torch_name}.bias"] = _np(lp[name]["bias"])
+    if "final_proj" in params:
+        _put(sd, "final_proj.", linear(params["final_proj"]))
+    return sd

@@ -1,0 +1,170 @@
+"""The SoftVC-VITS synthesizer for inference (counterpart of
+``sovits_tpu/models/synthesizer.py``; so-vits-svc ``SynthesizerTrn``).
+
+Parameter names and layouts are so-vits-svc's, so a reference ``G_*.pth``
+loads with ``load_state_dict(strict=True)``. ``enc_q`` (the posterior
+encoder) is built only for that: inference does not run it.
+
+Public layouts are the JAX package's: ``infer`` takes c [B, T, ssl],
+f0 [B, T], uv [B, T] and returns (wav [B, T*hop, 1], f0 [B, T]).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from ..dsp.f0 import f0_to_coarse, f0_to_lf0, lf0_to_f0, normalize_f0
+from ..dsp.sequence import sequence_mask
+from ..nn.attention import FFT, Encoder
+from ..nn.flows import ResidualCouplingBlock
+from ..nn.wavenet import WN
+from .nsf_hifigan import Generator
+
+
+class ContentEncoder(nn.Module):
+    """Prior encoder over content units (so-vits-svc ``TextEncoder``)."""
+
+    def __init__(self, out_channels: int, hidden_channels: int, filter_channels: int,
+                 n_heads: int, n_layers: int, kernel_size: int):
+        super().__init__()
+        self.out_channels = out_channels
+        self.f0_emb = nn.Embedding(256, hidden_channels)
+        self.enc_ = Encoder(hidden_channels, filter_channels, n_heads, n_layers, kernel_size)
+        self.proj = nn.Conv1d(hidden_channels, out_channels * 2, 1)
+
+    def forward(self, x, x_mask, f0_coarse, noise_scale: float = 1.0,
+                generator: torch.Generator | None = None, sample_noise: bool = False):
+        """x [B, H, T], x_mask [B, 1, T], f0_coarse [B, T] -> (z, m, logs)."""
+        x = x + self.f0_emb(f0_coarse).transpose(1, 2)
+        x = self.enc_(x * x_mask, x_mask)
+        m, logs = torch.split(self.proj(x) * x_mask, self.out_channels, dim=1)
+        if sample_noise:
+            eps = torch.randn(m.shape, generator=generator, device=m.device, dtype=m.dtype)
+            z = (m + eps * torch.exp(logs) * noise_scale) * x_mask
+        else:
+            z = m * x_mask
+        return z, m, logs
+
+
+class PosteriorEncoder(nn.Module):
+    """Linear-spec posterior (so-vits-svc ``Encoder``); kept for strict loading."""
+
+    def __init__(self, in_channels: int, out_channels: int, hidden_channels: int,
+                 kernel_size: int, dilation_rate: int, n_layers: int, gin_channels: int = 0):
+        super().__init__()
+        self.pre = nn.Conv1d(in_channels, hidden_channels, 1)
+        self.enc = WN(hidden_channels, kernel_size, dilation_rate, n_layers, gin_channels)
+        self.proj = nn.Conv1d(hidden_channels, out_channels * 2, 1)
+
+
+class F0Decoder(nn.Module):
+    """Causal-FFT lf0 predictor."""
+
+    def __init__(self, out_channels: int, hidden_channels: int, filter_channels: int,
+                 n_heads: int, n_layers: int, kernel_size: int, spk_channels: int = 0):
+        super().__init__()
+        self.prenet = nn.Conv1d(hidden_channels, hidden_channels, 3, padding=1)
+        self.decoder = FFT(hidden_channels, filter_channels, n_heads, n_layers, kernel_size)
+        self.proj = nn.Conv1d(hidden_channels, out_channels, 1)
+        self.f0_prenet = nn.Conv1d(1, hidden_channels, 3, padding=1)
+        self.cond = nn.Conv1d(spk_channels, hidden_channels, 1)
+
+    def forward(self, x, norm_f0, x_mask, spk_emb=None):
+        """x [B, H, T], norm_f0 [B, 1, T] -> pred lf0 [B, 1, T]."""
+        x = x.detach()
+        if spk_emb is not None:
+            x = x + self.cond(spk_emb)
+        x = x + self.f0_prenet(norm_f0)
+        x = self.prenet(x) * x_mask
+        x = self.decoder(x * x_mask, x_mask)
+        return self.proj(x) * x_mask
+
+
+class Synthesizer(nn.Module):
+    def __init__(
+        self,
+        spec_channels: int = 1025,
+        inter_channels: int = 192,
+        hidden_channels: int = 192,
+        filter_channels: int = 768,
+        n_heads: int = 2,
+        n_layers: int = 6,
+        kernel_size: int = 3,
+        resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
+        resblock_dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3,
+        upsample_rates: Sequence[int] = (8, 8, 2, 2, 2),
+        upsample_initial_channel: int = 512,
+        upsample_kernel_sizes: Sequence[int] = (16, 16, 4, 4, 4),
+        gin_channels: int = 768,
+        ssl_dim: int = 768,
+        n_speakers: int = 200,
+        sampling_rate: int = 44100,
+        use_automatic_f0_prediction: bool = True,
+        n_flow_layer: int = 4,
+        n_layers_q: int = 16,
+    ):
+        super().__init__()
+        self.use_automatic_f0_prediction = use_automatic_f0_prediction
+        self.emb_g = nn.Embedding(n_speakers, gin_channels)
+        self.emb_uv = nn.Embedding(2, hidden_channels)
+        self.pre = nn.Conv1d(ssl_dim, hidden_channels, 5, padding=2)
+        self.enc_p = ContentEncoder(inter_channels, hidden_channels, filter_channels, n_heads,
+                                    n_layers, kernel_size)
+        self.enc_q = PosteriorEncoder(spec_channels, inter_channels, hidden_channels, 5, 1,
+                                      n_layers_q, gin_channels)
+        # so-vits-svc: always 4 couplings; n_flow_layer is each WN's depth
+        self.flow = ResidualCouplingBlock(inter_channels, hidden_channels, 5, 1, n_flow_layer,
+                                          n_flows=4, gin_channels=gin_channels)
+        if use_automatic_f0_prediction:
+            self.f0_decoder = F0Decoder(1, hidden_channels, filter_channels, n_heads, n_layers,
+                                        kernel_size, spk_channels=gin_channels)
+        self.dec = Generator(sampling_rate, inter_channels, resblock_kernel_sizes,
+                             resblock_dilation_sizes, upsample_rates, upsample_initial_channel,
+                             upsample_kernel_sizes, gin_channels)
+
+    def _speaker_embedding(self, spk: torch.Tensor) -> torch.Tensor:
+        """int ids [B] (or [B, 1]) -> [B, gin, 1]; float mix [B, T, S] -> [B, gin, T]."""
+        if not spk.is_floating_point():
+            if spk.dim() == 2:
+                spk = spk[:, 0]
+            return self.emb_g(spk)[:, :, None]
+        return torch.einsum("bts,sg->bgt", spk, self.emb_g.weight.to(spk.dtype))
+
+    @torch.no_grad()
+    def infer_pre(self, c, f0, uv, spk, noise_scale: float = 0.35, predict_f0: bool = False,
+                  sample_noise: bool = True, lengths=None, generator=None):
+        """``infer`` up to the vocoder: (z [B, inter, T] masked, f0 [B, T], g)."""
+        g = self._speaker_embedding(spk)
+        if lengths is None:
+            lengths = torch.full((c.shape[0],), c.shape[1], device=c.device)
+        x_mask = sequence_mask(lengths, c.shape[1])[:, None, :].to(c.dtype)  # [B, 1, T]
+        x = self.pre(c.transpose(1, 2)) * x_mask + self.emb_uv(uv.long()).transpose(1, 2)
+
+        if self.use_automatic_f0_prediction and predict_f0:
+            lf0 = f0_to_lf0(f0)[..., None]  # [B, T, 1]
+            norm_lf0 = normalize_f0(lf0, x_mask.transpose(1, 2), uv)
+            pred_lf0 = self.f0_decoder(x, norm_lf0.transpose(1, 2), x_mask, spk_emb=g)
+            f0 = lf0_to_f0(pred_lf0)[:, 0]
+
+        z_p, _m, _logs = self.enc_p(x, x_mask, f0_to_coarse(f0), noise_scale=noise_scale,
+                                    generator=generator, sample_noise=sample_noise)
+        z = self.flow(z_p, x_mask, g=g, reverse=True)
+        return z * x_mask, f0, g
+
+    @torch.no_grad()
+    def infer(self, c, f0, uv, spk, noise_scale: float = 0.35, predict_f0: bool = False,
+              sample_noise: bool = True, lengths=None, generator=None):
+        """(wav [B, T*hop, 1], f0 [B, T]). With ``sample_noise`` the prior
+        noise and the source's random phases and noise come from
+        ``generator`` (a freshly seeded one when None); without it the
+        output is deterministic."""
+        if sample_noise and generator is None:
+            generator = torch.Generator(device=c.device)
+            generator.seed()
+        z, f0, g = self.infer_pre(c, f0, uv, spk, noise_scale, predict_f0, sample_noise,
+                                  lengths, generator)
+        o = self.dec(z, f0, g=g, generator=generator if sample_noise else None)
+        return o.transpose(1, 2), f0

@@ -1,0 +1,56 @@
+"""Mean-only affine couplings over WN (counterpart of ``sovits_tpu/nn/flows.py``).
+
+so-vits-svc's ``ResidualCouplingBlock`` stores couplings at ``flows.{0,2,4,6}``
+with parameter-free channel flips between them; the ModuleList here keeps
+that indexing so the state_dict names match.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .wavenet import WN
+
+
+class Flip(nn.Module):
+    def forward(self, x: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+        return torch.flip(x, [1])
+
+
+class ResidualCouplingLayer(nn.Module):
+    def __init__(self, channels: int, hidden_channels: int, kernel_size: int,
+                 dilation_rate: int, n_layers: int, gin_channels: int = 0):
+        super().__init__()
+        self.half = channels // 2
+        self.pre = nn.Conv1d(self.half, hidden_channels, 1)
+        self.enc = WN(hidden_channels, kernel_size, dilation_rate, n_layers, gin_channels)
+        self.post = nn.Conv1d(hidden_channels, self.half, 1)
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor, g: torch.Tensor | None = None,
+                reverse: bool = False) -> torch.Tensor:
+        """x [B, C, T]; mean-only, so the log-determinant is zero and not returned."""
+        x0, x1 = x[:, : self.half], x[:, self.half :]
+        h = self.pre(x0) * x_mask
+        m = self.post(self.enc(h, x_mask, g=g)) * x_mask
+        x1 = (x1 - m) * x_mask if reverse else (m + x1) * x_mask
+        return torch.cat([x0, x1], dim=1)
+
+
+class ResidualCouplingBlock(nn.Module):
+    def __init__(self, channels: int, hidden_channels: int, kernel_size: int,
+                 dilation_rate: int, n_layers: int, n_flows: int = 4, gin_channels: int = 0):
+        super().__init__()
+        self.flows = nn.ModuleList()
+        for _ in range(n_flows):
+            self.flows.append(ResidualCouplingLayer(
+                channels, hidden_channels, kernel_size, dilation_rate, n_layers, gin_channels
+            ))
+            self.flows.append(Flip())
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor, g: torch.Tensor | None = None,
+                reverse: bool = False) -> torch.Tensor:
+        flows = reversed(self.flows) if reverse else self.flows
+        for flow in flows:
+            x = flow(x, x_mask, g=g, reverse=reverse)
+        return x
