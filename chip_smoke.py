@@ -4,19 +4,23 @@ on one GPU.
     python3 chip_smoke.py
 
 Phases: 1 device, 2 build (every kernel and the native WORLD library, all
-at once), 3 kernel parity against the plain PyTorch versions (forward,
-backward and autograd gradients at the training shapes), 4 main path
-(full-width Svc with seeded random weights answering real requests), 5 card
-vs CPU on the same weights, 6 training (a feature dataset made by the port
-itself, six full-width GAN steps through ``train``, a resume, a profiled
-step), 7 kernel times beside their bounds. Any failure raises, so the script
-exits non-zero; the last line is the JSON result the caller reads. Needs a
-CUDA card; without one (or without the repository around it) it fails before
-printing a result.
+at once), 3 kernel parity against the plain PyTorch versions (fp32 and bf16
+forwards, the attention backward, the fused trio's autograd Function, the
+trio staging microbench's two variants), 4 main path (full-width fp32 Svc
+with seeded random weights answering real requests), 5 card vs CPU on the
+same weights, 6 the bf16 main path (the same requests through a bf16 Svc and
+a bf16 encoder; bf16 against fp32 audio), 7 training (a feature dataset made
+by the port itself, six full-width GAN steps through ``train``, a resume, a
+profiled step), 8 three GAN steps with the fused tail against the same steps
+without it, 9 the trio staging microbench at its defaults, 10 kernel times
+beside their bounds. Any failure raises, so the script exits non-zero; the
+last line is the JSON result the caller reads. Needs a CUDA card; without
+one (or without the repository around it) it fails before printing a result.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -35,11 +39,28 @@ TRIO_TOL = dict(rtol=1e-4, atol=1e-5)
 # every row of every head (9600 rows at the training shape)
 BWD_TOL = dict(rtol=1e-4, atol=1e-5)
 REL_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+# a bf16 kernel against its plain bf16 version: max-abs <= 2e-2 x max|plain|,
+# a few bf16 ulps (bench.py's bf16 trio comparisons use 5e-2)
+BF16_REL = 2e-2
+# a bf16 request against the fp32 one: log-mel L1 < 0.1 over the mel bins
+# within 40 dB of the loudest (bench.py:711 puts bf16-precision mel-L1 near
+# 4e-2), and wave max-abs <= 5e-2 x peak (bench.py's bar for two bf16
+# decodes). The L1 over all bins is printed beside the L1 that rounding the
+# fp32 audio to bf16 alone gives: with random weights most bins lie below
+# the bf16 output's rounding noise, and both are far above 0.1 there.
+MEL_L1_BF16 = 0.1
+LOUD_DB = 40.0
+E2E_REL = 5e-2
+STEP_REL = 1e-3  # fused-tail against unfused GAN step, fp32: the card training-step test's bar
 SECONDS = 10.0
-# the H100's published peaks (SXM, 700 W): fp32 outside the tensor cores, HBM
+# the H100's published peaks (SXM, 700 W): bf16 dense tensor cores, fp32
+# outside the tensor cores, HBM
+BF16_TC_FLOPS = 989e12
 FP32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
 TRAIN_BH, TRAIN_T, HEAD_D = 12, 800, 96  # batch 6 x 2 heads, pad_to_frames, 192 / 2
+# the fused tail's stages in a training step: batch 6, segment 10240 samples
+TRAIN_TRIO_STAGES = [(128, 1280), (64, 2560), (32, 5120), (16, 10240)]
 
 
 def log(phase: str, **kw) -> None:
@@ -117,9 +138,9 @@ def _max_err(got, want, tol, what) -> float:
     return err
 
 
-def _trio_case(c, t, seed):
+def _trio_case(c, t, seed, batch=1):
     g = torch.Generator(device="cpu").manual_seed(seed)
-    x = torch.randn(1, t, c, generator=g)
+    x = torch.randn(batch, t, c, generator=g)
     kernels = [torch.randn(k, c, c, generator=g) * (0.5 / (k * c) ** 0.5)
                for k in (3, 7, 11) for _ in range(6)]
     biases = [torch.randn(c, generator=g) * 0.01 for _ in range(18)]
@@ -166,7 +187,98 @@ def phase_parity() -> dict:
             raise AssertionError(f"resblock_trio disagrees at C={c}: {err}")
         errs["resblock_trio"] = max(errs["resblock_trio"], err)
     errs.update(parity_training_attention())
+    errs.update(parity_bf16())
+    parity_trio_vjp()
     return errs
+
+
+def _bf16(xs):
+    return [x.bfloat16() if x is not None else None for x in xs]
+
+
+def _rel_err(got, want, what) -> float:
+    """max-abs of bf16 got against want; raises above BF16_REL x max|want|."""
+    err = (got.float() - want.float()).abs().max().item()
+    peak = want.float().abs().max().item()
+    if got.dtype != want.dtype or not torch.isfinite(got.float()).all() or not err <= BF16_REL * peak:
+        raise AssertionError(f"{what} disagrees with its plain version: max-abs {err}, max|plain| {peak}")
+    return err
+
+
+def parity_bf16() -> dict:
+    """bf16 K1 (windowed T 1024 with a key mask; causal at the serving and
+    training shapes), bf16 K3 (the four stages of a 10 s clip) and K4's two
+    variants at the microbench's defaults, each against its plain version on
+    the same bf16 inputs."""
+    from sovits_tpu_torch.ops.attention import fused_attention, fused_attention_plain
+    from sovits_tpu_torch.ops.fused_stage import fused_resblock_trio, fused_resblock_trio_plain
+    from sovits_tpu_torch.tools.profile_trio_shift import make_inputs, trio_shift, trio_shift_plain
+
+    log("parity", bf16_rel_tol=BF16_REL)
+    errs = {"rel_attention_bf16": 0.0, "resblock_trio_bf16": 0.0}
+    for i, (t, causal, masked) in enumerate([(1024, False, True), (1024, True, False)]):
+        (q, k, v, rk, rv, km), w = _attn_case(t, causal, masked, 40 + i)
+        args = [*_bf16((q, k, v, rk, rv)), km]
+        got = fused_attention(*args, window=w, causal=causal)
+        torch.cuda.synchronize()
+        err = _rel_err(got, fused_attention_plain(*args, window=w, causal=causal), "K1 bf16")
+        log("parity", kernel="rel_attention", dtype="bf16", shape=f"BH=2,T={t},D=96", window=w,
+            causal=causal, key_mask=masked, max_abs_err=f"{err:.3e}", ok=True)
+        errs["rel_attention_bf16"] = max(errs["rel_attention_bf16"], err)
+    args, _, _ = _train_attn_case(True, 22)
+    args = [*_bf16(args[:5]), None, None]
+    got = fused_attention(*args, causal=True)
+    torch.cuda.synchronize()
+    err = _rel_err(got, fused_attention_plain(*args, causal=True), "K1 bf16 causal")
+    log("parity", kernel="rel_attention", dtype="bf16", shape=f"BH={TRAIN_BH},T={TRAIN_T},D={HEAD_D}",
+        causal=True, max_abs_err=f"{err:.3e}", ok=True)
+    errs["rel_attention_bf16"] = max(errs["rel_attention_bf16"], err)
+    for i, (c, t) in enumerate(TRIO_STAGES):
+        x, kernels, biases = _trio_case(c, t, 50 + i)
+        x, kernels, biases = x.bfloat16(), _bf16(kernels), _bf16(biases)
+        got = fused_resblock_trio(x, kernels, biases)
+        torch.cuda.synchronize()
+        ref = fused_resblock_trio_plain(x, kernels, biases)
+        err = _rel_err(got, ref, f"K3 bf16 C={c}")
+        log("parity", kernel="resblock_trio", dtype="bf16", shape=f"B=1,T={t},C={c}",
+            max_abs_err=f"{err:.3e}", ref_max=f"{ref.float().abs().max().item():.3f}", ok=True)
+        errs["resblock_trio_bf16"] = max(errs["resblock_trio_bf16"], err)
+    xp, mats = make_inputs(128, 55104, 0, "cuda")
+    for variant in ("bf16", "fp32"):
+        got = trio_shift(xp, mats, variant)
+        torch.cuda.synchronize()
+        ref = trio_shift_plain(xp, mats, variant)
+        err = _rel_err(got, ref, f"K4 {variant}")
+        log("parity", kernel="trio_shift", variant=variant, shape=f"xp=[1,{xp.shape[1]},128]",
+            rows=got.shape[1], max_abs_err=f"{err:.3e}", ref_max=f"{ref.float().abs().max().item():.4f}",
+            ok=True)
+        errs[f"trio_shift_{variant}"] = err
+    return errs
+
+
+def parity_trio_vjp() -> None:
+    """The fused trio's autograd Function (K3 forward, recomputed plain
+    backward) against autograd through the plain version, at the training
+    stages: gradients of x (BWD_TOL) and of every kernel and bias, which sum
+    over all 61440 rows of the batch (REL_GRAD_TOL)."""
+    from sovits_tpu_torch.ops.fused_stage import fused_resblock_trio, fused_resblock_trio_plain
+
+    for i, (c, t) in enumerate(TRAIN_TRIO_STAGES):
+        x, kernels, biases = _trio_case(c, t, 60 + i, batch=6)
+        dout = torch.randn(x.shape, generator=torch.Generator().manual_seed(70 + i)).cuda()
+        grads = []
+        before = fused_resblock_trio.launches
+        for fn in (fused_resblock_trio, fused_resblock_trio_plain):
+            leaves = [a.clone().requires_grad_() for a in (x, *kernels, *biases)]
+            (fn(leaves[0], leaves[1:19], leaves[19:]) * dout).sum().backward()
+            grads.append([leaf.grad for leaf in leaves])
+        torch.cuda.synchronize()
+        if fused_resblock_trio.launches != before + 1:
+            raise AssertionError("the trio under autograd did not launch K3 once")
+        e_x = _max_err(grads[0][0], grads[1][0], BWD_TOL, "FusedTrio dx")
+        e_w = max(_max_err(a, b, REL_GRAD_TOL, "FusedTrio dW") for a, b in zip(grads[0][1:], grads[1][1:]))
+        log("parity", what="FusedTrio grads vs autograd(plain)", shape=f"B=6,T={t},C={c}",
+            dx_err=f"{e_x:.3e}", dweights_err=f"{e_w:.3e}", ok=True)
 
 
 def parity_training_attention() -> dict:
@@ -232,6 +344,8 @@ def phase_times() -> dict:
 
     times = {"rel_attention": [0.0, 0.0], "resblock_trio": [0.0, 0.0]}
     times.update(times_training_attention())
+    times.update(times_bf16())
+    times_trio_vjp()
     for i, (t, causal, masked) in enumerate(ATTN_CASES):
         (q, k, v, rk, rv, km), w = _attn_case(t, causal, masked, i)
         kw = dict(window=w, causal=causal)
@@ -290,12 +404,75 @@ def times_training_attention() -> dict:
     return out
 
 
+def times_bf16() -> dict:
+    """bf16 K1 (the serving shape, and the causal training shape beside SDPA
+    in bf16, the library yardstick there) and bf16 K3 over the four stages
+    of a 10 s clip, against their plain versions."""
+    import torch.nn.functional as F
+
+    from sovits_tpu_torch.ops.attention import fused_attention, fused_attention_plain
+    from sovits_tpu_torch.ops.fused_stage import fused_resblock_trio, fused_resblock_trio_plain
+
+    (q, k, v, rk, rv, km), w = _attn_case(1024, False, True, 40)
+    args = [*_bf16((q, k, v, rk, rv)), km]
+    ms_k = _time(lambda: fused_attention(*args, window=w))
+    ms_p = _time(lambda: fused_attention_plain(*args, window=w))
+    log("times", kernel="rel_attention", dtype="bf16", T=1024, window=w, kernel_ms=f"{ms_k:.4f}",
+        plain_ms=f"{ms_p:.4f}")
+    args, _, _ = _train_attn_case(True, 22)
+    q, k, v = _bf16(args[:3])
+    ms_k = _time(lambda: fused_attention(q, k, v, causal=True))
+    ms_p = _time(lambda: fused_attention_plain(q, k, v, causal=True))
+    qs, ks, vs = (x.view(6, 2, TRAIN_T, HEAD_D) for x in (q, k, v))
+    ms_l = _time(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, scale=1.0))
+    log("times", kernel="rel_attention", dtype="bf16", shape=f"BH={TRAIN_BH},T={TRAIN_T},D={HEAD_D}",
+        causal=True, kernel_ms=f"{ms_k:.4f}", plain_ms=f"{ms_p:.4f}", sdpa_bf16_ms=f"{ms_l:.4f}")
+    out = {"rel_attention_bf16": [ms_k, ms_p, ms_l], "resblock_trio_bf16": [0.0, 0.0]}
+    for i, (c, t) in enumerate(TRIO_STAGES):
+        x, kernels, biases = _trio_case(c, t, 50 + i)
+        x, kernels, biases = x.bfloat16(), _bf16(kernels), _bf16(biases)
+        ms_k = _time(lambda: fused_resblock_trio(x, kernels, biases), iters=5)
+        ms_p = _time(lambda: fused_resblock_trio_plain(x, kernels, biases), iters=5)
+        log("times", kernel="resblock_trio", dtype="bf16", C=c, T=t, kernel_ms=f"{ms_k:.4f}",
+            plain_ms=f"{ms_p:.4f}")
+        out["resblock_trio_bf16"][0] += ms_k
+        out["resblock_trio_bf16"][1] += ms_p
+    return out
+
+
+def times_trio_vjp() -> None:
+    """The fused trio under autograd (K3 forward + recomputed plain backward)
+    against autograd through the plain version, forward and backward, at
+    the training stages; the bound counts the forward's products three
+    times (forward, input gradient, weight gradient) at the fp32 peak."""
+    from sovits_tpu_torch.ops.fused_stage import fused_resblock_trio, fused_resblock_trio_plain
+
+    total = {"fused": 0.0, "plain": 0.0}
+    flops = 0.0
+    for i, (c, t) in enumerate(TRAIN_TRIO_STAGES):
+        x, kernels, biases = _trio_case(c, t, 60 + i, batch=6)
+        dout = torch.randn_like(x)
+        leaves = [a.clone().requires_grad_() for a in (x, *kernels, *biases)]
+        row = {}
+        for name, fn in (("fused", fused_resblock_trio), ("plain", fused_resblock_trio_plain)):
+            step = lambda fn=fn: torch.autograd.backward(  # noqa: E731
+                fn(leaves[0], leaves[1:19], leaves[19:]), dout)
+            row[name] = _time(step, iters=5)
+            total[name] += row[name]
+        flops += 3 * 2 * 6 * t * c * c * 6 * (3 + 7 + 11)
+        log("times", what="FusedTrio fwd+bwd", shape=f"B=6,T={t},C={c}", fused_ms=f"{row['fused']:.4f}",
+            plain_ms=f"{row['plain']:.4f}")
+    log("times", what="FusedTrio fwd+bwd, four training stages", fused_ms=f"{total['fused']:.4f}",
+        plain_ms=f"{total['plain']:.4f}", bound_ms=f"{1e3 * flops / FP32_FLOPS:.4f}", bound_by="operations")
+
+
 def bounds() -> dict:
     """Least time of each kernel's work at the JSON line's shapes: the larger
-    of its fp32 FMA operations over 67 TFLOP/s and its bytes (each input read
-    once, each output written once) over 3.35 TB/s. ms and what bounds it."""
-    def bound(flops, nbytes):
-        t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES
+    of its operations over the peak for their type (fp32 FMA 67 TFLOP/s,
+    bf16 tensor cores 989 TFLOP/s) and its bytes (each input read once, each
+    output written once) over 3.35 TB/s. ms and what bounds it."""
+    def bound(flops, nbytes, peak=FP32_FLOPS):
+        t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES
         return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
     win = 9
@@ -304,11 +481,24 @@ def bounds() -> dict:
     bh, t = TRAIN_BH, TRAIN_T  # rel_attention_bwd: the ContentEncoder's, dropout 0.1
     k2 = bound(10 * bh * t * t * d + 8 * bh * t * win * d,  # 5 products of 2 T^2 D, 4 band ones
                4 * (8 * bh * t * d + 2 * bh * t + bh * t * t + 4 * win * d))
-    flops = nbytes = 0  # resblock_trio: four stages of a 10 s clip, 18 convs each
+    # rel_attention_bf16: causal at the training shape, no key mask: the
+    # products of the lower triangle (diagonal included) are all it needs
+    pairs = bh * t * (t + 1) / 2
+    k1_bf16 = bound(4 * pairs * d, 2 * 4 * bh * t * d, BF16_TC_FLOPS)
+    flops = nbytes = nbytes_bf16 = 0  # resblock_trio: four stages of a 10 s clip, 18 convs each
     for c, length in TRIO_STAGES:
         flops += 2 * length * c * c * 6 * (3 + 7 + 11)
         nbytes += 4 * (2 * length * c + 6 * (3 + 7 + 11) * c * c + 18 * c)
-    return {"rel_attention": k1, "rel_attention_bwd": k2, "resblock_trio": bound(flops, nbytes)}
+        nbytes_bf16 += 2 * (2 * length * c + 6 * (3 + 7 + 11) * c * c) + 4 * 18 * c
+    from sovits_tpu_torch.tools.profile_trio_shift import flops as k4_flops
+
+    q, d4 = 55104, 128  # trio_shift: the microbench's defaults
+    rows = q // 1024 * 1024
+    k4_bytes = 2 * ((q + 32) * d4 + 36 * d4 * d4 + rows * d4)
+    return {"rel_attention": k1, "rel_attention_bwd": k2, "resblock_trio": bound(flops, nbytes),
+            "rel_attention_bf16": k1_bf16, "resblock_trio_bf16": bound(flops, nbytes_bf16, BF16_TC_FLOPS),
+            "trio_shift_bf16": bound(k4_flops(rows, d4), k4_bytes, BF16_TC_FLOPS),
+            "trio_shift_fp32": bound(k4_flops(rows, d4), k4_bytes)}
 
 
 def bench_signal(seconds: float, sr: int, seed: int = 0, base_hz: float = 170.0) -> np.ndarray:
@@ -320,9 +510,10 @@ def bench_signal(seconds: float, sr: int, seed: int = 0, base_hz: float = 170.0)
     return wav.astype(np.float32)
 
 
-def build_svc(tmp: Path, device: str, encoder=None):
+def build_svc(tmp: Path, device: str, encoder=None, dtype=torch.float32):
     """Full-width default config, seeded random weights written as a
-    so-vits-svc G_0.pth, loaded by the port's Svc like a trained model."""
+    so-vits-svc G_0.pth, loaded by the port's Svc like a trained model; in
+    bf16 the synthesizer and the encoder (same weights) compute in bf16."""
     from sovits_tpu_torch import config as scfg
     from sovits_tpu_torch.encoders.factory import CONFIGS, SpeechEncoder
     from sovits_tpu_torch.encoders.wav2vec2 import Wav2Vec2Encoder
@@ -336,9 +527,11 @@ def build_svc(tmp: Path, device: str, encoder=None):
                                      torch.Generator().manual_seed(0))
         torch.save({"model": model.state_dict(), "iteration": 0}, tmp / "G_0.pth")
     if encoder is None:
-        net = factory.init_random_(Wav2Vec2Encoder(CONFIGS["vec768l12"]), torch.Generator().manual_seed(1))
+        net = factory.init_random_(Wav2Vec2Encoder(CONFIGS["vec768l12"], dtype=dtype),
+                                   torch.Generator().manual_seed(1))
         encoder = SpeechEncoder("vec768l12", net, device)
-    return Svc(str(tmp / "G_0.pth"), str(tmp / "config.json"), encoder=encoder, device=device)
+    return Svc(str(tmp / "G_0.pth"), str(tmp / "config.json"), encoder=encoder, device=device,
+               dtype=dtype)
 
 
 def _reset_counts() -> None:
@@ -346,14 +539,19 @@ def _reset_counts() -> None:
     from sovits_tpu_torch.ops.fused_stage import fused_resblock_trio
 
     fused_attention.launches = fused_attention_bwd.launches = fused_resblock_trio.launches = 0
+    fused_attention.launches_bf16 = fused_resblock_trio.launches_bf16 = 0
 
 
 def _counts() -> dict:
+    """Launches since the last reset, per kernel and type."""
     from sovits_tpu_torch.ops.attention import fused_attention, fused_attention_bwd
     from sovits_tpu_torch.ops.fused_stage import fused_resblock_trio
 
-    return {"rel_attention": fused_attention.launches, "rel_attention_bwd": fused_attention_bwd.launches,
-            "resblock_trio": fused_resblock_trio.launches}
+    return {"rel_attention": fused_attention.launches - fused_attention.launches_bf16,
+            "rel_attention_bf16": fused_attention.launches_bf16,
+            "rel_attention_bwd": fused_attention_bwd.launches,
+            "resblock_trio": fused_resblock_trio.launches - fused_resblock_trio.launches_bf16,
+            "resblock_trio_bf16": fused_resblock_trio.launches_bf16}
 
 
 def phase_main_path(tmp: Path):
@@ -434,6 +632,75 @@ def phase_card_vs_cpu(tmp: Path, svc) -> None:
         limit=1e-3, ok=l1 < 1e-3)
     if not l1 < 1e-3:
         raise AssertionError(f"card and CPU disagree: log-mel L1 {l1}")
+
+
+def phase_main_bf16(tmp: Path, svc32) -> dict:
+    """The JAX package's measured configuration: a bf16 Svc (synthesizer and
+    encoder in bf16, the same weights) answering the main path's requests,
+    each 10 s request through 6 bf16 K1 and 4 bf16 K3 launches; then the
+    log-mel L1 of a bf16 request against the fp32 one, noise off."""
+    from sovits_tpu_torch.dsp.stft import mel_spectrogram
+
+    svc = build_svc(tmp, "cuda", dtype=torch.bfloat16)
+    sr, hop = svc.target_sample, svc.hop_size
+    long_clip = bench_signal(SECONDS, sr)
+    requests = [
+        ("10s warm-up", long_clip, False),
+        ("10s", long_clip, False),
+        ("3s", bench_signal(3.0, sr, seed=1), False),
+        ("20s (bucket 2048)", bench_signal(20.0, sr, seed=2), False),
+        ("10s auto_predict_f0", long_clip, True),
+    ]
+    _reset_counts()
+    for name, wav, auto in requests:
+        before = _counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        audio, n_samples, n_frames = svc.infer(0, 0, wav, sr=sr, f0_predictor="dio", auto_predict_f0=auto)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        seconds = len(wav) / sr
+        got = {k: v - before[k] for k, v in _counts().items()}
+        ok = (audio.dtype == np.float32 and n_samples == n_frames * hop == len(wav) // hop * hop
+              and np.isfinite(audio).all() and float(np.abs(audio).max()) > 1e-4
+              and got["rel_attention"] == got["resblock_trio"] == 0)
+        if name.startswith("10s") and not auto:
+            ok = ok and got["rel_attention_bf16"] == 6 and got["resblock_trio_bf16"] == 4
+        log("main-bf16", request=repr(name), seconds=seconds, frames=n_frames, wall_s=f"{wall:.4f}",
+            rtf=f"{wall / seconds:.5f}", rel_attention_bf16=got["rel_attention_bf16"],
+            resblock_trio_bf16=got["resblock_trio_bf16"], peak=f"{np.abs(audio).max():.4f}", ok=ok)
+        if not ok:
+            raise AssertionError(f"bf16 request {name}: bad output or launches {got}")
+    total = _counts()
+    if total["rel_attention_bf16"] == 0 or total["resblock_trio_bf16"] == 0:
+        raise AssertionError(f"the bf16 path did not run its kernels: {total}")
+    log("breakdown", clip="10s", dtype="bf16", **stage_times(svc, long_clip))
+
+    clip = bench_signal(3.0, sr, seed=3)
+    item32 = svc32._prepare_chunk(0, 0, clip, sr, 0.0, False, "dio", 0.05)
+    item16 = svc._prepare_chunk(0, 0, clip, sr, 0.0, False, "dio", 0.05)
+    run = dict(noice_scale=0.0, auto_predict_f0=False, seed=52468, sample_noise=False)
+    a32 = svc32._run_synth_batch([item32], **run)[0]
+    a16 = svc._run_synth_batch([item16], **run)[0]
+    a16_same_units = svc._run_synth_batch([item32], **run)[0]
+    mel = lambda a: mel_spectrogram(torch.from_numpy(a)[None])  # noqa: E731
+    m32, m16 = mel(a32), mel(a16)
+    loud = m32 > m32.max() - LOUD_DB / 20 * np.log(10)  # log-mel is ln of a magnitude
+    l1 = (m16 - m32).abs().mean().item()
+    l1_loud = (m16 - m32).abs()[loud].mean().item()
+    l1_rounding = (mel(torch.from_numpy(a32).bfloat16().float().numpy()) - m32).abs().mean().item()
+    l1_synth = (mel(a16_same_units) - m32).abs().mean().item()
+    units = np.abs(item16["c"] - item32["c"]).max() / np.abs(item32["c"]).max()
+    rel = np.abs(a16 - a32).max() / np.abs(a32).max()
+    ok = l1_loud < MEL_L1_BF16 and rel <= E2E_REL
+    log("main-bf16", what="bf16 vs fp32 request, 3 s clip, noise off", mel_l1_all_bins=f"{l1:.4e}",
+        mel_l1_fp32_audio_rounded_to_bf16=f"{l1_rounding:.4e}",
+        mel_l1_loud_bins=f"{l1_loud:.4e}", loud_share=f"{loud.float().mean().item():.3f}",
+        synthesizer_only_mel_l1=f"{l1_synth:.4e}", units_rel_max_abs=f"{units:.3e}",
+        wave_rel_max_abs=f"{rel:.3e}", limits=f"loud-bin L1<{MEL_L1_BF16}, wave<={E2E_REL}", ok=ok)
+    if not ok:
+        raise AssertionError(f"bf16 and fp32 requests disagree: loud-bin log-mel L1 {l1_loud}, wave {rel}")
+    return total
 
 
 def make_feature_dataset(root: Path, hps, encoder) -> Path:
@@ -532,19 +799,7 @@ def phase_train(tmp: Path, encoder) -> dict:
     opts = [make_optimizer(n.parameters(), hps) for n in (net_g, net_d)]
     gen = torch.Generator(device="cuda").manual_seed(0)
     train_step(net_g, net_d, *opts, batch, hps, generator=gen)  # warm-up
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        train_step(net_g, net_d, *opts, batch, hps, generator=gen)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0) or 0
-        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            dev[e.key] = us
-    busy = sum(dev.values()) / 1e3
+    wall, busy, dev = _profiled(lambda: train_step(net_g, net_d, *opts, batch, hps, generator=gen))
     k1 = sum(v for k, v in dev.items() if "rel_attn_fwd" in k) / 1e3
     k2 = sum(v for k, v in dev.items() if "rel_attn_bwd" in k) / 1e3
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
@@ -555,13 +810,135 @@ def phase_train(tmp: Path, encoder) -> dict:
     for key, us in top:
         print(f"    device {us / 1e3:9.3f} ms  {key[:110]}", flush=True)
     total = {k: sum(r[2][k] for r in records) for k in ("rel_attention", "rel_attention_bwd")}
+    return total, hps
+
+
+def _profiled(fn):
+    """(wall s, device busy ms, {kernel: device us}) of one call of fn under
+    torch.profiler, ending in a synchronize."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            dev[e.key] = us
+    return wall, sum(dev.values()) / 1e3, dev
+
+
+def phase_train_fused_tail(hps) -> dict:
+    """Three full-width GAN steps (train_step) with the generator built
+    fused_tail=True, against the same steps from the same weights, batches
+    and seed with fused_tail=False: K3 runs in the forward, FusedTrio's
+    backward recomputes the plain convs. At every step the losses and the
+    generator's whole gradient agree within STEP_REL (relative, in norm); at
+    the first step, from the same weights, so does each gradient tensor.
+    After it the nets differ: AdamW's first update is lr * sign(g) wherever
+    |g| >> eps, so entries whose gradient is at the rounding level move by
+    +-lr either way, as they do between two runs of the same unfused step on
+    the card. The attention key projections' biases are left out of the
+    per-tensor check: such a bias adds the same amount to every score of a
+    query row, which the softmax removes, so their exact gradient is 0 and
+    the computed one is rounding noise."""
+    from sovits_tpu_torch.models import factory
+    from sovits_tpu_torch.train.data import FeatureDataset, batch_iterator
+    from sovits_tpu_torch.train.optim import make_optimizer
+    from sovits_tpu_torch.train.step import train_step
+
+    it = batch_iterator(FeatureDataset(hps.data.training_files, hps), hps.train.batch_size, seed=7)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in b.items()} for b in itertools.islice(it, 3)]
+    it.close()
+    nets = {}
+    for fused in (False, True):
+        net_g = factory.init_random_(factory.build_synthesizer(hps, "cpu", fused_tail=fused),
+                                     torch.Generator().manual_seed(11)).cuda().train()
+        net_d = factory.init_random_(factory.build_discriminator(hps, "cpu"),
+                                     torch.Generator().manual_seed(12)).cuda().train()
+        nets[fused] = (net_g, net_d, *(make_optimizer(n.parameters(), hps) for n in (net_g, net_d)))
+    gen = torch.Generator(device="cuda")
+    runs = {False: [], True: []}
+    for i, batch in enumerate(batches):
+        for fused in ((False, True) if i % 2 == 0 else (True, False)):  # in turns
+            net_g = nets[fused][0]
+            gen.manual_seed(100 + i)
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = train_step(*nets[fused], batch, hps, generator=gen)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            grads = {n: p.grad.detach().clone() for n, p in net_g.named_parameters() if p.grad is not None}
+            runs[fused].append((wall, {k: float(v) for k, v in m.items()}, grads, _counts()))
+    worst = 0.0
+    for i, ((w0, m0, g0, c0), (w1, m1, g1, c1)) in enumerate(zip(runs[False], runs[True])):
+        loss_rel = max(abs(m1[k] - v) / max(abs(v), 1e-8) for k, v in m0.items())
+        total_rel = (sum((g1[n] - g).square().sum() for n, g in g0.items()).sqrt()
+                     / sum(g.square().sum() for g in g0.values()).sqrt()).item()
+        rel = {n: ((g1[n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+               for n, g in g0.items() if not n.endswith("conv_k.bias")}
+        name, grad_rel = max(rel.items(), key=lambda kv: kv[1])
+        worst = max(worst, loss_rel, total_rel, grad_rel if i == 0 else 0.0)
+        ok = (c1["resblock_trio"] == 4 and c0["resblock_trio"] == 0 and set(g0) == set(g1)
+              and max(loss_rel, total_rel, grad_rel if i == 0 else 0.0) <= STEP_REL)
+        log("train-fused-tail", step=i + 1, unfused_wall_s=f"{w0:.4f}", fused_wall_s=f"{w1:.4f}",
+            resblock_trio=c1["resblock_trio"], rel_attention=c1["rel_attention"],
+            rel_attention_bwd=c1["rel_attention_bwd"], loss_max_rel=f"{loss_rel:.3e}",
+            grad_total_rel=f"{total_rel:.3e}", grad_worst_tensor_rel=f"{grad_rel:.3e}",
+            worst_tensor=name, g_total=f"{m1['loss/g/total']:.4f}", ok=ok)
+        if not ok:
+            raise AssertionError(f"fused-tail step {i + 1} disagrees: losses {m0} vs {m1}, gradient "
+                                 f"{total_rel}, {name} {grad_rel}, launches {c0} / {c1}")
+    total = {k: sum(st[3][k] for st in runs[True]) for k in ("rel_attention", "resblock_trio")}
+    log("train-fused-tail", steps=len(batches), tol=STEP_REL, worst_rel=f"{worst:.3e}", launches=total)
+    # step times: the first steps of a net pay one-time costs, so six more
+    # steps of each, in turns, then one profiled step of each
+    walls = {False: [], True: []}
+    for i in range(6):
+        for fused in ((False, True) if i % 2 == 0 else (True, False)):
+            gen.manual_seed(200 + i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(*nets[fused], batches[i % len(batches)], hps, generator=gen)
+            torch.cuda.synchronize()
+            walls[fused].append(time.perf_counter() - t0)
+    busy = {fused: _profiled(lambda: train_step(*nets[fused], batches[0], hps, generator=gen))[1]
+            for fused in (False, True)}
+    log("train-fused-tail", timed_steps=6, unfused_median_s=f"{np.median(walls[False]):.4f}",
+        fused_median_s=f"{np.median(walls[True]):.4f}",
+        unfused_steps_s=[f"{w:.4f}" for w in walls[False]], fused_steps_s=[f"{w:.4f}" for w in walls[True]],
+        unfused_device_busy_ms=f"{busy[False]:.2f}", fused_device_busy_ms=f"{busy[True]:.2f}")
     return total
 
 
-KERNELS = {
-    "rel_attention": ("sovits_tpu_torch/csrc/rel_attention.cu", "sovits_tpu/ops/attention.py:191"),
+def phase_trio_shift() -> list[dict]:
+    """The K4 microbench at its defaults (C 128, T 55104), as its CLI runs it."""
+    from sovits_tpu_torch.tools import profile_trio_shift
+
+    results = profile_trio_shift.main([])
+    for r in results:
+        log("trio-shift", variant=r["variant"], launches=r["launches"], kernel_ms=f"{r['ms']:.4f}",
+            plain_ms=f"{r['plain_ms']:.4f}", tflops=f"{r['tflops']:.3f}", bound_ms=f"{r['bound_ms']:.4f}")
+        if r["launches"] == 0:
+            raise AssertionError(f"the microbench did not launch K4 ({r['variant']})")
+    return results
+
+
+K1 = ("sovits_tpu_torch/csrc/rel_attention.cu", "sovits_tpu/ops/attention.py:191")
+K3 = ("sovits_tpu_torch/csrc/resblock_trio.cu", "sovits_tpu/ops/fused_stage.py:200")
+K4 = ("sovits_tpu_torch/csrc/trio_shift.cu", "tools/profile_trio_shift.py:106")
+KERNELS = {  # JSON name: (source, TPU kernel it replaces)
+    "rel_attention": K1,
+    "rel_attention_bf16": K1,
     "rel_attention_bwd": ("sovits_tpu_torch/csrc/rel_attention_bwd.cu", "sovits_tpu/ops/attention.py:217"),
-    "resblock_trio": ("sovits_tpu_torch/csrc/resblock_trio.cu", "sovits_tpu/ops/fused_stage.py:200"),
+    "resblock_trio": K3,
+    "resblock_trio_bf16": K3,
+    "trio_shift_bf16": K4,
+    "trio_shift_fp32": K4,
 }
 
 
@@ -570,17 +947,30 @@ def main() -> None:
     phase_build()
     errs = phase_parity()
     with tempfile.TemporaryDirectory() as tmp:
-        svc, infer_launches = phase_main_path(Path(tmp))
+        svc, infer = phase_main_path(Path(tmp))
         phase_card_vs_cpu(Path(tmp), svc)
-        train_launches = phase_train(Path(tmp), svc.encoder)
+        infer_bf16 = phase_main_bf16(Path(tmp), svc)
+        train, hps = phase_train(Path(tmp), svc.encoder)
+        fused_tail = phase_train_fused_tail(hps)
+    k4 = {f"trio_shift_{r['variant']}": r for r in phase_trio_shift()}
     times = phase_times()
-    paths = {k: {"infer": infer_launches[k], "train": train_launches.get(k, 0)} for k in KERNELS}
+    for key, r in k4.items():
+        times[key] = [r["ms"], r["plain_ms"]]
+    paths = {
+        "rel_attention": {"infer": infer["rel_attention"], "train": train["rel_attention"],
+                          "train_fused_tail": fused_tail["rel_attention"]},
+        "rel_attention_bf16": {"infer_bf16": infer_bf16["rel_attention_bf16"]},
+        "rel_attention_bwd": {"train": train["rel_attention_bwd"]},
+        "resblock_trio": {"infer": infer["resblock_trio"], "train_fused_tail": fused_tail["resblock_trio"]},
+        "resblock_trio_bf16": {"infer_bf16": infer_bf16["resblock_trio_bf16"]},
+        **{key: {"microbench": r["launches"]} for key, r in k4.items()},
+    }
     bound = bounds()
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(paths[k].values()), "launches_by_path": paths[k], "max_abs_err": errs[k],
          "ms": times[k][0], "plain_ms": times[k][1], "bound_ms": bound[k][0],
-         "bound_by": bound[k][1], "library_ms": None}
+         "bound_by": bound[k][1], "library_ms": times[k][2] if len(times[k]) > 2 else None}
         for k, (src, rep) in KERNELS.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

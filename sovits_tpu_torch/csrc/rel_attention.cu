@@ -1,4 +1,4 @@
-// Fused relative-position self-attention, forward, fp32 in and out.
+// Fused relative-position self-attention, forward, fp32 or bf16 in and out.
 //
 // Replaces the TPU kernel sovits_tpu/ops/attention.py:_make_fused.fwd_pair
 // (Pallas body _fwd_kernel). Same semantics on [BH, T, D] with q pre-scaled
@@ -15,6 +15,15 @@
 // log-sum-exp per row instead, from which rel_attention_bwd.cu recomputes
 // p = exp(s - lse) exactly as the TPU kernel stored it, masked rows included.
 // With neither mask nor lse pointer (inference) nothing of either is touched.
+//
+// bf16 (the JAX package's bf16 serving path): q, k, v, rel_k, rel_v and out
+// are bf16; the masks and lse stay fp32. Values are widened to fp32 as they
+// are staged, so scores, band, softmax and every sum are fp32, and the
+// output is rounded to bf16 once. The TPU kernel rounds p = softmax(s) to
+// bf16 before p . v and the band sums; this kernel's online softmax never
+// holds p, so it rounds the unnormalised exp(s - running max) that stands in
+// for it instead. Both roundings carry the same relative error (2^-9), and
+// the row sum takes the unrounded values, as the TPU kernel's does.
 // The TPU kernel holds the whole [T, T] score matrix of one (batch, head)
 // on chip, which caps T at 1024. Here one block owns BQ query rows of one
 // (batch, head) and streams the keys in BK-row tiles with an online softmax
@@ -39,8 +48,11 @@
 //
 // Plain C interface, bound with ctypes; returns cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "dtype.cuh"
 
 namespace {
 
@@ -51,11 +63,12 @@ constexpr int MAXD = 128;
 constexpr int DJ = MAXD / 16;  // output columns per thread at most
 constexpr float NEG = -1e4f;   // the reference's masking constant
 
+template <typename T_>
 __global__ void __launch_bounds__(NT) rel_attn_fwd(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ rel_k,
-    const float* __restrict__ rel_v, const float* __restrict__ kmask,
-    const float* __restrict__ dmask, float* __restrict__ out, float* __restrict__ lse,
+    const T_* __restrict__ q, const T_* __restrict__ k,
+    const T_* __restrict__ v, const T_* __restrict__ rel_k,
+    const T_* __restrict__ rel_v, const float* __restrict__ kmask,
+    const float* __restrict__ dmask, T_* __restrict__ out, float* __restrict__ lse,
     int T, int D, int window, int causal) {
   extern __shared__ float sm[];
   const int win = window >= 0 ? 2 * window + 1 : 0;
@@ -85,11 +98,11 @@ __global__ void __launch_bounds__(NT) rel_attn_fwd(
   for (int i = tid; i < BQ * D; i += NT) {
     const int r = i / D, c = i - r * D;
     const int t = q0 + r;
-    sq[r * ld + c] = t < T ? q[base + (size_t)t * D + c] : 0.f;
+    sq[r * ld + c] = t < T ? to_f(q[base + (size_t)t * D + c]) : 0.f;
   }
   for (int i = tid; i < win * D; i += NT) {
-    srk[i] = rel_k[i];
-    srv[i] = rel_v[i];
+    srk[i] = to_f(rel_k[i]);
+    srv[i] = to_f(rel_v[i]);
   }
   for (int i = tid; i < BQ; i += NT) {
     s_m[i] = -INFINITY;
@@ -116,8 +129,8 @@ __global__ void __launch_bounds__(NT) rel_attn_fwd(
       const int r = i / D, c = i - r * D;
       const int u = k0 + r;
       const bool in = u < T;
-      sk[r * ld + c] = in ? k[base + (size_t)u * D + c] : 0.f;
-      sv[r * ld + c] = in ? v[base + (size_t)u * D + c] : 0.f;
+      sk[r * ld + c] = in ? to_f(k[base + (size_t)u * D + c]) : 0.f;
+      sv[r * ld + c] = in ? to_f(v[base + (size_t)u * D + c]) : 0.f;
     }
     __syncthreads();
 
@@ -177,11 +190,12 @@ __global__ void __launch_bounds__(NT) rel_attn_fwd(
       for (int c = l8; c < BK; c += 8) {
         const float e = expf(sp[r * ldp + c] - m_new);
         sum += e;
+        const float er = round_to<T_>(e);  // p in the input type (exact for fp32)
         if (dm) {
           const int u = k0 + c;
-          sp[r * ldp + c] = (dmr && u < T) ? e * dmr[u] : 0.f;
+          sp[r * ldp + c] = (dmr && u < T) ? er * dmr[u] : 0.f;
         } else {
-          sp[r * ldp + c] = e;
+          sp[r * ldp + c] = er;
         }
       }
 #pragma unroll
@@ -242,30 +256,43 @@ __global__ void __launch_bounds__(NT) rel_attn_fwd(
       if (col >= D) continue;
       float o = acc[i][j];
       for (int ow = 0; ow < win; ++ow) o = fmaf(sbv[r * win + ow], srv[ow * D + col], o);
-      out[base + (size_t)t * D + col] = o * inv_l;
+      out[base + (size_t)t * D + col] = from_f<T_>(o * inv_l);
     }
   }
 }
 
-}  // namespace
-
-extern "C" int sovits_rel_attention_fwd(const float* q, const float* k, const float* v,
-                                        const float* rel_k, const float* rel_v,
-                                        const float* kmask, const float* dmask, float* out,
-                                        float* lse, int bh, int t, int d, int window,
-                                        int causal, void* stream) {
-  if (d < 1 || d > MAXD || t < 1 || bh < 1) return (int)cudaErrorInvalidValue;
-  if (window >= 0 && (rel_k == nullptr || rel_v == nullptr)) return (int)cudaErrorInvalidValue;
+template <typename T_>
+int launch(const void* q, const void* k, const void* v, const void* rel_k, const void* rel_v,
+           const float* kmask, const float* dmask, void* out, float* lse, int bh, int t, int d,
+           int window, int causal, cudaStream_t stream) {
   const int win = window >= 0 ? 2 * window + 1 : 0;
   const int ld = d + 1;
   const size_t floats = (size_t)BQ * ld + 2 * (size_t)BK * ld + (size_t)BQ * (BK + 1) +
                         2 * (size_t)win * d + 2 * (size_t)BQ * win + 3 * (size_t)BQ;
   const size_t smem = floats * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(rel_attn_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+  cudaError_t e = cudaFuncSetAttribute(rel_attn_fwd<T_>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((t + BQ - 1) / BQ, bh);
-  rel_attn_fwd<<<grid, NT, smem, (cudaStream_t)stream>>>(q, k, v, rel_k, rel_v, kmask, dmask,
-                                                         out, lse, t, d, window, causal);
+  rel_attn_fwd<T_><<<grid, NT, smem, stream>>>(
+      (const T_*)q, (const T_*)k, (const T_*)v, (const T_*)rel_k, (const T_*)rel_v, kmask, dmask,
+      (T_*)out, lse, t, d, window, causal);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// bf16 = 0: q, k, v, rel_k, rel_v and out are float; 1: __nv_bfloat16.
+extern "C" int sovits_rel_attention_fwd(const void* q, const void* k, const void* v,
+                                        const void* rel_k, const void* rel_v,
+                                        const float* kmask, const float* dmask, void* out,
+                                        float* lse, int bh, int t, int d, int window,
+                                        int causal, int bf16, void* stream) {
+  if (d < 1 || d > MAXD || t < 1 || bh < 1) return (int)cudaErrorInvalidValue;
+  if (window >= 0 && (rel_k == nullptr || rel_v == nullptr)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16)
+    return launch<__nv_bfloat16>(q, k, v, rel_k, rel_v, kmask, dmask, out, lse, bh, t, d, window,
+                                 causal, s);
+  return launch<float>(q, k, v, rel_k, rel_v, kmask, dmask, out, lse, bh, t, d, window, causal, s);
 }

@@ -1,4 +1,4 @@
-// One NSF-HiFiGAN upsample stage's ResBlock1 trio, fused, fp32 in and out.
+// One NSF-HiFiGAN upsample stage's ResBlock1 trio, fused, fp32 or bf16 in and out.
 //
 // Replaces the TPU kernel sovits_tpu/ops/fused_stage.py:
 // fused_resblock_trio_folded (Pallas body kernel_fn). It computes
@@ -32,9 +32,22 @@
 // block of 8 warps runs per SM: latency, not bandwidth, limits it. Tensor
 // cores (mma.sync / wgmma on tf32 or bf16) are the next step.
 //
+// bf16 (the JAX package's bf16 serving path): x, the weights and the output
+// are bf16, the biases fp32, as the TPU kernel takes them (fused_stage.py:
+// 129-130). x and the weights are widened to fp32 as they are staged, and
+// the residual stream, every intermediate and the mean stay fp32 (the TPU
+// kernel's fp32 chain, :183, :215); the mean is rounded to bf16 once. Each
+// conv's input stays exact fp32, as in the TPU kernel's interpret mode (on
+// the TPU the matrix unit's default precision would round it to bf16). The
+// mean over the chains is summed in an fp32 scratch [B, T, C] (for fp32 the
+// output itself) and written as bf16 after the last chain.
+//
 // Plain C interface, bound with ctypes; returns cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "dtype.cuh"
 
 namespace {
 
@@ -51,7 +64,7 @@ struct Plan {
   int n_pairs[MAX_CHAINS];
   int dil[MAX_CHAINS][MAX_PAIRS];
   int halo[MAX_CHAINS];
-  long long w_off[MAX_CONVS];  // float offset of each conv's [k, C, C] weights
+  long long w_off[MAX_CONVS];  // element offset of each conv's [k, C, C] weights
 };
 
 template <int C>
@@ -69,9 +82,9 @@ struct Cfg {
 
 // One 'same' conv over window rows [lo, hi): reads lrelu(in[r + (j-h)*d]),
 // writes (or, with accumulate, adds) bias + sum into dst, zero outside [0, T).
-template <int C>
+template <int C, typename T_>
 __device__ __forceinline__ void conv(const float* __restrict__ in, float* __restrict__ dst,
-                                     bool accumulate, const float* __restrict__ w,
+                                     bool accumulate, const T_* __restrict__ w,
                                      const float* __restrict__ bias, float* __restrict__ wst,
                                      int k, int d, int lo, int hi, int g0, int T) {
   using K = Cfg<C>;
@@ -89,8 +102,8 @@ __device__ __forceinline__ void conv(const float* __restrict__ in, float* __rest
       const int shift = (j - half) * d;
       for (int c0 = 0; c0 < C; c0 += K::KC) {
         __syncthreads();  // everyone is done with the previous chunk (and the previous conv)
-        const float* wj = w + ((size_t)j * C + c0) * C;
-        for (int i = tid; i < K::KC * C; i += NT) wst[i] = wj[i];
+        const T_* wj = w + ((size_t)j * C + c0) * C;
+        for (int i = tid; i < K::KC * C; i += NT) wst[i] = to_f(wj[i]);
         __syncthreads();
 #pragma unroll 4
         for (int cc = 0; cc < K::KC; ++cc) {
@@ -130,10 +143,10 @@ __device__ __forceinline__ void conv(const float* __restrict__ in, float* __rest
   }
 }
 
-template <int C>
+template <int C, typename T_>
 __global__ void __launch_bounds__(NT, 1)
-    trio_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                const float* __restrict__ bias, float* __restrict__ out, int T, int TT,
+    trio_kernel(const T_* __restrict__ x, const T_* __restrict__ w,
+                const float* __restrict__ bias, T_* out, float* acc, int T, int TT,
                 Plan plan) {
   using K = Cfg<C>;
   extern __shared__ float sm[];
@@ -142,8 +155,9 @@ __global__ void __launch_bounds__(NT, 1)
   float* wst = xt + K::R_MAX * K::LD;  // staged weights [KC][C]
 
   const int t0 = blockIdx.x * TT;
-  const float* xb = x + (size_t)blockIdx.y * T * C;
-  float* ob = out + (size_t)blockIdx.y * T * C;
+  const T_* xb = x + (size_t)blockIdx.y * T * C;
+  T_* ob = out + (size_t)blockIdx.y * T * C;
+  float* ab = acc + (size_t)blockIdx.y * T * C;  // for fp32 the output itself
   int ci = 0;
   for (int ch = 0; ch < plan.n_chains; ++ch) {
     const int h = plan.halo[ch];
@@ -155,17 +169,17 @@ __global__ void __launch_bounds__(NT, 1)
     for (int i = threadIdx.x; i < rows * C; i += NT) {
       const int r = i / C, c = i - r * C;
       const int g = g0 + r;
-      xr[r * K::LD + c] = (g >= 0 && g < T) ? xb[(size_t)g * C + c] : 0.f;
+      xr[r * K::LD + c] = (g >= 0 && g < T) ? to_f(xb[(size_t)g * C + c]) : 0.f;
     }
     int rem = h;  // reach still ahead of the conv being run
     for (int p = 0; p < plan.n_pairs[ch]; ++p) {
       const int d = plan.dil[ch][p];
       rem -= half * d;
-      conv<C>(xr, xt, false, w + plan.w_off[ci], bias + ci * C, wst, k, d, h - rem,
+      conv<C, T_>(xr, xt, false, w + plan.w_off[ci], bias + ci * C, wst, k, d, h - rem,
               h + TT + rem, g0, T);
       ++ci;
       rem -= half;
-      conv<C>(xt, xr, true, w + plan.w_off[ci], bias + ci * C, wst, k, 1, h - rem,
+      conv<C, T_>(xt, xr, true, w + plan.w_off[ci], bias + ci * C, wst, k, 1, h - rem,
               h + TT + rem, g0, T);
       ++ci;
     }
@@ -177,26 +191,42 @@ __global__ void __launch_bounds__(NT, 1)
       if (g >= T) continue;
       const size_t o = (size_t)g * C + c;
       const float y = xr[(h + r) * K::LD + c];
-      const float s = ch == 0 ? y : ob[o] + y;  // same thread owns o in every chain
-      ob[o] = last ? s / (float)plan.n_chains : s;
+      const float s = ch == 0 ? y : ab[o] + y;  // same thread owns o in every chain
+      if (last)
+        ob[o] = from_f<T_>(s / (float)plan.n_chains);
+      else
+        ab[o] = s;
     }
   }
 }
 
-template <int C>
-int launch(const float* x, const float* w, const float* bias, float* out, int b, int t,
+template <int C, typename T_>
+int launch(const void* x, const void* w, const float* bias, void* out, float* acc, int b, int t,
            const Plan& plan, cudaStream_t stream) {
   using K = Cfg<C>;
   int hmax = 0;
   for (int i = 0; i < plan.n_chains; ++i) hmax = plan.halo[i] > hmax ? plan.halo[i] : hmax;
   const int tt = K::R_MAX - 2 * hmax;
   if (tt < 16) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(trio_kernel<C>,
+  cudaError_t e = cudaFuncSetAttribute(trio_kernel<C, T_>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, K::SMEM);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((t + tt - 1) / tt, b);
-  trio_kernel<C><<<grid, NT, K::SMEM, stream>>>(x, w, bias, out, t, tt, plan);
+  trio_kernel<C, T_><<<grid, NT, K::SMEM, stream>>>((const T_*)x, (const T_*)w, bias, (T_*)out,
+                                                    acc, t, tt, plan);
   return (int)cudaGetLastError();
+}
+
+template <typename T_>
+int launch_c(int c, const void* x, const void* w, const float* bias, void* out, float* acc, int b,
+             int t, const Plan& plan, cudaStream_t s) {
+  switch (c) {
+    case 16: return launch<16, T_>(x, w, bias, out, acc, b, t, plan, s);
+    case 32: return launch<32, T_>(x, w, bias, out, acc, b, t, plan, s);
+    case 64: return launch<64, T_>(x, w, bias, out, acc, b, t, plan, s);
+    case 128: return launch<128, T_>(x, w, bias, out, acc, b, t, plan, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -204,10 +234,12 @@ int launch(const float* x, const float* w, const float* bias, float* out, int b,
 // ks[n_chains]: odd kernel sizes; n_pairs[n_chains]; dils[n_chains * 3]
 // (row-major, the first n_pairs[i] of row i used). Weights and biases in
 // chain order: chain i, pair p -> conv (k_i, dil) then conv (k_i, 1).
-extern "C" int sovits_resblock_trio(const float* x, const float* w, const float* bias,
-                                    float* out, int b, int t, int c, int n_chains,
+// bf16 = 0: x, w and out are float and acc is out; 1: __nv_bfloat16, and
+// acc an fp32 scratch of [B, T, C]. Biases are fp32 either way.
+extern "C" int sovits_resblock_trio(const void* x, const void* w, const float* bias, void* out,
+                                    float* acc, int b, int t, int c, int n_chains,
                                     const int* ks, const int* n_pairs, const int* dils,
-                                    void* stream) {
+                                    int bf16, void* stream) {
   if (b < 1 || t < 1 || n_chains < 1 || n_chains > MAX_CHAINS) return (int)cudaErrorInvalidValue;
   Plan plan{};
   plan.n_chains = n_chains;
@@ -232,12 +264,8 @@ extern "C" int sovits_resblock_trio(const float* x, const float* w, const float*
     }
     plan.halo[i] = halo;
   }
+  if (acc == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (c) {
-    case 16: return launch<16>(x, w, bias, out, b, t, plan, s);
-    case 32: return launch<32>(x, w, bias, out, b, t, plan, s);
-    case 64: return launch<64>(x, w, bias, out, b, t, plan, s);
-    case 128: return launch<128>(x, w, bias, out, b, t, plan, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (bf16) return launch_c<__nv_bfloat16>(c, x, w, bias, out, acc, b, t, plan, s);
+  return launch_c<float>(c, x, w, bias, out, acc, b, t, plan, s);
 }

@@ -34,19 +34,22 @@ class F0FilterException(Exception):
 
 class Svc:
     def __init__(self, net_g_path: str, config_path: str, encoder=None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", dtype: torch.dtype = torch.float32):
         """Build the synthesizer from ``config_path`` on ``device`` and load
         ``net_g_path``: a so-vits-svc ``G_*.pth`` ({"model": state_dict}) or
         an ``.npz`` of the JAX package's flattened params. ``encoder`` is a
         speech encoder (``encoders.factory``); when None, the config's
-        encoder is loaded from its default checkpoint on first use."""
+        encoder is loaded from its default checkpoint on first use.
+        ``dtype`` is the synthesizer's compute type (float32 or bfloat16);
+        only the synthesizer takes it, as in the JAX package, and the audio
+        comes back float32."""
         self.device = torch.device(device)
         self.hps = scfg.load_config(config_path)
         self.target_sample = self.hps.data.sampling_rate
         self.hop_size = self.hps.data.hop_length
         self.spk2id = dict(self.hps.spk.items()) if self.hps.spk else {}
         self.unit_interpolate_mode = self.hps.data.unit_interpolate_mode or "left"
-        self.model = factory.build_synthesizer(self.hps, self.device, fused_tail=True)
+        self.model = factory.build_synthesizer(self.hps, self.device, fused_tail=True, dtype=dtype)
         self.model.load_state_dict(self._load_state_dict(net_g_path), strict=True)
         self.f0_predictor_object = None
         self._encoder = encoder
@@ -155,7 +158,7 @@ class Svc:
                     predict_f0=bool(auto_predict_f0), sample_noise=sample_noise,
                     lengths=lengths, generator=generator,
                 )
-                audio = audio.cpu().numpy()
+                audio = audio.float().cpu().numpy()
                 for row, i in enumerate(sub):
                     out[i] = audio[row, : items[i]["n_frames"] * self.hop_size, 0]
         return out

@@ -43,11 +43,14 @@ def synthesizer_kwargs(hps) -> dict:
     return kw
 
 
-def build_synthesizer(hps, device: torch.device | str, *, fused_tail: bool) -> Synthesizer:
-    """The synthesizer for ``hps`` on ``device``. Each caller decides the
-    vocoder tail: ``Svc`` keeps the fused one (``fused_tail=True``), the
-    trainer the plain convs (``False``), as the JAX trainer does."""
-    return Synthesizer(**synthesizer_kwargs(hps), fused_tail=fused_tail).to(device).eval()
+def build_synthesizer(hps, device: torch.device | str, *, fused_tail: bool,
+                      dtype: torch.dtype = torch.float32) -> Synthesizer:
+    """The synthesizer for ``hps`` on ``device``, computing in ``dtype``
+    (parameters stay float32). Each caller decides the vocoder tail: ``Svc``
+    keeps the fused one (``fused_tail=True``), the trainer the plain convs
+    (``False``), as the JAX trainer does."""
+    model = Synthesizer(**synthesizer_kwargs(hps), fused_tail=fused_tail, dtype=dtype)
+    return model.to(device).eval()
 
 
 def build_discriminator(hps, device: torch.device | str) -> MultiPeriodDiscriminator:

@@ -19,13 +19,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.conv import WNConv1d, WNConvTranspose1d
+from ..nn.conv import Cast, Conv1d, WNConv1d, WNConvTranspose1d
 from ..nn.resblocks import LRELU_SLOPE, ResBlock1
 from ..ops.fused_stage import TRIO_CHANNELS, fused_resblock_trio
 
 
-class SourceModuleHnNSF(nn.Module):
-    """Harmonic sine source merged to one excitation channel (linear + tanh)."""
+class SourceModuleHnNSF(Cast, nn.Module):
+    """Harmonic sine source merged to one excitation channel (linear + tanh),
+    computed in float32 and returned in the compute type (``har_source``)."""
 
     def __init__(self, sampling_rate: int, harmonic_num: int = 8, sine_amp: float = 0.1,
                  add_noise_std: float = 0.003, voiced_threshold: float = 0.0):
@@ -66,7 +67,7 @@ class SourceModuleHnNSF(nn.Module):
         else:
             sines = sines * uv4
         merged = torch.einsum("bhtu,h->btu", sines, self.l_linear.weight[0]) + self.l_linear.bias
-        har_source = torch.tanh(merged.reshape(b, 1, t_f * upp))
+        har_source = torch.tanh(merged.reshape(b, 1, t_f * upp)).to(self.dtype)
         uv = uv4.expand(b, 1, t_f, upp).reshape(b, 1, t_f * upp)
         return har_source, uv
 
@@ -80,9 +81,9 @@ class Generator(nn.Module):
                  upsample_kernel_sizes=(16, 16, 4, 4, 4), gin_channels: int = 768,
                  fused_tail: bool = False):
         """``fused_tail`` (the JAX package's name) runs the stages of width
-        16-128 through the fused ResBlock trio; without it every stage runs
-        the plain ResBlock1 convs, which training needs (the trio kernel has
-        no backward)."""
+        16-128 through the fused ResBlock trio (differentiable: its backward
+        recomputes the plain convs); without it every stage runs the plain
+        ResBlock1 convs, as the trainer does."""
         super().__init__()
         self.fused_tail = fused_tail
         self.upsample_rates = tuple(upsample_rates)
@@ -101,13 +102,13 @@ class Generator(nn.Module):
             self.ups.append(WNConvTranspose1d(ch * 2, ch, k, u, padding=(k - u + 1) // 2))
             if i + 1 < len(upsample_rates):
                 s = int(np.prod(upsample_rates[i + 1 :]))
-                self.noise_convs.append(nn.Conv1d(1, ch, s * 2, stride=s, padding=(s + 1) // 2))
+                self.noise_convs.append(Conv1d(1, ch, s * 2, stride=s, padding=(s + 1) // 2))
             else:
-                self.noise_convs.append(nn.Conv1d(1, ch, 1))
+                self.noise_convs.append(Conv1d(1, ch, 1))
             for rk, rd in zip(self.kernel_sizes, self.dilation_sizes):
                 self.resblocks.append(ResBlock1(ch, rk, rd))
         self.conv_post = WNConv1d(self.stage_channels[-1], 1, 7, padding=3)
-        self.cond = nn.Conv1d(gin_channels, upsample_initial_channel, 1)
+        self.cond = Conv1d(gin_channels, upsample_initial_channel, 1)
 
     def forward(self, x: torch.Tensor, f0: torch.Tensor, g: torch.Tensor | None = None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -123,7 +124,8 @@ class Generator(nn.Module):
             if self.fused_tail and ch in TRIO_CHANNELS:
                 # dispatch by stage width, as the JAX package's fold * C == 128
                 # condition does: these stages run the fused trio (kernel on
-                # CUDA, its plain version on the CPU); wider ones plain convs
+                # CUDA, its plain version on the CPU; under autograd through
+                # FusedTrio); wider ones plain convs
                 pairs = [p for block in blocks for p in block.chain_weights()]
                 x = fused_resblock_trio(
                     x.transpose(1, 2).contiguous(), [p[0] for p in pairs], [p[1] for p in pairs],

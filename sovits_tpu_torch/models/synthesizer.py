@@ -12,6 +12,12 @@ training ``forward`` also takes spec [B, T, F] and returns its tensors as
 All randomness of the training forward (dropout masks, the f0 random
 scale, the posterior noise, the slice offsets, the source's phases and
 noise) comes from one explicit ``torch.Generator``.
+
+``dtype`` is the JAX module's compute type (``Synthesizer(dtype=...)``):
+parameters stay float32 and every submodule computes in ``dtype``. As in
+the JAX package, the masks take the type of the units ``c`` (float32 from
+``Svc``), so the products with them promote back to float32 where the JAX
+modules' do, and the prior noise is drawn in the type of its mean.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from torch import nn
 from ..dsp.f0 import f0_to_coarse, f0_to_lf0, lf0_to_f0, normalize_f0
 from ..dsp.sequence import rand_slice_segments_with_pitch, sequence_mask
 from ..nn.attention import FFT, Encoder
+from ..nn.conv import Conv1d, Embedding, set_compute_dtype
 from ..nn.flows import ResidualCouplingBlock
 from ..nn.wavenet import WN
 from .nsf_hifigan import Generator
@@ -36,10 +43,10 @@ class ContentEncoder(nn.Module):
                  n_heads: int, n_layers: int, kernel_size: int, p_dropout: float = 0.0):
         super().__init__()
         self.out_channels = out_channels
-        self.f0_emb = nn.Embedding(256, hidden_channels)
+        self.f0_emb = Embedding(256, hidden_channels)
         self.enc_ = Encoder(hidden_channels, filter_channels, n_heads, n_layers, kernel_size,
                             p_dropout=p_dropout)
-        self.proj = nn.Conv1d(hidden_channels, out_channels * 2, 1)
+        self.proj = Conv1d(hidden_channels, out_channels * 2, 1)
 
     def forward(self, x, x_mask, f0_coarse, noise_scale: float = 1.0,
                 generator: torch.Generator | None = None, sample_noise: bool = False,
@@ -63,9 +70,9 @@ class PosteriorEncoder(nn.Module):
                  kernel_size: int, dilation_rate: int, n_layers: int, gin_channels: int = 0):
         super().__init__()
         self.out_channels = out_channels
-        self.pre = nn.Conv1d(in_channels, hidden_channels, 1)
+        self.pre = Conv1d(in_channels, hidden_channels, 1)
         self.enc = WN(hidden_channels, kernel_size, dilation_rate, n_layers, gin_channels)
-        self.proj = nn.Conv1d(hidden_channels, out_channels * 2, 1)
+        self.proj = Conv1d(hidden_channels, out_channels * 2, 1)
 
     def forward(self, spec, lengths, g=None, generator: torch.Generator | None = None):
         """spec [B, F, T], lengths [B] -> (z, m, logs, x_mask [B, 1, T]); the
@@ -87,12 +94,12 @@ class F0Decoder(nn.Module):
                  n_heads: int, n_layers: int, kernel_size: int, spk_channels: int = 0,
                  p_dropout: float = 0.0):
         super().__init__()
-        self.prenet = nn.Conv1d(hidden_channels, hidden_channels, 3, padding=1)
+        self.prenet = Conv1d(hidden_channels, hidden_channels, 3, padding=1)
         self.decoder = FFT(hidden_channels, filter_channels, n_heads, n_layers, kernel_size,
                            p_dropout=p_dropout)
-        self.proj = nn.Conv1d(hidden_channels, out_channels, 1)
-        self.f0_prenet = nn.Conv1d(1, hidden_channels, 3, padding=1)
-        self.cond = nn.Conv1d(spk_channels, hidden_channels, 1)
+        self.proj = Conv1d(hidden_channels, out_channels, 1)
+        self.f0_prenet = Conv1d(1, hidden_channels, 3, padding=1)
+        self.cond = Conv1d(spk_channels, hidden_channels, 1)
 
     def forward(self, x, norm_f0, x_mask, spk_emb=None, drop_generator=None):
         """x [B, H, T], norm_f0 [B, 1, T] -> pred lf0 [B, 1, T]."""
@@ -130,16 +137,17 @@ class Synthesizer(nn.Module):
         n_flow_layer: int = 4,
         n_layers_q: int = 16,
         fused_tail: bool = False,
+        dtype: torch.dtype = torch.float32,
     ):
         """``segment_size`` is in latent frames (segment samples // hop);
-        ``fused_tail`` decodes through the fused ResBlock trio (inference
-        only: the kernel has no backward)."""
+        ``fused_tail`` decodes through the fused ResBlock trio;
+        ``dtype`` is the compute type (float32 or bfloat16)."""
         super().__init__()
         self.segment_size = segment_size
         self.use_automatic_f0_prediction = use_automatic_f0_prediction
-        self.emb_g = nn.Embedding(n_speakers, gin_channels)
-        self.emb_uv = nn.Embedding(2, hidden_channels)
-        self.pre = nn.Conv1d(ssl_dim, hidden_channels, 5, padding=2)
+        self.emb_g = Embedding(n_speakers, gin_channels)
+        self.emb_uv = Embedding(2, hidden_channels)
+        self.pre = Conv1d(ssl_dim, hidden_channels, 5, padding=2)
         self.enc_p = ContentEncoder(inter_channels, hidden_channels, filter_channels, n_heads,
                                     n_layers, kernel_size, p_dropout)
         self.enc_q = PosteriorEncoder(spec_channels, inter_channels, hidden_channels, 5, 1,
@@ -154,6 +162,7 @@ class Synthesizer(nn.Module):
         self.dec = Generator(sampling_rate, inter_channels, resblock_kernel_sizes,
                              resblock_dilation_sizes, upsample_rates, upsample_initial_channel,
                              upsample_kernel_sizes, gin_channels, fused_tail=fused_tail)
+        set_compute_dtype(self, dtype)
 
     def _speaker_embedding(self, spk: torch.Tensor) -> torch.Tensor:
         """int ids [B] (or [B, 1]) -> [B, gin, 1]; float mix [B, T, S] -> [B, gin, T]."""

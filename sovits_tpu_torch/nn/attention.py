@@ -12,6 +12,10 @@ Dropout sits where the JAX package puts it: on the attention weights (as a
 path), after the FFN's activation, and on both residual branches of the
 Encoder and FFT layers. It is active only when a ``drop_generator`` is
 passed; inference passes none and is deterministic.
+
+Compute type (``nn.conv.Cast``), as the JAX modules': the projections run
+in it, so q/k/v reach the kernel in it; the dense path's scores are in it
+and its softmax in float32; the LayerNorms' statistics are float32.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import NEG, fused_attention
+from .conv import Conv1d
 from .dropout import dropout, keep_mask
 from .norm import LayerNorm
 
@@ -62,10 +67,10 @@ class MultiHeadAttention(nn.Module):
         self.n_heads = n_heads
         self.k_channels = channels // n_heads
         self.window_size = window_size
-        self.conv_q = nn.Conv1d(channels, channels, 1)
-        self.conv_k = nn.Conv1d(channels, channels, 1)
-        self.conv_v = nn.Conv1d(channels, channels, 1)
-        self.conv_o = nn.Conv1d(channels, out_channels, 1)
+        self.conv_q = Conv1d(channels, channels, 1)
+        self.conv_k = Conv1d(channels, channels, 1)
+        self.conv_v = Conv1d(channels, channels, 1)
+        self.conv_o = Conv1d(channels, out_channels, 1)
         if window_size is not None:  # one Shaw table shared by all heads, as so-vits-svc
             std = self.k_channels**-0.5
             self.emb_rel_k = nn.Parameter(torch.randn(1, 2 * window_size + 1, self.k_channels) * std)
@@ -111,18 +116,20 @@ class MultiHeadAttention(nn.Module):
             scores = torch.matmul(q, k.transpose(2, 3))
             if w is not None:
                 key_rel = _window_relative_embeddings(self.emb_rel_k, t_s, w)
-                scores = scores + _relative_to_absolute(torch.einsum("bhtd,gmd->bhtm", q, key_rel))
+                scores = scores + _relative_to_absolute(
+                    torch.einsum("bhtd,gmd->bhtm", q, key_rel.to(q.dtype)))
             if causal:
                 tri = torch.ones(t_t, t_s, dtype=torch.bool, device=x.device).triu(1)
                 scores = scores.masked_fill(tri, NEG)
             if attn_mask is not None:
                 scores = scores.masked_fill(attn_mask == 0, NEG)
-            p = torch.softmax(scores.float(), dim=-1).to(v.dtype)
+            p = torch.softmax(scores.float(), dim=-1)
             if dm is not None:
                 p = p * dm.view(b, h, t_t, t_s)
+            p = p.to(v.dtype)
             out = torch.matmul(p, v)
             if w is not None:
-                value_rel = _window_relative_embeddings(self.emb_rel_v, t_s, w)
+                value_rel = _window_relative_embeddings(self.emb_rel_v, t_s, w).to(p.dtype)
                 out = out + torch.einsum("bhtm,gmd->bhtd", _absolute_to_relative(p), value_rel)
         return self.conv_o(out.transpose(2, 3).reshape(b, ch, t_t))
 
@@ -132,8 +139,8 @@ class FFN(nn.Module):
                  kernel_size: int, causal: bool = False, p_dropout: float = 0.0):
         super().__init__()
         self.p_dropout = p_dropout
-        self.conv_1 = nn.Conv1d(in_channels, filter_channels, kernel_size)
-        self.conv_2 = nn.Conv1d(filter_channels, out_channels, kernel_size)
+        self.conv_1 = Conv1d(in_channels, filter_channels, kernel_size)
+        self.conv_2 = Conv1d(filter_channels, out_channels, kernel_size)
         if kernel_size == 1:
             self.pad = (0, 0)
         elif causal:

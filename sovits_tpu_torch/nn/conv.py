@@ -1,4 +1,5 @@
-"""Weight-normed convolutions (counterpart of ``sovits_tpu/nn/conv.py``).
+"""Convolutions, dense layers and embeddings with a compute type, and
+weight-normed convolutions (counterpart of ``sovits_tpu/nn/conv.py``).
 
 so-vits-svc stores weight-normed convs as ``weight_g`` / ``weight_v``; these
 modules keep those names and torch layouts, so a reference ``G_*.pth`` or
@@ -10,7 +11,13 @@ modules keep those names and torch layouts, so a reference ``G_*.pth`` or
   value, refolded whenever g or v changed since the last fold (an optimizer
   step, ``load_state_dict``, an in-place edit, a move to another device).
 
-Plain convs are ``torch.nn.Conv1d``. None of the JAX package's folded,
+Compute type: as in the JAX modules, parameters stay float32 (their
+``param_dtype``) and ``dtype`` is the type a module computes in: it casts
+its input, weight and bias to it, and its output is in it. The weight norm
+is folded in float32 first; the folded weight's copy in the compute type is
+kept beside it and refolded with it. ``set_compute_dtype`` sets ``dtype`` on
+every such module under a root. Plain convs are :class:`Conv1d` (a
+``torch.nn.Conv1d`` with a compute type). None of the JAX package's folded,
 block-dense, convvjp or im2col lowerings is ported: they are TPU layout work.
 """
 
@@ -21,7 +28,46 @@ import torch.nn.functional as F
 from torch import nn
 
 
-class WeightNormed(nn.Module):
+class Cast:
+    """Mixin: ``dtype`` is the module's compute type (float32 by default)."""
+
+    dtype = torch.float32
+
+    def cast_bias(self) -> torch.Tensor | None:
+        return None if self.bias is None else self.bias.to(self.dtype)
+
+
+def set_compute_dtype(root: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Set the compute type of every :class:`Cast` module under ``root``."""
+    for module in root.modules():
+        if isinstance(module, Cast):
+            module.dtype = dtype
+    return root
+
+
+class Conv1d(Cast, nn.Conv1d):
+    """``torch.nn.Conv1d`` in the compute type (the JAX ``Conv1d`` without
+    weight norm)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x.to(self.dtype), self.weight.to(self.dtype), self.cast_bias())
+
+
+class Linear(Cast, nn.Linear):
+    """``torch.nn.Linear`` in the compute type (the JAX ``nn.Dense``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), self.cast_bias())
+
+
+class Embedding(Cast, nn.Embedding):
+    """``torch.nn.Embedding`` returning the compute type (the JAX ``nn.Embed``)."""
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return super().forward(ids).to(self.dtype)
+
+
+class WeightNormed(Cast, nn.Module):
     """Holds weight_g / weight_v / bias; norm over every dim but ``_g_dim``."""
 
     _g_dim = 0
@@ -51,15 +97,17 @@ class WeightNormed(nn.Module):
     @torch.no_grad()
     def fold_weight_norm(self) -> None:
         self.weight = self.weight_g * self.weight_v / self._norm(self.weight_v)
-        self._folded_from = self._source()
+        self._weight_cast = self.weight.to(self.dtype)  # the buffer itself for float32
+        self._folded_from = (self._source(), self.dtype)
 
     def effective_weight(self) -> torch.Tensor:
-        """g * v / ||v||, differentiable when g or v trains, else the folded buffer."""
+        """g * v / ||v|| in the compute type: differentiable when g or v
+        trains, else the folded buffer (or its compute-type copy)."""
         if torch.is_grad_enabled() and (self.weight_g.requires_grad or self.weight_v.requires_grad):
-            return self.weight_g * self.weight_v / self._norm(self.weight_v)
-        if self._folded_from != self._source():
+            return (self.weight_g * self.weight_v / self._norm(self.weight_v)).to(self.dtype)
+        if self._folded_from != (self._source(), self.dtype):
             self.fold_weight_norm()
-        return self.weight
+        return self._weight_cast
 
 
 class WNConv1d(WeightNormed):
@@ -71,8 +119,8 @@ class WNConv1d(WeightNormed):
         super().__init__((out_channels, in_channels // groups, kernel_size), out_channels, bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv1d(x, self.effective_weight(), self.bias, self.stride, self.padding,
-                        self.dilation, self.groups)
+        return F.conv1d(x.to(self.dtype), self.effective_weight(), self.cast_bias(), self.stride,
+                        self.padding, self.dilation, self.groups)
 
 
 class WNConv2d(WeightNormed):
@@ -85,7 +133,8 @@ class WNConv2d(WeightNormed):
         super().__init__((out_channels, in_channels, *kernel_size), out_channels, bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.effective_weight(), self.bias, self.stride, self.padding)
+        return F.conv2d(x.to(self.dtype), self.effective_weight(), self.cast_bias(), self.stride,
+                        self.padding)
 
 
 class WNConvTranspose1d(WeightNormed):
@@ -98,4 +147,5 @@ class WNConvTranspose1d(WeightNormed):
         super().__init__((in_channels, out_channels, kernel_size), out_channels, bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose1d(x, self.effective_weight(), self.bias, self.stride, self.padding)
+        return F.conv_transpose1d(x.to(self.dtype), self.effective_weight(), self.cast_bias(),
+                                  self.stride, self.padding)

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .conv import Conv1d
 from .wavenet import WN
 
 
@@ -23,9 +24,9 @@ class ResidualCouplingLayer(nn.Module):
                  dilation_rate: int, n_layers: int, gin_channels: int = 0):
         super().__init__()
         self.half = channels // 2
-        self.pre = nn.Conv1d(self.half, hidden_channels, 1)
+        self.pre = Conv1d(self.half, hidden_channels, 1)
         self.enc = WN(hidden_channels, kernel_size, dilation_rate, n_layers, gin_channels)
-        self.post = nn.Conv1d(hidden_channels, self.half, 1)
+        self.post = Conv1d(hidden_channels, self.half, 1)
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor, g: torch.Tensor | None = None,
                 reverse: bool = False) -> torch.Tensor:

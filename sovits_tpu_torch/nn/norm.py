@@ -6,9 +6,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .conv import Cast
 
-class LayerNorm(nn.Module):
-    """so-vits-svc's channel LayerNorm on [B, C, T]: parameters gamma, beta."""
+
+class LayerNorm(Cast, nn.Module):
+    """so-vits-svc's channel LayerNorm on [B, C, T]: parameters gamma, beta.
+    Statistics and affine in float32; the output in the compute type."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -17,5 +20,5 @@ class LayerNorm(nn.Module):
         self.beta = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.transpose(1, -1), (x.shape[1],), self.gamma, self.beta, self.eps)
-        return y.transpose(1, -1)
+        y = F.layer_norm(x.float().transpose(1, -1), (x.shape[1],), self.gamma, self.beta, self.eps)
+        return y.transpose(1, -1).to(self.dtype)

@@ -35,10 +35,11 @@ class ResBlock1(nn.Module):
         return x
 
     def chain_weights(self) -> list[tuple[torch.Tensor, torch.Tensor]]:
-        """The 6 (kernel [k, C_in, C_out], bias [C]) pairs in chain order,
-        the layout ``ops.fused_stage.fused_resblock_trio`` takes."""
+        """The 6 (kernel [k, C_in, C_out], bias [C]) pairs in chain order and
+        in the compute type, the layout ``ops.fused_stage.fused_resblock_trio``
+        takes (the JAX module's ``return_weights``)."""
         return [
-            (conv.effective_weight().permute(2, 1, 0), conv.bias)
+            (conv.effective_weight().permute(2, 1, 0), conv.cast_bias())
             for pair in zip(self.convs1, self.convs2)
             for conv in pair
         ]

@@ -9,6 +9,12 @@ dropout mask of keep/(1-rate) values, drawn by the caller. Masked and
 causal scores are *replaced* by -1e4, so a fully masked row softmaxes to a
 uniform row, as in the reference.
 
+Types, as the TPU kernel's: q, k, v and the rel tables in fp32 or bf16 (the
+tables are cast to q's type, as ``fused_attention`` casts them there); the
+masks fp32. Scores, band and softmax are fp32; p is rounded to the input
+type before p . v and the band sums; the output is in the input type. The
+backward kernel takes fp32 only.
+
 ``fused_attention`` dispatches by device: CPU tensors go to the plain
 versions; CUDA tensors launch ``csrc/rel_attention.cu`` (forward) and, when
 a gradient is needed, ``csrc/rel_attention_bwd.cu`` (backward), or raise.
@@ -50,11 +56,13 @@ def _add_band_(m: torch.Tensor, band: torch.Tensor, window: int) -> torch.Tensor
 
 
 def _scores(q, k, rel_k, key_mask, window, causal) -> torch.Tensor:
-    """q . k^T with the band added and the masks replayed (fp32)."""
+    """q . k^T with the band added and the masks replayed, all in fp32 (bf16
+    inputs are widened: their products are exact in fp32)."""
     t = q.shape[1]
-    scores = torch.matmul(q, k.transpose(1, 2)).float()
+    q = q.float()
+    scores = torch.matmul(q, k.float().transpose(1, 2))
     if window is not None:
-        _add_band_(scores, torch.matmul(q, rel_k.to(q.dtype).t()).float(), window)
+        _add_band_(scores, torch.matmul(q, rel_k.float().t()), window)
     if causal:
         scores = scores.masked_fill(torch.ones(t, t, dtype=torch.bool, device=q.device).triu(1), NEG)
     if key_mask is not None:
@@ -63,19 +71,21 @@ def _scores(q, k, rel_k, key_mask, window, causal) -> torch.Tensor:
 
 
 def _probs(q, k, rel_k, key_mask, window, causal) -> torch.Tensor:
+    """The fp32 softmax, rounded to the input type (the TPU kernel's p_lo)."""
     return torch.softmax(_scores(q, k, rel_k, key_mask, window, causal), dim=-1).to(q.dtype)
 
 
 def fused_attention_plain(q, k, v, rel_k=None, rel_v=None, key_mask=None, drop_mask=None, *,
                           window: int | None = None, causal: bool = False) -> torch.Tensor:
-    """Dense PyTorch version of the forward kernel: the whole [BH, T, T] at once."""
-    pt = _probs(q, k, rel_k, key_mask, window, causal)
+    """Dense PyTorch version of the forward kernel: the whole [BH, T, T] at
+    once, its sums in fp32 and the output in the input type."""
+    pt = _probs(q, k, rel_k, key_mask, window, causal).float()
     if drop_mask is not None:
         pt = pt * drop_mask
-    out = torch.matmul(pt, v)
+    out = torch.matmul(pt.to(q.dtype).float(), v.float())
     if window is not None:
-        out = out + torch.matmul(_to_band(pt, window), rel_v.to(out.dtype))
-    return out
+        out = out + torch.matmul(_to_band(pt, window), rel_v.float())
+    return out.to(q.dtype)
 
 
 def fused_attention_bwd_plain(q, k, v, rel_k, rel_v, key_mask, drop_mask, dout, *,
@@ -102,12 +112,20 @@ def fused_attention_bwd_plain(q, k, v, rel_k, rel_v, key_mask, drop_mask, dout, 
     return dq, dk, dv, drel_k, drel_v
 
 
-def _check(q, k, v, rel_k, rel_v, key_mask, drop_mask, window, what: str) -> None:
+def _check(q, k, v, rel_k, rel_v, key_mask, drop_mask, window, what: str,
+           dtypes=(torch.float32, torch.bfloat16)) -> None:
+    """Raise on what the kernels do not take: q, k, v and the rel tables of
+    one type in ``dtypes``, float32 masks, all contiguous on q's device."""
     bh, t, d = q.shape
-    tensors = [x for x in (q, k, v, rel_k, rel_v, key_mask, drop_mask) if x is not None]
-    for x in tensors:
-        if x.device != q.device or x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"{what}: contiguous float32 tensors on one CUDA device")
+    if q.dtype not in dtypes:
+        raise ValueError(f"{what}: q/k/v must be one of {dtypes}, got {q.dtype}")
+    for x in (q, k, v, rel_k, rel_v, key_mask, drop_mask):
+        if x is None:
+            continue
+        want = torch.float32 if x is key_mask or x is drop_mask else q.dtype
+        if x.device != q.device or x.dtype != want or not x.is_contiguous():
+            raise ValueError(f"{what}: contiguous tensors on one CUDA device: q, k, v and the "
+                             f"rel tables {q.dtype}, the masks float32")
     if k.shape != q.shape or v.shape != q.shape or not 1 <= d <= 128:
         raise ValueError(f"{what}: q/k/v must share [BH, T, D<=128], got {tuple(q.shape)}")
     if window is not None and (rel_k.shape != (2 * window + 1, d) or rel_v.shape != rel_k.shape):
@@ -138,10 +156,11 @@ def _forward(q, k, v, rel_k, rel_v, key_mask, drop_mask, window, causal, want_ls
     rc = build.load("rel_attention").lib.sovits_rel_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rel_k), _ptr(rel_v), _ptr(key_mask),
         _ptr(drop_mask), out.data_ptr(), _ptr(lse), bh, t, d, -1 if window is None else window,
-        int(causal), torch.cuda.current_stream(q.device).cuda_stream,
+        int(causal), int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(rc, "rel_attention launch")
     fused_attention.launches += 1
+    fused_attention.launches_bf16 += q.dtype == torch.bfloat16
     return out, lse
 
 
@@ -155,7 +174,8 @@ def fused_attention_bwd(q, k, v, rel_k, rel_v, key_mask, drop_mask, out, lse, do
                                          window=window, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention_bwd: unsupported device {q.device}")
-    _check(q, k, v, rel_k, rel_v, key_mask, drop_mask, window, "fused_attention_bwd")
+    _check(q, k, v, rel_k, rel_v, key_mask, drop_mask, window, "fused_attention_bwd",
+           dtypes=(torch.float32,))
     for x in (out, dout):
         if x.shape != q.shape or x.dtype != torch.float32 or not x.is_contiguous() or x.device != q.device:
             raise ValueError("fused_attention_bwd: out and dout must be contiguous float32 like q")
@@ -216,6 +236,8 @@ def fused_attention(q, k, v, rel_k=None, rel_v=None, key_mask=None, drop_mask=No
     """
     if (window is None) != (rel_k is None) or (rel_k is None) != (rel_v is None):
         raise ValueError("rel_k and rel_v are given exactly when window is")
+    if window is not None:  # the tables in q's type, as the JAX wrapper casts them
+        rel_k, rel_v = rel_k.to(q.dtype), rel_v.to(q.dtype)
     trained = [x for x in (q, k, v, rel_k, rel_v) if x is not None and x.requires_grad]
     if torch.is_grad_enabled() and trained:
         return FusedAttention.apply(q, k, v, rel_k, rel_v, key_mask, drop_mask, window, causal)
@@ -223,4 +245,5 @@ def fused_attention(q, k, v, rel_k=None, rel_v=None, key_mask=None, drop_mask=No
 
 
 fused_attention.launches = 0  # forward kernel launches since the last reset
+fused_attention.launches_bf16 = 0  # of which with bf16 inputs
 fused_attention_bwd.launches = 0  # backward kernel launches since the last reset

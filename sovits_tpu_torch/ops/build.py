@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
 for Hopper (``sm_90a``) into ``build/sovits_tpu_torch/lib<name>-<hash>.so``
-at the repository root, where ``<hash>`` covers the source and the flags, so
-an edited source is rebuilt and an unchanged one is reused. Nothing here runs
+at the repository root, where ``<hash>`` covers the source, the headers
+(``*.cuh``) beside it and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused. Nothing here runs
 at import time: the CPU tests import every module, and a machine without
 nvcc only fails when a kernel is actually requested. ``load_all`` starts one
 nvcc per source at once, so building every kernel takes as long as the
@@ -35,13 +36,16 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # name -> {C symbol: argtypes}; every symbol returns a cudaError_t as int
 SIGNATURES = {
     "rel_attention": {
-        "sovits_rel_attention_fwd": [_P] * 9 + [_I] * 5 + [_P],
+        "sovits_rel_attention_fwd": [_P] * 9 + [_I] * 6 + [_P],
     },
     "rel_attention_bwd": {
         "sovits_rel_attention_bwd": [_P] * 16 + [_I] * 5 + [_P],
     },
     "resblock_trio": {
-        "sovits_resblock_trio": [_P] * 4 + [_I] * 4 + [_IP] * 3 + [_P],
+        "sovits_resblock_trio": [_P] * 5 + [_I] * 4 + [_IP] * 3 + [_I, _P],
+    },
+    "trio_shift": {
+        "sovits_trio_shift": [_P] * 3 + [_I] * 3 + [_P],
     },
 }
 
@@ -70,8 +74,9 @@ def _nvcc() -> str:
 
 
 def library_path(source: Path, flags) -> Path:
-    """``build/sovits_tpu_torch/lib<stem>-<hash of source and flags>.so``."""
-    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    """``build/sovits_tpu_torch/lib<stem>-<hash of source, headers and flags>.so``."""
+    headers = b"".join(h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}-{digest}.so"
 
 

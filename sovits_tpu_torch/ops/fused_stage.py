@@ -1,14 +1,21 @@
-"""One vocoder stage's ResBlock1 trio: CUDA kernel wrapper and plain version.
+"""One vocoder stage's ResBlock1 trio: CUDA kernel wrapper, autograd
+Function and plain version.
 
-Counterpart of ``sovits_tpu/ops/fused_stage.py::fused_resblock_trio``, same
-signature and chain order: ``kernels``/``biases`` hold the 18 convs as
-[k, C_in, C_out] / [C] (weight norm already folded), chain j = kernel size
-``kernel_sizes[j]``, and within a chain, per dilation d, conv (k, d) then
-conv (k, 1). Activations are [B, T, C].
+Counterpart of ``sovits_tpu/ops/fused_stage.py::fused_resblock_trio`` and
+``trio_folded``, same signature and chain order: ``kernels``/``biases`` hold
+the 18 convs as [k, C_in, C_out] / [C] (weight norm already folded), chain
+j = kernel size ``kernel_sizes[j]``, and within a chain, per dilation d,
+conv (k, d) then conv (k, 1). Activations are [B, T, C].
+
+Types, as the TPU kernel's: x and the kernels fp32 or bf16 (one type), the
+biases in that type or fp32; the biases, the residual stream and every
+intermediate are fp32 and the output is in x's type.
 
 ``fused_resblock_trio`` dispatches by device: a CPU tensor goes to
-``fused_resblock_trio_plain``; a CUDA tensor launches
-``csrc/resblock_trio.cu`` or raises.
+``fused_resblock_trio_plain``; a CUDA tensor launches ``csrc/resblock_trio.cu``
+or raises. When autograd needs a gradient the call goes through
+:class:`FusedTrio`, whose backward recomputes the plain version, as the JAX
+package's custom VJP recomputes ``trio_folded_xla``.
 """
 
 from __future__ import annotations
@@ -35,13 +42,14 @@ def fused_resblock_trio_plain(
     kernel_sizes: Sequence[int] = (3, 7, 11),
     dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5), (1, 3, 5), (1, 3, 5)),
 ) -> torch.Tensor:
-    """mean_j ResBlock1_j(x) with F.conv1d; x [B, T, C] -> [B, T, C]."""
+    """mean_j ResBlock1_j(x) with F.conv1d in fp32; x [B, T, C] -> [B, T, C]
+    in x's type."""
     def conv(h, i, k, d):
-        w = kernels[i].permute(2, 1, 0)  # [C_out, C_in, k]
+        w = kernels[i].float().permute(2, 1, 0)  # [C_out, C_in, k]
         h = F.leaky_relu(h, LRELU_SLOPE)
-        return F.conv1d(h, w, biases[i], padding=(k - 1) * d // 2, dilation=d)
+        return F.conv1d(h, w, biases[i].float(), padding=(k - 1) * d // 2, dilation=d)
 
-    xc = x.transpose(1, 2)  # [B, C, T]
+    xc = x.float().transpose(1, 2)  # [B, C, T]
     idx = 0
     total = None
     for k, dils in zip(kernel_sizes, dilation_sizes):
@@ -51,7 +59,89 @@ def fused_resblock_trio_plain(
             idx += 2
             xr = xt + xr
         total = xr if total is None else total + xr
-    return (total / len(kernel_sizes)).transpose(1, 2)
+    return (total / len(kernel_sizes)).transpose(1, 2).to(x.dtype)
+
+
+def _check(x, kernels, biases, kernel_sizes, dilation_sizes) -> None:
+    """Raise on what the kernel does not take."""
+    b, t, c = x.shape
+    if x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous() or c not in TRIO_CHANNELS:
+        raise ValueError(f"fused_resblock_trio: contiguous float32 or bfloat16 [B, T, C] with C in "
+                         f"{TRIO_CHANNELS}, got {x.dtype} {tuple(x.shape)}")
+    if not 1 <= len(kernel_sizes) <= 3 or any(not 1 <= len(d) <= _MAX_PAIRS for d in dilation_sizes):
+        raise ValueError("fused_resblock_trio: 1-3 chains of 1-3 dilations")
+    idx = 0
+    for k, dils in zip(kernel_sizes, dilation_sizes):
+        if k % 2 == 0:
+            raise ValueError(f"fused_resblock_trio: odd kernel sizes only, got {k}")
+        for _ in range(2 * len(dils)):
+            kern, bias = kernels[idx], biases[idx]
+            if kern.shape != (k, c, c) or bias.shape != (c,):
+                raise ValueError(f"fused_resblock_trio: conv {idx} must be [{k}, {c}, {c}] + [{c}]")
+            idx += 1
+    for tns in kernels:
+        if tns.device != x.device or tns.dtype != x.dtype:
+            raise ValueError(f"fused_resblock_trio: {x.dtype} kernels on the input's device")
+    for tns in biases:
+        if tns.device != x.device or tns.dtype not in (x.dtype, torch.float32):
+            raise ValueError(f"fused_resblock_trio: {x.dtype} or float32 biases on the input's device")
+
+
+def _forward(x, kernels, biases, kernel_sizes, dilation_sizes) -> torch.Tensor:
+    """CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return fused_resblock_trio_plain(x, kernels, biases, kernel_sizes, dilation_sizes)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_resblock_trio: unsupported device {x.device}")
+    _check(x, kernels, biases, kernel_sizes, dilation_sizes)
+    b, t, c = x.shape
+    w = torch.cat([kern.reshape(-1) for kern in kernels])
+    bias = torch.stack([bb.float() for bb in biases]).contiguous()  # fp32, as the TPU kernel's
+    out = torch.empty_like(x)
+    bf16 = x.dtype == torch.bfloat16
+    acc = torch.empty(x.shape, device=x.device, dtype=torch.float32) if bf16 else out
+    n = len(kernel_sizes)
+    ks = (ctypes.c_int * n)(*kernel_sizes)
+    n_pairs = (ctypes.c_int * n)(*(len(d) for d in dilation_sizes))
+    dils = (ctypes.c_int * (n * _MAX_PAIRS))(
+        *(d[i] if i < len(d) else 0 for d in dilation_sizes for i in range(_MAX_PAIRS))
+    )
+    lib = build.load("resblock_trio").lib
+    rc = lib.sovits_resblock_trio(
+        x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), acc.data_ptr(), b, t, c, n,
+        ks, n_pairs, dils, int(bf16), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(rc, "resblock_trio launch")
+    fused_resblock_trio.launches += 1
+    fused_resblock_trio.launches_bf16 += bf16
+    return out
+
+
+class FusedTrio(torch.autograd.Function):
+    """The trio with a gradient: forward by :func:`_forward` (the kernel on
+    CUDA), saving only x, the kernels and the biases; backward by autograd
+    through a recomputed :func:`fused_resblock_trio_plain` (cuDNN convs on
+    CUDA), the counterpart of the JAX package's ``_make_trio_vjp``."""
+
+    @staticmethod
+    def forward(ctx, x, kernel_sizes, dilation_sizes, *weights):
+        n = len(weights) // 2
+        ctx.save_for_backward(x, *weights)
+        ctx.plan = (kernel_sizes, dilation_sizes)
+        return _forward(x, weights[:n], weights[n:], kernel_sizes, dilation_sizes)
+
+    @staticmethod
+    def backward(ctx, dout):
+        saved = ctx.saved_tensors
+        needs = (ctx.needs_input_grad[0], *ctx.needs_input_grad[3:])
+        n = (len(saved) - 1) // 2
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need) for t, need in zip(saved, needs)]
+            out = fused_resblock_trio_plain(leaves[0], leaves[1:n + 1], leaves[n + 1:], *ctx.plan)
+            wanted = [leaf for leaf in leaves if leaf.requires_grad]
+            got = iter(torch.autograd.grad(out, wanted, dout))
+        grads = [next(got) if leaf.requires_grad else None for leaf in leaves]
+        return grads[0], None, None, *grads[1:]
 
 
 def fused_resblock_trio(
@@ -65,53 +155,18 @@ def fused_resblock_trio(
 
     Device dispatch, not a fallback: CPU tensors take the plain version;
     CUDA tensors launch the kernel, and anything it does not take raises.
+    When autograd needs a gradient the call goes through :class:`FusedTrio`;
+    otherwise the forward runs alone.
     """
     n_convs = 2 * sum(len(d) for d in dilation_sizes)
     if len(kernels) != n_convs or len(biases) != n_convs or len(kernel_sizes) != len(dilation_sizes):
         raise ValueError(f"fused_resblock_trio: expected {n_convs} kernels and biases")
-    if x.device.type == "cpu":
-        return fused_resblock_trio_plain(x, kernels, biases, kernel_sizes, dilation_sizes)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_resblock_trio: unsupported device {x.device}")
+    kernel_sizes = tuple(kernel_sizes)
+    dilation_sizes = tuple(map(tuple, dilation_sizes))
     if torch.is_grad_enabled() and any(tns.requires_grad for tns in [x, *kernels, *biases]):
-        raise RuntimeError("fused_resblock_trio: the kernel has no backward; build the "
-                           "generator with fused_tail=False to train")
-    b, t, c = x.shape
-    if x.dtype != torch.float32 or not x.is_contiguous() or c not in TRIO_CHANNELS:
-        raise ValueError(
-            f"fused_resblock_trio: contiguous float32 [B, T, C] with C in {TRIO_CHANNELS}"
-        )
-    if not 1 <= len(kernel_sizes) <= 3 or any(not 1 <= len(d) <= _MAX_PAIRS for d in dilation_sizes):
-        raise ValueError("fused_resblock_trio: 1-3 chains of 1-3 dilations")
-    idx = 0
-    for k, dils in zip(kernel_sizes, dilation_sizes):
-        if k % 2 == 0:
-            raise ValueError(f"fused_resblock_trio: odd kernel sizes only, got {k}")
-        for _ in range(2 * len(dils)):
-            kern, bias = kernels[idx], biases[idx]
-            if kern.shape != (k, c, c) or bias.shape != (c,):
-                raise ValueError(f"fused_resblock_trio: conv {idx} must be [{k}, {c}, {c}] + [{c}]")
-            idx += 1
-    for tns in list(kernels) + list(biases):
-        if tns.device != x.device or tns.dtype != torch.float32:
-            raise ValueError("fused_resblock_trio: float32 weights on the input's device")
-    w = torch.cat([kern.reshape(-1) for kern in kernels])
-    bias = torch.stack(list(biases)).contiguous()
-    out = torch.empty_like(x)
-    n = len(kernel_sizes)
-    ks = (ctypes.c_int * n)(*kernel_sizes)
-    n_pairs = (ctypes.c_int * n)(*(len(d) for d in dilation_sizes))
-    dils = (ctypes.c_int * (n * _MAX_PAIRS))(
-        *(d[i] if i < len(d) else 0 for d in dilation_sizes for i in range(_MAX_PAIRS))
-    )
-    lib = build.load("resblock_trio").lib
-    rc = lib.sovits_resblock_trio(
-        x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), b, t, c, n,
-        ks, n_pairs, dils, torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    build.check(rc, "resblock_trio launch")
-    fused_resblock_trio.launches += 1
-    return out
+        return FusedTrio.apply(x, kernel_sizes, dilation_sizes, *kernels, *biases)
+    return _forward(x, kernels, biases, kernel_sizes, dilation_sizes)
 
 
 fused_resblock_trio.launches = 0  # kernel launches since the last reset
+fused_resblock_trio.launches_bf16 = 0  # of which with bf16 inputs

@@ -41,7 +41,8 @@ def train(hps, model_dir: str | Path, max_steps: int | None = None,
     scfg.save_config(hps, model_dir / "config.json")
     seed = hps.train.seed
     init = torch.Generator().manual_seed(seed)
-    # the trainer decodes through the plain ResBlock1 convs: the fused trio has no backward
+    # the trainer decodes through the plain ResBlock1 convs, as the JAX trainer
+    # does: the fused trio's backward recomputes the whole tail forward
     net_g = factory.init_random_(factory.build_synthesizer(hps, "cpu", fused_tail=False), init)
     net_d = factory.init_random_(factory.build_discriminator(hps, "cpu"), init)
     net_g, net_d = net_g.to(device).train(), net_d.to(device).train()

@@ -7,7 +7,9 @@ has no jax (so the repository's conftest files cannot load), run:
 
 TF32 is switched off for matmuls and cuDNN, so both sides are fp32; the
 tolerance covers summation order (rtol 1e-4, atol 1e-5 for the kernels; the
-rel-table gradients sum over every row of every head, atol 1e-4).
+rel-table gradients sum over every row of every head, atol 1e-4). A bf16
+kernel is held to its plain bf16 version within 2e-2 x max|plain| (a few
+bf16 ulps).
 """
 
 import pytest
@@ -180,14 +182,19 @@ def test_forward_kernel_with_dropout_and_lse(cuda):
     torch.testing.assert_close(lse, torch.logsumexp(_scores(q, k, rel_k, km, 4, False), -1), **TOL)
 
 
-def test_trio_raises_under_grad(cuda):
+def test_trio_under_grad_launches_once_per_forward(cuda):
     x = torch.randn(1, 64, 16, device=cuda, requires_grad=True)
     kernels = [torch.randn(k, 16, 16, device=cuda) for k in (3, 7, 11) for _ in range(6)]
     biases = [torch.zeros(16, device=cuda) for _ in range(18)]
-    with pytest.raises(RuntimeError, match="no backward"):
-        fused_resblock_trio(x, kernels, biases)
+    before = fused_resblock_trio.launches
+    out = fused_resblock_trio(x, kernels, biases)
+    out.square().sum().backward()  # the backward recomputes the plain version: no launch
+    torch.cuda.synchronize()
+    assert fused_resblock_trio.launches == before + 1
+    assert x.grad is not None and torch.isfinite(x.grad).all()
     with torch.no_grad():
         fused_resblock_trio(x, kernels, biases)
+    assert fused_resblock_trio.launches == before + 2
 
 
 def test_full_width_training_step_cuda_matches_cpu(cuda):
@@ -217,3 +224,117 @@ def test_full_width_training_step_cuda_matches_cpu(cuda):
             assert fused_attention.launches == 12 and fused_attention_bwd.launches == 12
     for k, want in results[0].items():
         assert abs(results[1][k] - want) <= 1e-3 * abs(want) + 1e-5, (k, results[1][k], want)
+
+
+def _rel_close(got, want, rel=2e-2):
+    assert got.dtype == want.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs().max().item()
+    peak = want.float().abs().max().item()
+    assert torch.isfinite(got.float()).all() and err <= rel * peak, (err, peak)
+
+
+@pytest.mark.parametrize("bh,t,window,masked", [
+    (2, 1024, 4, True),      # ContentEncoder, 10 s clip, bf16 serving
+    (2, 1000, None, False),  # F0Decoder (causal), off the tile grid
+    (12, 800, None, False),  # causal at the training shape
+])
+def test_attention_bf16_kernel_matches_plain(cuda, bh, t, window, masked):
+    g = _g(t + 1)
+    d = 96
+    q = torch.randn(bh, t, d, generator=g) * d**-0.5
+    k, v = torch.randn(2, bh, t, d, generator=g)
+    rel = [torch.randn(2 * window + 1, d, generator=g) * d**-0.5 for _ in range(2)] if window else [None, None]
+    km = None
+    if masked:
+        km = torch.ones(bh, t)
+        km[-1, t - t // 3:] = 0.0
+    args = [x.to(cuda, torch.bfloat16) if x is not None else None for x in (q, k, v, *rel)]
+    km = km.to(cuda) if km is not None else None
+    before = fused_attention.launches
+    got = fused_attention(*args, km, window=window, causal=window is None)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == before + 1
+    _rel_close(got, fused_attention_plain(*args, km, window=window, causal=window is None))
+
+
+@pytest.mark.parametrize("c,t", [(16, 96), (128, 861 * 64), (64, 861 * 128), (32, 861 * 256),
+                                 (16, 861 * 512)])
+def test_trio_bf16_kernel_matches_plain(cuda, c, t):
+    g = _g(c + 3)
+    x = torch.randn(1, t, c, generator=g).to(cuda, torch.bfloat16)
+    kernels = [(torch.randn(k, c, c, generator=g) * (0.5 / (k * c) ** 0.5)).to(cuda, torch.bfloat16)
+               for k in (3, 7, 11) for _ in range(6)]
+    biases = [(torch.randn(c, generator=g) * 0.01).to(cuda, torch.bfloat16) for _ in range(18)]
+    before = fused_resblock_trio.launches
+    got = fused_resblock_trio(x, kernels, biases)
+    torch.cuda.synchronize()
+    assert fused_resblock_trio.launches == before + 1
+    _rel_close(got, fused_resblock_trio_plain(x, kernels, biases))
+
+
+@pytest.mark.parametrize("variant", ["bf16", "fp32"])
+def test_trio_shift_kernel_matches_plain(cuda, variant):
+    from sovits_tpu_torch.tools.profile_trio_shift import make_inputs, trio_shift, trio_shift_plain
+
+    xp, mats = make_inputs(128, 4 * 1024 + 300, seed=1, device=cuda)
+    before = trio_shift.launches
+    got = trio_shift(xp, mats, variant)
+    torch.cuda.synchronize()
+    assert trio_shift.launches == before + 1 and got.shape == (1, 4096, 128)
+    _rel_close(got, trio_shift_plain(xp, mats, variant))
+
+
+@pytest.mark.parametrize("c,t", [(128, 1280), (16, 10240)])
+def test_trio_function_grads_match_autograd_of_plain(cuda, c, t):
+    g = _g(c + 5)
+    x = torch.randn(6, t, c, generator=g)
+    kernels = [torch.randn(k, c, c, generator=g) * (0.5 / (k * c) ** 0.5) for k in (3, 7, 11) for _ in range(6)]
+    biases = [torch.randn(c, generator=g) * 0.01 for _ in range(18)]
+    dout = torch.randn(6, t, c, generator=g).to(cuda)
+    grads = []
+    for fn in (fused_resblock_trio, fused_resblock_trio_plain):
+        leaves = [a.to(cuda).requires_grad_() for a in (x, *kernels, *biases)]
+        (fn(leaves[0], leaves[1:19], leaves[19:]) * dout).sum().backward()
+        grads.append([leaf.grad for leaf in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_kernels_reject_other_types(cuda):
+    x = torch.randn(1, 64, 16, device=cuda, dtype=torch.float16)
+    kernels = [torch.randn(k, 16, 16, device=cuda, dtype=torch.float16) for k in (3, 7, 11) for _ in range(6)]
+    biases = [torch.zeros(16, device=cuda, dtype=torch.float16) for _ in range(18)]
+    with pytest.raises(ValueError):
+        fused_resblock_trio(x, kernels, biases)
+    with pytest.raises(ValueError):  # bf16 input with fp32 kernels: never upcast quietly
+        fused_resblock_trio(x.bfloat16(), [w.float() for w in kernels], [b.float() for b in biases])
+    q = torch.randn(2, 32, 24, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError):
+        fused_attention(q, q, q, causal=True)
+    from sovits_tpu_torch.ops.attention import _forward
+
+    qb = q.bfloat16()
+    out, lse = _forward(qb, qb, qb, None, None, None, None, None, True, want_lse=True)
+    with pytest.raises(ValueError):  # the backward kernel is fp32 only
+        fused_attention_bwd(qb, qb, qb, None, None, None, None, out, lse, torch.ones_like(out), causal=True)
+
+
+def test_full_width_bf16_synthesizer_launches_bf16_kernels(cuda):
+    hps = scfg.default_config()
+    model = factory.init_random_(factory.build_synthesizer(hps, "cpu", fused_tail=True), _g(0))
+    g = _g(1)
+    b, t = 1, 96
+    c = torch.randn(b, t, hps.model.ssl_dim, generator=g)
+    f0 = 150.0 + 100.0 * torch.rand(b, t, generator=g)
+    uv, spk = torch.ones(b, t), torch.zeros(b, dtype=torch.long)
+    kw = dict(noise_scale=0.0, sample_noise=False)
+    ref, _ = model.to(cuda).infer(*(a.to(cuda) for a in (c, f0, uv, spk)), **kw)
+    bf = factory.build_synthesizer(hps, cuda, fused_tail=True, dtype=torch.bfloat16)
+    bf.load_state_dict(model.state_dict())
+    fused_attention.launches = fused_resblock_trio.launches = 0
+    got, _ = bf.infer(*(a.to(cuda) for a in (c, f0, uv, spk)), **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert fused_attention.launches == 6 and fused_resblock_trio.launches == 4
+    err = (got.float() - ref).abs().max().item()
+    assert err <= 5e-2 * ref.abs().max().item(), err

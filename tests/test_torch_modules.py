@@ -301,3 +301,34 @@ def test_dsp(fn):
         got = stft.mel_spectrogram(torch.from_numpy(wav), 128, 20, 8000, 64, 128, 0.0, 4000.0).numpy()
         want = jdsp.mel_spectrogram(jnp.asarray(wav), 128, 20, 8000, 64, 128, 0.0, 4000.0)
         _close(got, want, atol=1e-4)
+
+
+def test_fused_tail_generator_grads_match_jax():
+    """The fused tail under autograd: the port's Generator(fused_tail=True)
+    (FusedTrio on both stages) against jax.grad through the JAX fused-tail
+    generator (trio_folded's custom VJP), every parameter, the loss and
+    tolerance of tests/test_folded.py's train-path check."""
+    kw = dict(sampling_rate=8000, inter_channels=24, upsample_rates=(8, 2),
+              upsample_kernel_sizes=(16, 4), upsample_initial_channel=256, gin_channels=16)
+    rng = _rng(7)
+    x = rng.standard_normal((1, 12, 24)).astype(np.float32)
+    f0 = rng.uniform(100, 300, (1, 12)).astype(np.float32)
+    g = (rng.standard_normal((1, 1, 16)) * 0.1).astype(np.float32)
+    jm = jnsf.Generator(**kw, fused_tail=True)
+    args = (jnp.asarray(x), jnp.asarray(f0), jnp.asarray(g))
+    params = _init(jm, *args)
+
+    def loss(p):
+        return jnp.sum(jm.apply({"params": p}, *args, rng=None) ** 2) * 1e3
+
+    ref = _sd(lambda sd, p, prm: from_jax.generator(sd, p, prm, 3, 3), jax.grad(loss)(params))
+    tm = Generator(resblock_kernel_sizes=(3, 7, 11), resblock_dilation_sizes=((1, 3, 5),) * 3,
+                   fused_tail=True, **kw)
+    _load(tm, _sd(lambda sd, p, prm: from_jax.generator(sd, p, prm, 3, 3), params))
+    wav = tm(_cf(x), torch.from_numpy(f0), _cf(g))
+    assert wav.grad_fn is not None
+    (wav.square().sum() * 1e3).backward()
+    named = dict(tm.named_parameters())
+    assert set(named) == set(ref)
+    for name, want in ref.items():
+        np.testing.assert_allclose(named[name].grad.numpy(), want, rtol=5e-3, atol=5e-4, err_msg=name)

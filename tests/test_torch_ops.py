@@ -160,3 +160,107 @@ def test_wrappers_reject_malformed_arguments():
     x, kernels, biases = _trio_inputs(16, 32, seed=2)
     with pytest.raises(ValueError):
         fused_resblock_trio(T(x), [T(w) for w in kernels[:-1]], [T(b) for b in biases])
+
+
+# --------------------------------------------------- K3's custom VJP (FusedTrio)
+@pytest.mark.parametrize("ks,dils,c,t", [((3, 7), ((1, 3), (1, 3)), 32, 96),
+                                         ((3, 7, 11), ((1, 3, 5),) * 3, 16, 96)],
+                         ids=["test_folded-plan", "default-plan"])
+def test_trio_grads_match_jax_trio_folded(ks, dils, c, t):
+    """The port's trio under autograd (FusedTrio: the forward, then a
+    recomputed plain backward) against jax.grad through trio_folded (the
+    Pallas forward in interpret mode and its custom VJP), for x, every
+    kernel and every bias; tests/test_folded.py's tolerance."""
+    from sovits_tpu.ops.fused_stage import trio_folded
+
+    rng = np.random.default_rng(5)
+    p = 128 // c
+    n_conv = sum(2 * len(d) for d in dils)
+    x = (rng.standard_normal((2, t, c)) * 0.3).astype(np.float32)
+    kernels = [(rng.standard_normal((k, c, c)) * 0.05).astype(np.float32)
+               for k, d in zip(ks, dils) for _ in range(2 * len(d))]
+    biases = [(rng.standard_normal(c) * 0.01).astype(np.float32) for _ in range(n_conv)]
+    g = rng.standard_normal(x.shape).astype(np.float32)
+
+    def loss(args):
+        xf, kern, bias = args
+        out = trio_folded(xf, kern, bias, p, ks, dils)
+        return jnp.sum(out * jnp.asarray(g).reshape(out.shape))
+
+    ref = jax.grad(loss)((jnp.asarray(x).reshape(2, t // p, p * c),
+                          tuple(map(jnp.asarray, kernels)), tuple(map(jnp.asarray, biases))))
+    leaves = [T(a).requires_grad_() for a in (x, *kernels, *biases)]
+    out = fused_resblock_trio(leaves[0], leaves[1:n_conv + 1], leaves[n_conv + 1:], ks, dils)
+    (out * T(g)).sum().backward()
+    want = [np.asarray(ref[0]).reshape(x.shape), *map(np.asarray, ref[1]), *map(np.asarray, ref[2])]
+    assert len(want) == len(leaves) == 1 + 2 * n_conv
+    for leaf, w in zip(leaves, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), w, rtol=2e-4, atol=2e-5)
+
+
+def test_trio_function_saves_inputs_and_recomputes():
+    """FusedTrio keeps no activations: its graph holds x, the kernels and the
+    biases, and a second backward through a fresh forward gives the same grads."""
+    from sovits_tpu_torch.ops.fused_stage import FusedTrio
+
+    x, kernels, biases = _trio_inputs(16, 48, seed=4)
+    grads = []
+    for _ in range(2):
+        leaves = [T(a).requires_grad_() for a in (x, *kernels, *biases)]
+        out = fused_resblock_trio(leaves[0], leaves[1:19], leaves[19:])
+        assert isinstance(out.grad_fn, FusedTrio._backward_cls)
+        assert len(out.grad_fn.saved_tensors) == 37
+        out.square().sum().backward()
+        grads.append([leaf.grad for leaf in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# ------------------------------------------------------- K4 (trio staging bench)
+def _jnp_trio_shift(xp, mats, mode):
+    """tools/profile_trio_shift.py:make_kernel's body transcribed to jnp:
+    per 1024-row block, the concat-rotate ('concat') or margin-scratch
+    ('fp32in') staging, 12 rounds, rows [16, 16 + 1024) written."""
+    block, halo, shifts = 1024, 16, (-1, 0, 1)
+    q = xp.shape[1] - 2 * halo
+    r_rows = block + 2 * halo
+    outs = []
+    for qi in range(q // block):
+        x = xp[0, qi * block : qi * block + r_rows]
+        for ci in range(12):
+            x = jnp.maximum(x, 0.1 * x)
+            acc = None
+            if mode == "concat":
+                for j, s in enumerate(shifts):
+                    a = (-s) % r_rows
+                    xs = jnp.concatenate([x[r_rows - a:], x[:r_rows - a]], axis=0) if s else x
+                    term = jnp.dot(xs, mats[ci * 3 + j], preferred_element_type=jnp.float32)
+                    acc = term if acc is None else acc + term
+                x = acc.astype(jnp.bfloat16)
+            else:
+                sbuf = jnp.zeros((r_rows + 2 * halo, x.shape[1]), jnp.float32)
+                sbuf = sbuf.at[halo:halo + r_rows].set(x.astype(jnp.float32))
+                for j, s in enumerate(shifts):
+                    xs = sbuf[halo + s:halo + s + r_rows]
+                    term = jnp.dot(xs, mats[ci * 3 + j], preferred_element_type=jnp.float32)
+                    acc = term if acc is None else acc + term
+                x = acc
+        outs.append(x[halo:halo + block].astype(jnp.bfloat16))
+    return jnp.concatenate(outs, axis=0)[None]
+
+
+@pytest.mark.parametrize("variant,mode", [("bf16", "concat"), ("fp32", "fp32in")])
+def test_trio_shift_plain_matches_jnp_transcription(variant, mode):
+    """K4's plain version (12 F.conv1d) against the TPU tool's kernel body,
+    on 2 blocks plus a ragged tail that the tool leaves unwritten. Tolerance
+    2e-2 x max|ref|: bf16 intermediates rounded after sums in other orders."""
+    from sovits_tpu_torch.tools.profile_trio_shift import make_inputs, trio_shift
+
+    xp, mats = make_inputs(128, 2 * 1024 + 200, seed=3)
+    ref = _jnp_trio_shift(jnp.asarray(xp.float().numpy(), jnp.bfloat16),
+                          jnp.asarray(mats.float().numpy(), jnp.bfloat16), mode)
+    got = trio_shift(xp, mats, variant)
+    assert got.shape == ref.shape == (1, 2048, 128) and got.dtype == torch.bfloat16
+    ref = np.asarray(ref, np.float32)
+    err = np.abs(got.float().numpy() - ref).max()
+    assert err <= 2e-2 * np.abs(ref).max(), (err, np.abs(ref).max())

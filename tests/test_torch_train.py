@@ -428,6 +428,7 @@ sys.meta_path.insert(0, NoJax())
 import sovits_tpu_torch
 for mod in pkgutil.walk_packages(sovits_tpu_torch.__path__, "sovits_tpu_torch."):
     importlib.import_module(mod.name)
+import sovits_tpu_torch.tools.profile_trio_shift
 import chip_smoke
 print("imported", len(sys.modules))
 """
