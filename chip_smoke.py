@@ -54,9 +54,10 @@ E2E_REL = 5e-2
 STEP_REL = 1e-3  # fused-tail against unfused GAN step, fp32: the card training-step test's bar
 SECONDS = 10.0
 # the H100's published peaks (SXM, 700 W): bf16 dense tensor cores, fp32
-# outside the tensor cores, HBM
+# outside the tensor cores, TF32 dense tensor cores, HBM
 BF16_TC_FLOPS = 989e12
 FP32_FLOPS = 67e12
+TF32_TC_FLOPS = 495e12
 HBM_BYTES = 3.35e12
 TRAIN_BH, TRAIN_T, HEAD_D = 12, 800, 96  # batch 6 x 2 heads, pad_to_frames, 192 / 2
 # the fused tail's stages in a training step: batch 6, segment 10240 samples
@@ -89,14 +90,43 @@ def phase_build() -> None:
     libs = build.load_all()  # one nvcc per source, all at once
     wall = time.perf_counter() - t0
     for name, kl in libs.items():
-        summary = [ln.strip() for ln in kl.ptxas_log.splitlines() if "registers" in ln or "spill" in ln]
         log("build", kernel=name, seconds=f"{kl.build_seconds:.2f}", lib=kl.path.name)
-        for ln in summary:
-            print("    ptxas:", ln, flush=True)
+        rows = ptxas_summary(kl.ptxas_log)  # the log of this build, or of the reused one
+        for fn, regs, spills in rows:
+            print(f"    ptxas: {fn}: {regs} registers, {spills}", flush=True)
+            if name == "rel_attention" and not spills.startswith("0 bytes spill stores, 0 bytes spill loads"):
+                raise AssertionError(f"{fn} spills: {spills}")
+        if name == "rel_attention":  # every instantiation must have been checked
+            missing = set(K1_INSTANTIATIONS) - {fn for fn, _, _ in rows}
+            if missing:
+                raise AssertionError(f"ptxas log of {kl.path.name} lacks {sorted(missing)}: "
+                                     f"delete {kl.path.parent} and rebuild")
     t0 = time.perf_counter()
     native.load()
     log("build", kernels_wall_s=f"{wall:.2f}", world_f0_s=f"{time.perf_counter() - t0:.2f}",
         world_lib=native.library_path().name)
+
+
+def ptxas_summary(log_text: str) -> list[tuple[str, str, str]]:
+    """(kernel, registers, spill line) per entry function of an nvcc -Xptxas -v
+    log; K1's instantiations read as rel_attn_fwd<type, padded D>."""
+    import re
+
+    rows, fn, spills = [], "?", ""
+    for ln in log_text.splitlines():
+        if "Compiling entry function" in ln:
+            mangled = ln.split("'")[1]
+            m = re.search(r"rel_attn_fwdI(f|13__nv_bfloat16)Li(\d+)E", mangled)
+            fn = f"rel_attn_fwd<{'fp32' if m.group(1) == 'f' else 'bf16'}, {m.group(2)}>" if m else mangled[:80]
+        elif "spill" in ln:
+            spills = ln.strip().split(", ", 1)[1]
+        elif "Used" in ln and "registers" in ln:
+            rows.append((fn, ln.split("Used ")[1].split(" registers")[0], spills))
+    return rows
+
+
+# K1's entry functions as ptxas_summary names them: both types, D padded to 32/64/96/128
+K1_INSTANTIATIONS = [f"rel_attn_fwd<{t}, {p}>" for t in ("fp32", "bf16") for p in (32, 64, 96, 128)]
 
 
 def _attn_case(t, causal, masked, seed):
@@ -338,6 +368,40 @@ def _time(fn, iters=10) -> float:
     return start.elapsed_time(end) / iters
 
 
+# a kernel launch's attributes in torch.profiler's trace, as the [times] lines name them
+LAUNCH_ARGS = {"grid": "grid", "block": "block", "shared memory": "smem_bytes",
+               "registers per thread": "registers", "blocks per SM": "blocks_per_sm"}
+
+
+def _device_ms(fn, key: str | None = None, iters: int = 20) -> tuple[float, dict]:
+    """Device time per call of fn, from torch.profiler over `iters` calls
+    after a warm-up, of the kernels whose name holds `key` (or of all of
+    them), and the launch attributes (grid, block, shared memory, ...) the
+    profiler recorded for the first such kernel. CUDA events around a kernel
+    of a few tens of microseconds time the wrapper's host work as well: this
+    is the card's own time, printed beside the events' and used nowhere else."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and (key is None or key in e.key))
+    if us <= 0:
+        raise AssertionError(f"the profiler saw no device time{' for ' + key if key else ''}")
+    launch = {}
+    if key is not None:
+        with tempfile.TemporaryDirectory() as tmp:
+            prof.export_chrome_trace(str(Path(tmp) / "trace.json"))
+            events = json.loads((Path(tmp) / "trace.json").read_text()).get("traceEvents", [])
+        args = next((e.get("args", {}) for e in events
+                     if e.get("cat") == "kernel" and key in e.get("name", "")), {})
+        launch = {ours: str(args[theirs]).replace(" ", "") for theirs, ours in LAUNCH_ARGS.items()
+                  if theirs in args}
+    return us / iters / 1e3, launch
+
+
 def phase_times() -> dict:
     from sovits_tpu_torch.ops.attention import fused_attention, fused_attention_plain
     from sovits_tpu_torch.ops.fused_stage import fused_resblock_trio, fused_resblock_trio_plain
@@ -349,12 +413,17 @@ def phase_times() -> dict:
     for i, (t, causal, masked) in enumerate(ATTN_CASES):
         (q, k, v, rk, rv, km), w = _attn_case(t, causal, masked, i)
         kw = dict(window=w, causal=causal)
-        ms_k = _time(lambda: fused_attention(q, k, v, rk, rv, km, **kw))
-        ms_p = _time(lambda: fused_attention_plain(q, k, v, rk, rv, km, **kw))
-        log("times", kernel="rel_attention", T=t, causal=causal, kernel_ms=f"{ms_k:.4f}",
-            plain_ms=f"{ms_p:.4f}")
-        if t == 1024 and not causal:  # the 10 s clip's bucket: the JSON line's number
-            times["rel_attention"] = [ms_k, ms_p]
+        for dtype in (torch.float32, torch.bfloat16):
+            args = [x.to(dtype) if x is not None else None for x in (q, k, v, rk, rv)] + [km]
+            call = lambda: fused_attention(*args, **kw)  # noqa: E731
+            ms_k = _time(call)
+            ms_d, launch = _device_ms(call, "rel_attn_fwd")
+            ms_p = _time(lambda: fused_attention_plain(*args, **kw))
+            log("times", kernel="rel_attention", dtype=str(dtype).split(".")[1], T=t, window=w,
+                causal=causal, key_mask=masked, kernel_ms=f"{ms_k:.4f}", kernel_device_ms=f"{ms_d:.4f}",
+                plain_ms=f"{ms_p:.4f}", **launch)
+            if t == 1024 and not causal and dtype == torch.float32:  # the 10 s clip's bucket: the JSON line
+                times["rel_attention"] = [ms_k, ms_p]
     for i, (c, t) in enumerate(TRIO_STAGES):
         x, kernels, biases = _trio_case(c, t, 10 + i)
         ms_k = _time(lambda: fused_resblock_trio(x, kernels, biases), iters=5)
@@ -405,29 +474,32 @@ def times_training_attention() -> dict:
 
 
 def times_bf16() -> dict:
-    """bf16 K1 (the serving shape, and the causal training shape beside SDPA
-    in bf16, the library yardstick there) and bf16 K3 over the four stages
-    of a 10 s clip, against their plain versions."""
+    """K1 at the causal training shape in fp32 and bf16, each beside SDPA in
+    its type (the library yardstick: no key mask, so -1e4 replacement and
+    -inf agree), and bf16 K3 over the four stages of a 10 s clip, against
+    their plain versions (K1 at the serving buckets: phase_times)."""
     import torch.nn.functional as F
 
     from sovits_tpu_torch.ops.attention import fused_attention, fused_attention_plain
     from sovits_tpu_torch.ops.fused_stage import fused_resblock_trio, fused_resblock_trio_plain
 
-    (q, k, v, rk, rv, km), w = _attn_case(1024, False, True, 40)
-    args = [*_bf16((q, k, v, rk, rv)), km]
-    ms_k = _time(lambda: fused_attention(*args, window=w))
-    ms_p = _time(lambda: fused_attention_plain(*args, window=w))
-    log("times", kernel="rel_attention", dtype="bf16", T=1024, window=w, kernel_ms=f"{ms_k:.4f}",
-        plain_ms=f"{ms_p:.4f}")
     args, _, _ = _train_attn_case(True, 22)
-    q, k, v = _bf16(args[:3])
-    ms_k = _time(lambda: fused_attention(q, k, v, causal=True))
-    ms_p = _time(lambda: fused_attention_plain(q, k, v, causal=True))
-    qs, ks, vs = (x.view(6, 2, TRAIN_T, HEAD_D) for x in (q, k, v))
-    ms_l = _time(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, scale=1.0))
-    log("times", kernel="rel_attention", dtype="bf16", shape=f"BH={TRAIN_BH},T={TRAIN_T},D={HEAD_D}",
-        causal=True, kernel_ms=f"{ms_k:.4f}", plain_ms=f"{ms_p:.4f}", sdpa_bf16_ms=f"{ms_l:.4f}")
-    out = {"rel_attention_bf16": [ms_k, ms_p, ms_l], "resblock_trio_bf16": [0.0, 0.0]}
+    out = {"resblock_trio_bf16": [0.0, 0.0]}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (x.to(dtype) for x in args[:3])
+        qs, ks, vs = (x.view(6, 2, TRAIN_T, HEAD_D) for x in (q, k, v))
+        call = lambda: fused_attention(q, k, v, causal=True)  # noqa: E731
+        sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, scale=1.0)  # noqa: E731
+        ms_k, (ms_d, launch) = _time(call), _device_ms(call, "rel_attn_fwd")
+        ms_l, (ms_ld, _) = _time(sdpa), _device_ms(sdpa)
+        ms_p = _time(lambda: fused_attention_plain(q, k, v, causal=True))
+        name = str(dtype).split(".")[1]
+        log("times", kernel="rel_attention", dtype=name, shape=f"BH={TRAIN_BH},T={TRAIN_T},D={HEAD_D}",
+            causal=True, kernel_ms=f"{ms_k:.4f}", kernel_device_ms=f"{ms_d:.4f}", plain_ms=f"{ms_p:.4f}",
+            **{f"sdpa_{name}_ms": f"{ms_l:.4f}", f"sdpa_{name}_device_ms": f"{ms_ld:.4f}"},
+            tf32="off", **launch)
+        if dtype == torch.bfloat16:  # the JSON line's bf16 row, beside SDPA in bf16
+            out["rel_attention_bf16"] = [ms_k, ms_p, ms_l]
     for i, (c, t) in enumerate(TRIO_STAGES):
         x, kernels, biases = _trio_case(c, t, 50 + i)
         x, kernels, biases = x.bfloat16(), _bf16(kernels), _bf16(biases)
@@ -469,15 +541,19 @@ def times_trio_vjp() -> None:
 def bounds() -> dict:
     """Least time of each kernel's work at the JSON line's shapes: the larger
     of its operations over the peak for their type (fp32 FMA 67 TFLOP/s,
-    bf16 tensor cores 989 TFLOP/s) and its bytes (each input read once, each
-    output written once) over 3.35 TB/s. ms and what bounds it."""
+    bf16 tensor cores 989 TFLOP/s; K1 fp32 runs 3xTF32, 495/3 TFLOP/s) and
+    its bytes (each input read once, each output written once) over
+    3.35 TB/s. ms and what bounds it."""
     def bound(flops, nbytes, peak=FP32_FLOPS):
         t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES
         return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
     win = 9
     bh, t, d = 2, 1024, HEAD_D  # rel_attention: the 10 s clip's bucket, window 4, key mask
-    k1 = bound(4 * bh * t * t * d + 4 * bh * t * win * d, 4 * (4 * bh * t * d + 2 * win * d + bh * t))
+    k1_ops, k1_bytes = 4 * bh * t * t * d + 4 * bh * t * win * d, 4 * (4 * bh * t * d + 2 * win * d + bh * t)
+    k1 = bound(k1_ops, k1_bytes, TF32_TC_FLOPS / 3)  # 3xTF32: three tf32 products per fp32 one
+    log("bounds", kernel="rel_attention", at="3xTF32 (495/3 TFLOP/s)", bound_ms=f"{k1[0]:.4f}",
+        fma_bound_ms=f"{bound(k1_ops, k1_bytes)[0]:.4f}")
     bh, t = TRAIN_BH, TRAIN_T  # rel_attention_bwd: the ContentEncoder's, dropout 0.1
     k2 = bound(10 * bh * t * t * d + 8 * bh * t * win * d,  # 5 products of 2 T^2 D, 4 band ones
                4 * (8 * bh * t * d + 2 * bh * t + bh * t * t + 4 * win * d))
@@ -581,6 +657,8 @@ def phase_main_path(tmp: Path):
         seconds = len(wav) / sr
         ok = (n_samples == n_frames * hop == len(wav) // hop * hop and np.isfinite(audio).all()
               and float(np.abs(audio).max()) > 1e-4)
+        if name.startswith("10s") and not auto:
+            ok = ok and fused_attention.launches - k1 == 6
         log("main", request=repr(name), seconds=seconds, frames=n_frames, wall_s=f"{wall:.4f}",
             rtf=f"{wall / seconds:.5f}", rel_attention=fused_attention.launches - k1,
             resblock_trio=fused_resblock_trio.launches - k3, peak=f"{np.abs(audio).max():.4f}", ok=ok)

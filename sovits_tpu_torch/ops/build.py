@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
 for Hopper (``sm_90a``) into ``build/sovits_tpu_torch/lib<name>-<hash>.so``
 at the repository root, where ``<hash>`` covers the source, the headers
 (``*.cuh``) beside it and the flags, so an edited source or header is
-rebuilt and an unchanged one is reused. Nothing here runs
+rebuilt and an unchanged one is reused; the compiler's log (registers and
+spills from ``-Xptxas -v``) is kept beside it as ``.log``. Nothing here runs
 at import time: the CPU tests import every module, and a machine without
 nvcc only fails when a kernel is actually requested. ``load_all`` starts one
 nvcc per source at once, so building every kernel takes as long as the
@@ -56,7 +57,7 @@ class KernelLibrary:
     lib: ctypes.CDLL
     path: Path
     build_seconds: float  # 0.0 when an existing build was reused
-    ptxas_log: str
+    ptxas_log: str  # nvcc's output when it was built (-Xptxas -v), read back on reuse
 
 
 _LOADED: dict[str, KernelLibrary] = {}
@@ -90,12 +91,21 @@ def start_build(compiler: list[str], source: Path, out: Path):
     return proc, source, tmp, out, time.perf_counter()
 
 
+def log_path(out: Path) -> Path:
+    """The compiler log kept beside a built library (``lib<stem>-<hash>.log``)."""
+    return out.with_suffix(".log")
+
+
 def finish_build(pending) -> tuple[float, str]:
-    """Wait for a build; move it into place. Returns (seconds, compiler log)."""
+    """Wait for a build; move it and its compiler log into place. Returns
+    (seconds, compiler log)."""
     proc, source, tmp, out, t0 = pending
     log = proc.communicate()[0]
     if proc.returncode != 0:
         raise RuntimeError(f"building {source.name} failed:\n{log}")
+    tmp_log = tmp.with_suffix(".log.tmp")
+    tmp_log.write_text(log)
+    os.replace(tmp_log, log_path(out))  # the log first: a library in place always has its log
     os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
     return time.perf_counter() - t0, log
 
@@ -124,7 +134,10 @@ def load_all(names=tuple(SIGNATURES)) -> dict[str, KernelLibrary]:
             continue
         out = library_path(CSRC / f"{name}.cu", NVCC_FLAGS)
         lib = bind(out, {sym: (argtypes, ctypes.c_int) for sym, argtypes in SIGNATURES[name].items()})
-        seconds, log = built.get(name, (0.0, ""))
+        if name in built:
+            seconds, log = built[name]
+        else:  # reused: its log as it was built, or "" for a library built without one
+            seconds, log = 0.0, log_path(out).read_text() if log_path(out).exists() else ""
         _LOADED[name] = KernelLibrary(name, lib, out, seconds, log)
     return {name: _LOADED[name] for name in names}
 

@@ -42,31 +42,87 @@ def _g(seed):
     return torch.Generator().manual_seed(seed)
 
 
-@pytest.mark.parametrize("bh,t,d,window,masked", [
-    (4, 48, 24, 4, True),        # the CPU tests' shape
-    (4, 48, 24, None, False),    # causal
-    (2, 128, 96, 4, True),       # ContentEncoder, 128-frame bucket
-    (2, 1024, 96, 4, True),      # ContentEncoder, 10 s clip
-    (2, 2048, 96, 4, False),     # ContentEncoder, 20 s clip
-    (2, 1000, 96, None, False),  # F0Decoder (causal), a length off the tile grid
-])
-def test_attention_kernel_matches_plain(cuda, bh, t, d, window, masked):
-    g = _g(t)
+# (bh, t, d, window, causal, key mask, dropout). Key mask "tail": the last
+# row's last third masked, as a shorter clip in a batch; "empty": also every
+# key of row 0 masked, which the reference softmaxes to a uniform row. The
+# kernel's tiles are 16 query rows and 32 (bf16) or 16 (fp32) keys, and D is
+# zero-padded to 32, 64, 96 or 128; the lengths below fall off every boundary.
+ATTN_CASES = [
+    (4, 48, 24, 4, False, "tail", False),      # the CPU tests' shape
+    (4, 48, 24, None, True, None, False),      # causal
+    (2, 128, 96, 4, False, "tail", False),     # ContentEncoder, 128-frame bucket
+    (2, 1024, 96, 4, False, "tail", False),    # ContentEncoder, 10 s clip
+    (2, 2048, 96, 4, False, None, False),      # ContentEncoder, 20 s clip
+    (2, 1000, 96, None, True, None, False),    # F0Decoder (causal), off the tile grid
+    (3, 9, 96, 4, False, "tail", False),
+    (3, 15, 24, None, True, None, False),
+    (3, 17, 128, 4, False, "tail", False),
+    (2, 63, 96, None, True, "tail", False),    # causal with a key mask: no tile skipped
+    (2, 65, 128, None, True, None, False),     # causal without: tiles above the diagonal skipped
+    (2, 2048, 24, None, True, None, False),
+    (3, 100, 96, 4, False, "empty", False),    # a fully masked row, windowed
+    (3, 65, 24, None, True, "empty", False),   # a fully masked row, causal
+    (2, 100, 17, 4, False, "tail", False),     # rows not a whole number of 16-byte chunks
+    (12, 800, 96, None, True, None, False),    # causal at the training shape
+    (12, 800, 96, 4, False, "tail", True),     # training: dropout and LSE
+    (12, 800, 96, None, True, None, True),
+]
+
+
+def _case_id(case):
+    bh, t, d, window, causal, mask, drop = case
+    return (f"bh{bh}-t{t}-d{d}-" + ("causal" if causal else f"w{window}") + (f"-{mask}" if mask else "")
+            + ("-dropout" if drop else ""))
+
+
+def _attention_inputs(case, dtype, device):
+    bh, t, d, window, causal, mask, drop = case
+    g = _g(bh * 100003 + t * 131 + d)
     q = torch.randn(bh, t, d, generator=g) * d**-0.5
     k, v = torch.randn(2, bh, t, d, generator=g)
     rel = [torch.randn(2 * window + 1, d, generator=g) * d**-0.5 for _ in range(2)] if window else [None, None]
-    km = None
-    if masked:
+    km = dm = None
+    if mask:
         km = torch.ones(bh, t)
-        km[-1, t - t // 3:] = 0.0
-    args = [x.to(cuda) if x is not None else None for x in (q, k.contiguous(), v.contiguous(), *rel, km)]
-    causal = window is None
+        km[-1, t - max(t // 3, 1):] = 0.0
+        if mask == "empty":
+            km[0] = 0.0
+    if drop:
+        dm = (torch.rand(bh, t, t, generator=g) >= 0.1).float() / 0.9
+    args = [x.to(device, dtype) if x is not None else None for x in (q, k.contiguous(), v.contiguous(), *rel)]
+    return args + [x.to(device) if x is not None else None for x in (km, dm)]
+
+
+def _check_attention(case, dtype, device, close):
+    """One launch of the forward kernel against the plain version; the LSE
+    (a second launch, as training asks for it) against logsumexp of the
+    plain scores; a fully masked row against the uniform row it must be."""
+    from sovits_tpu_torch.ops.attention import _forward, _scores
+
+    _, t, d, window, causal, mask, _ = case
+    args = _attention_inputs(case, dtype, device)
     before = fused_attention.launches
     got = fused_attention(*args, window=window, causal=causal)
     torch.cuda.synchronize()
     assert fused_attention.launches == before + 1
-    ref = fused_attention_plain(*args, window=window, causal=causal)
-    torch.testing.assert_close(got, ref, **TOL)
+    close(got, fused_attention_plain(*args, window=window, causal=causal))
+    out, lse = _forward(*args, window, causal, want_lse=True)
+    assert torch.equal(out, got)
+    q, k, v, rel_k, rel_v, km, _ = args
+    torch.testing.assert_close(lse, torch.logsumexp(_scores(q, k, rel_k, km, window, causal), -1), **TOL)
+    if mask == "empty":  # p = 1/T over all keys of row 0
+        want = v[0].float().mean(0).expand(t, d).clone()
+        if window is not None:
+            for o in range(2 * window + 1):
+                lo, hi = max(window - o, 0), min(t, t + window - o)
+                want[lo:hi] += rel_v[o].float() / t
+        err = (got[0].float() - want).abs().max().item()
+        assert err <= (1e-5 if dtype == torch.float32 else 2e-2 * want.abs().max().item()), err
+
+
+@pytest.mark.parametrize("case", ATTN_CASES, ids=_case_id)
+def test_attention_kernel_matches_plain(cuda, case):
+    _check_attention(case, torch.float32, cuda, lambda a, b: torch.testing.assert_close(a, b, **TOL))
 
 
 @pytest.mark.parametrize("c,t", [(16, 96), (32, 72), (128, 861 * 64), (64, 861 * 128),
@@ -233,28 +289,9 @@ def _rel_close(got, want, rel=2e-2):
     assert torch.isfinite(got.float()).all() and err <= rel * peak, (err, peak)
 
 
-@pytest.mark.parametrize("bh,t,window,masked", [
-    (2, 1024, 4, True),      # ContentEncoder, 10 s clip, bf16 serving
-    (2, 1000, None, False),  # F0Decoder (causal), off the tile grid
-    (12, 800, None, False),  # causal at the training shape
-])
-def test_attention_bf16_kernel_matches_plain(cuda, bh, t, window, masked):
-    g = _g(t + 1)
-    d = 96
-    q = torch.randn(bh, t, d, generator=g) * d**-0.5
-    k, v = torch.randn(2, bh, t, d, generator=g)
-    rel = [torch.randn(2 * window + 1, d, generator=g) * d**-0.5 for _ in range(2)] if window else [None, None]
-    km = None
-    if masked:
-        km = torch.ones(bh, t)
-        km[-1, t - t // 3:] = 0.0
-    args = [x.to(cuda, torch.bfloat16) if x is not None else None for x in (q, k, v, *rel)]
-    km = km.to(cuda) if km is not None else None
-    before = fused_attention.launches
-    got = fused_attention(*args, km, window=window, causal=window is None)
-    torch.cuda.synchronize()
-    assert fused_attention.launches == before + 1
-    _rel_close(got, fused_attention_plain(*args, km, window=window, causal=window is None))
+@pytest.mark.parametrize("case", ATTN_CASES, ids=_case_id)
+def test_attention_bf16_kernel_matches_plain(cuda, case):
+    _check_attention(case, torch.bfloat16, cuda, _rel_close)
 
 
 @pytest.mark.parametrize("c,t", [(16, 96), (128, 861 * 64), (64, 861 * 128), (32, 861 * 256),
