@@ -12,8 +12,10 @@ same weights, 6 the bf16 main path (the same requests through a bf16 Svc and
 a bf16 encoder; bf16 against fp32 audio), 7 training (a feature dataset made
 by the port itself, six full-width GAN steps through ``train``, a resume, a
 profiled step), 8 three GAN steps with the fused tail against the same steps
-without it, 9 the trio staging microbench at its defaults, 10 kernel times
-beside their bounds. Any failure raises, so the script exits non-zero; the
+without it, 9 the bf16 GAN step at bench.py's training configuration (batch
+6 x 512 frames, bf16 synthesizer and discriminator; its first step against
+the same step through fp32 nets), 10 the trio staging microbench at its
+defaults, 11 kernel times beside their bounds. Any failure raises, so the script exits non-zero; the
 last line is the JSON result the caller reads. Needs a CUDA card; without
 one (or without the repository around it) it fails before printing a result.
 """
@@ -52,6 +54,17 @@ MEL_L1_BF16 = 0.1
 LOUD_DB = 40.0
 E2E_REL = 5e-2
 STEP_REL = 1e-3  # fused-tail against unfused GAN step, fp32: the card training-step test's bar
+# the bf16 GAN step's first step against the same step through fp32 nets (same
+# weights, batch and generator seed): each loss within 5e-2 relative, the
+# generator's whole gradient within 0.1 relative in norm. The mel loss (and
+# so the total) is held through its waveform instead, as the bf16 request is
+# (loud-bin log-mel L1 < MEL_L1_BF16, wave max-abs <= E2E_REL x peak): with
+# random weights most mel bins of the generator's quiet output lie below
+# bf16's rounding noise, which lifts them and moved the mel loss by 14.6% on
+# an H100 (PERF.md; the same effect as the bf16 request's all-bin log-mel L1)
+BF16_STEP_LOSS_REL = 5e-2
+BF16_STEP_GRAD_REL = 0.1
+BENCH_T = 512  # bench.py's training step: batch 6 x 512 frames (bench.py:747-748)
 SECONDS = 10.0
 # the H100's published peaks (SXM, 700 W): bf16 dense tensor cores, fp32
 # outside the tensor cores, TF32 dense tensor cores, HBM
@@ -218,6 +231,7 @@ def phase_parity() -> dict:
         errs["resblock_trio"] = max(errs["resblock_trio"], err)
     errs.update(parity_training_attention())
     errs.update(parity_bf16())
+    errs.update(parity_bf16_backward())
     parity_trio_vjp()
     return errs
 
@@ -284,6 +298,54 @@ def parity_bf16() -> dict:
             ok=True)
         errs[f"trio_shift_{variant}"] = err
     return errs
+
+
+def _bf16_train_attn_case(causal, seed, t=BENCH_T):
+    """bench.py's bf16 step's attention shapes (BH 12, T 512, D 96): the
+    ContentEncoder's (window 4, key mask) or the F0Decoder's (causal), with
+    dropout 0.1 as the attention modules draw it in bf16 (mask values 0 and
+    1.109375, stored float32); q, k, v, the tables and dout in bf16."""
+    from sovits_tpu_torch.nn.dropout import keep_mask
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    bh, d, w = TRAIN_BH, HEAD_D, None if causal else 4
+    q = torch.randn(bh, t, d, generator=g) * d**-0.5
+    k, v, dout = torch.randn(3, bh, t, d, generator=g)
+    rel = [torch.randn(2 * w + 1, d, generator=g) * d**-0.5 for _ in range(2)] if w else [None, None]
+    km = None
+    if not causal:
+        km = torch.ones(bh, t)
+        km[-4:, t - t // 3:] = 0.0  # two shorter clips of the six
+    dm = keep_mask((bh, t, t), 0.1, g, "cpu", torch.bfloat16)
+    dev = [x.contiguous().cuda().bfloat16() if x is not None else None for x in (q, k, v, *rel)]
+    dev += [x.cuda() if x is not None else None for x in (km, dm)]
+    return dev, dout.contiguous().cuda().bfloat16(), w
+
+
+def parity_bf16_backward() -> dict:
+    """bf16 K2 against the plain bf16 backward (the TPU backward kernel's
+    rounding points) at bench.py's bf16 step shapes, all five outputs within
+    BF16_REL x max|plain|; causal row 0, whose one key makes ds cancel, too."""
+    from sovits_tpu_torch.ops.attention import _forward, fused_attention_bwd, fused_attention_bwd_plain
+
+    err_all = 0.0
+    for i, causal in enumerate((False, True)):
+        args, dout, w = _bf16_train_attn_case(causal, 80 + i)
+        out, lse = _forward(*args, w, causal, want_lse=True)
+        got = fused_attention_bwd(*args, out, lse, dout, window=w, causal=causal)
+        torch.cuda.synchronize()
+        want = fused_attention_bwd_plain(*args, dout, window=w, causal=causal)
+        errs = [_rel_err(a, b, f"K2 bf16 {n}") for n, a, b in
+                zip(("dq", "dk", "dv", "drel_k", "drel_v"), got, want) if b is not None]
+        row0 = (got[0][:, 0].float() - want[0][:, 0].float()).abs().max().item()
+        if causal and not row0 <= BF16_REL * want[0].float().abs().max().item():
+            raise AssertionError(f"K2 bf16: causal row 0's dq is off by {row0}")
+        log("parity", kernel="rel_attention_bwd", dtype="bf16", shape=f"BH={TRAIN_BH},T={BENCH_T},D={HEAD_D}",
+            window=w, causal=causal, dropout=0.1, key_mask=args[5] is not None,
+            max_abs_err=f"{max(errs):.3e}", per_output=[f"{e:.2e}" for e in errs],
+            row0_dq_err=f"{row0:.3e}" if causal else "n/a", ok=True)
+        err_all = max(err_all, *errs)
+    return {"rel_attention_bwd_bf16": err_all}
 
 
 def parity_trio_vjp() -> None:
@@ -409,6 +471,7 @@ def phase_times() -> dict:
     times = {"rel_attention": [0.0, 0.0], "resblock_trio": [0.0, 0.0]}
     times.update(times_training_attention())
     times.update(times_bf16())
+    times.update(times_bf16_backward())
     times_trio_vjp()
     for i, (t, causal, masked) in enumerate(ATTN_CASES):
         (q, k, v, rk, rv, km), w = _attn_case(t, causal, masked, i)
@@ -512,6 +575,43 @@ def times_bf16() -> dict:
     return out
 
 
+def times_bf16_backward() -> dict:
+    """bf16 K2 at bench.py's bf16 step shape (BH 12, T 512, window 4, key
+    mask, dropout) against its plain version, the JSON line's row; then, as
+    the fp32 row does at T 800, causal bf16 K1+K2 against SDPA bf16 forward
+    and backward (no key mask, no dropout: -1e4 replacement and -inf agree)."""
+    import torch.nn.functional as F
+
+    from sovits_tpu_torch.ops.attention import _forward, fused_attention_bwd, fused_attention_bwd_plain
+
+    out = {}
+    for i, causal in enumerate((False, True)):
+        args, dout, w = _bf16_train_attn_case(causal, 80 + i)
+        if causal:
+            args = args[:5] + [None, None]
+        o, lse = _forward(*args, w, causal, want_lse=True)
+        kw = dict(window=w, causal=causal)
+        fwd_k = _time(lambda: _forward(*args, w, causal, want_lse=True))
+        bwd_k = _time(lambda: fused_attention_bwd(*args, o, lse, dout, **kw))
+        bwd_p = _time(lambda: fused_attention_bwd_plain(*args, dout, **kw))
+        extra = {}
+        if causal:
+            q, k, v = (x.view(TRAIN_BH // 2, 2, BENCH_T, HEAD_D).detach().clone().requires_grad_()
+                       for x in args[:3])
+            g = dout.view(TRAIN_BH // 2, 2, BENCH_T, HEAD_D)
+
+            def sdpa():
+                F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=1.0).backward(g)
+
+            extra = dict(sdpa_bf16_fwd_bwd_ms=f"{_time(sdpa):.4f}", kernels_fwd_bwd_ms=f"{fwd_k + bwd_k:.4f}")
+        else:  # the JSON line: the ContentEncoder's backward in bench.py's bf16 step
+            out["rel_attention_bwd_bf16"] = [bwd_k, bwd_p]
+        log("times", dtype="bf16", shape=f"BH={TRAIN_BH},T={BENCH_T},D={HEAD_D}", window=w, causal=causal,
+            dropout=0.1 if not causal else 0.0, fwd_kernel_ms=f"{fwd_k:.4f}", bwd_kernel_ms=f"{bwd_k:.4f}",
+            bwd_plain_ms=f"{bwd_p:.4f}", **extra)
+    return out
+
+
 def times_trio_vjp() -> None:
     """The fused trio under autograd (K3 forward + recomputed plain backward)
     against autograd through the plain version, forward and backward, at
@@ -557,6 +657,13 @@ def bounds() -> dict:
     bh, t = TRAIN_BH, TRAIN_T  # rel_attention_bwd: the ContentEncoder's, dropout 0.1
     k2 = bound(10 * bh * t * t * d + 8 * bh * t * win * d,  # 5 products of 2 T^2 D, 4 band ones
                4 * (8 * bh * t * d + 2 * bh * t + bh * t * t + 4 * win * d))
+    # rel_attention_bwd_bf16: bench.py's bf16 step, BH 12, T 512, window 4, key
+    # mask, dropout; 5 products of 2 T^2 D (bf16 operands, fp32 sums) and 4 band
+    # ones; bytes: q, k, v, dout in and dq, dk, dv out in bf16 (out is not read),
+    # lse, key mask and the fp32 dropout mask in, the bf16 tables in and out
+    tb = BENCH_T
+    k2_bf16 = bound(10 * bh * tb * tb * d + 8 * bh * tb * win * d,
+                    2 * 7 * bh * tb * d + 4 * (2 * bh * tb + bh * tb * tb) + 2 * 4 * win * d, BF16_TC_FLOPS)
     # rel_attention_bf16: causal at the training shape, no key mask: the
     # products of the lower triangle (diagonal included) are all it needs
     pairs = bh * t * (t + 1) / 2
@@ -571,7 +678,8 @@ def bounds() -> dict:
     q, d4 = 55104, 128  # trio_shift: the microbench's defaults
     rows = q // 1024 * 1024
     k4_bytes = 2 * ((q + 32) * d4 + 36 * d4 * d4 + rows * d4)
-    return {"rel_attention": k1, "rel_attention_bwd": k2, "resblock_trio": bound(flops, nbytes),
+    return {"rel_attention": k1, "rel_attention_bwd": k2, "rel_attention_bwd_bf16": k2_bf16,
+            "resblock_trio": bound(flops, nbytes),
             "rel_attention_bf16": k1_bf16, "resblock_trio_bf16": bound(flops, nbytes_bf16, BF16_TC_FLOPS),
             "trio_shift_bf16": bound(k4_flops(rows, d4), k4_bytes, BF16_TC_FLOPS),
             "trio_shift_fp32": bound(k4_flops(rows, d4), k4_bytes)}
@@ -615,7 +723,8 @@ def _reset_counts() -> None:
     from sovits_tpu_torch.ops.fused_stage import fused_resblock_trio
 
     fused_attention.launches = fused_attention_bwd.launches = fused_resblock_trio.launches = 0
-    fused_attention.launches_bf16 = fused_resblock_trio.launches_bf16 = 0
+    fused_attention.launches_bf16 = fused_attention_bwd.launches_bf16 = 0
+    fused_resblock_trio.launches_bf16 = 0
 
 
 def _counts() -> dict:
@@ -625,7 +734,8 @@ def _counts() -> dict:
 
     return {"rel_attention": fused_attention.launches - fused_attention.launches_bf16,
             "rel_attention_bf16": fused_attention.launches_bf16,
-            "rel_attention_bwd": fused_attention_bwd.launches,
+            "rel_attention_bwd": fused_attention_bwd.launches - fused_attention_bwd.launches_bf16,
+            "rel_attention_bwd_bf16": fused_attention_bwd.launches_bf16,
             "resblock_trio": fused_resblock_trio.launches - fused_resblock_trio.launches_bf16,
             "resblock_trio_bf16": fused_resblock_trio.launches_bf16}
 
@@ -993,6 +1103,166 @@ def phase_train_fused_tail(hps) -> dict:
     return total
 
 
+def bench_train_batch(hps, device="cuda") -> dict:
+    """bench.py's training batch (bench.py:768-785): batch 6 x 512 frames,
+    seeded normals for the units, spectrogram and waveform, f0 uniform in
+    80-400 Hz, all voiced, speaker 0, full lengths."""
+    rng = np.random.default_rng(0)
+    b, t, hop = hps.train.batch_size, hps.data.pad_to_frames, hps.data.hop_length
+    batch = dict(
+        c=rng.standard_normal((b, t, hps.model.ssl_dim)).astype(np.float32),
+        f0=rng.uniform(80, 400, (b, t)).astype(np.float32),
+        uv=np.ones((b, t), np.float32),
+        spec=np.abs(rng.standard_normal((b, t, hps.data.filter_length // 2 + 1))).astype(np.float32),
+        wav=(rng.standard_normal((b, t * hop, 1)) * 0.1).astype(np.float32),
+        spk=np.zeros(b, np.int64),
+        lengths=np.full(b, t, np.int64),
+    )
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def phase_train_bf16() -> dict:
+    """bench.py's training configuration (bench.py:736-806) through the
+    port: the full-width default model with seeded random weights,
+    build_synthesizer(fused_tail=False, dtype=bf16) and
+    build_discriminator(dtype=bf16), batch 6 x 512 frames, segment 10240.
+    Its first step is held against the same step through fp32 nets (same
+    weights, batch and generator seed; the mel loss through its waveform,
+    as the bf16 request is held); then one more warm-up and six timed
+    steps, and one profiled step. Every bf16 step must launch 12 bf16 K1 and
+    12 bf16 K2 and no fp32 attention kernel, and give finite losses."""
+    import torch.nn.functional as F
+
+    from sovits_tpu_torch import config as scfg
+    from sovits_tpu_torch.dsp.sequence import slice_segments
+    from sovits_tpu_torch.dsp.stft import mel_spectrogram, spec_to_mel
+    from sovits_tpu_torch.models import factory
+    from sovits_tpu_torch.train.optim import make_optimizer
+    from sovits_tpu_torch.train.step import train_step
+
+    hps = scfg.default_config(**{"data.pad_to_frames": BENCH_T})
+    batch = bench_train_batch(hps)
+    bf = torch.bfloat16
+    nets = {}
+    for dtype in (torch.float32, bf):
+        net_g = factory.init_random_(factory.build_synthesizer(hps, "cpu", fused_tail=False, dtype=dtype),
+                                     torch.Generator().manual_seed(0)).cuda().train()
+        net_d = factory.init_random_(factory.build_discriminator(hps, "cpu", dtype=dtype),
+                                     torch.Generator().manual_seed(1)).cuda().train()
+        nets[dtype] = (net_g, net_d, *(make_optimizer(n.parameters(), hps) for n in (net_g, net_d)))
+    log("train-bf16", config="bench.py: default model, fused_tail=False, bf16 G and D, fp32 parameters",
+        batch=hps.train.batch_size, pad_to_frames=hps.data.pad_to_frames, segment=hps.train.segment_size)
+    gen = torch.Generator(device="cuda")
+
+    def step(dtype, seed):
+        gen.manual_seed(seed)
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = train_step(*nets[dtype], batch, hps, generator=gen)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, {k: float(v) for k, v in m.items()}, _counts()
+
+    def check(i, counts, losses):
+        ok = (all(np.isfinite(v) for v in losses.values()) and counts["rel_attention_bf16"] == 12
+              and counts["rel_attention_bwd_bf16"] == 12 and counts["rel_attention"] == 0
+              and counts["rel_attention_bwd"] == 0)
+        if not ok:
+            raise AssertionError(f"bf16 step {i}: losses {losses}, launches {counts}")
+
+    d = hps.data
+    mel_kw = dict(n_fft=d.filter_length, n_mels=d.n_mel_channels, sample_rate=d.sampling_rate,
+                  fmin=d.mel_fmin, fmax=d.mel_fmax)
+
+    def mel(y_hat):
+        return mel_spectrogram(y_hat[..., 0], hop_length=d.hop_length, win_length=d.win_length, **mel_kw)
+
+    def mel_loss(y_hat, ids_slice) -> float:
+        """train_step's mel loss of a waveform."""
+        y_mel = slice_segments(spec_to_mel(batch["spec"], **mel_kw), ids_slice,
+                               hps.train.segment_size // d.hop_length)
+        return (F.l1_loss(mel(y_hat), y_mel) * hps.train.c_mel).item()
+
+    # the first step in fp32 and in bf16, from the same weights, batch and seed;
+    # each keeps its generator output (y_hat, ids_slice)
+    forward_out = {}
+
+    def keep(dtype):
+        def hook(_module, _args, out) -> None:  # returns None: the output stays as it is
+            forward_out.setdefault(dtype, (out[0].detach(), out[1]))
+        return hook
+
+    hooks = [nets[dtype][0].register_forward_hook(keep(dtype)) for dtype in nets]
+    _, m32, _ = step(torch.float32, 300)
+    g32 = {n: p.grad.detach().clone() for n, p in nets[torch.float32][0].named_parameters()
+           if p.grad is not None}
+    del nets[torch.float32]
+    torch.cuda.reset_peak_memory_stats()
+    walls, launches = [], {"rel_attention_bf16": 0, "rel_attention_bwd_bf16": 0}
+    wall, m16, counts = step(bf, 300)
+    for h in hooks:
+        h.remove()
+    check(1, counts, m16)
+    for k in launches:
+        launches[k] += counts[k]
+    g16 = {n: p.grad.detach().float() for n, p in nets[bf][0].named_parameters() if p.grad is not None}
+    if set(g16) != set(g32):
+        raise AssertionError(f"bf16 and fp32 steps trained other parameters: {set(g16) ^ set(g32)}")
+    (y32, ids), (y16, ids16) = forward_out[torch.float32], forward_out[bf]
+    if y16.dtype != bf or not torch.equal(ids, ids16):
+        raise AssertionError(f"the bf16 forward gave {y16.dtype}, slices {ids16.tolist()} vs {ids.tolist()}")
+    mel32, mel16 = mel(y32), mel(y16)
+    loud = mel32 > mel32.amax(dim=(1, 2), keepdim=True) - LOUD_DB / 20 * np.log(10)
+    mel_l1_loud = (mel16 - mel32).abs()[loud].mean().item()
+    wave_rel = ((y16.float() - y32).abs().max() / y32.abs().max()).item()
+    # every loss but the mel loss, which the waveform stands in for
+    no_mel = {k: v for k, v in m32.items() if k != "loss/g/mel"}
+    no_mel["loss/g/total"] = m32["loss/g/total"] - m32["loss/g/mel"]
+    got_no_mel = dict(m16, **{"loss/g/total": m16["loss/g/total"] - m16["loss/g/mel"]})
+    loss_rel = {k: abs(got_no_mel[k] - v) / max(abs(v), 1e-8) for k, v in no_mel.items()}
+    grad_rel = (sum((g16[n] - g).square().sum() for n, g in g32.items()).sqrt()
+                / sum(g.square().sum() for g in g32.values()).sqrt()).item()
+    worst = max(loss_rel, key=loss_rel.get)
+    ok = (max(loss_rel.values()) <= BF16_STEP_LOSS_REL and grad_rel <= BF16_STEP_GRAD_REL
+          and mel_l1_loud < MEL_L1_BF16 and wave_rel <= E2E_REL)
+    log("train-bf16", what="first step, bf16 against fp32 nets (same weights, batch, seed)",
+        **{f"{k.replace('loss/', '')}_fp32": f"{v:.5g}" for k, v in m32.items()},
+        **{f"{k.replace('loss/', '')}_bf16": f"{m16[k]:.5g}" for k in m32},
+        g_mel_rel=f"{abs(m16['loss/g/mel'] - m32['loss/g/mel']) / m32['loss/g/mel']:.3e}",
+        g_mel_of_fp32_wave_rounded_to_bf16=f"{mel_loss(y32.bfloat16(), ids):.5g}",
+        y_hat_mel_l1_loud_bins=f"{mel_l1_loud:.4e}", loud_share=f"{loud.float().mean().item():.3f}",
+        y_hat_mel_l1_all_bins=f"{(mel16 - mel32).abs().mean().item():.4e}",
+        y_hat_wave_rel_max_abs=f"{wave_rel:.3e}", loss_max_rel_but_mel=f"{loss_rel[worst]:.3e}",
+        worst_loss=worst, grad_g_total_rel=f"{grad_rel:.3e}",
+        limits=(f"losses but mel<={BF16_STEP_LOSS_REL}, grad<={BF16_STEP_GRAD_REL}, "
+                f"loud-bin L1<{MEL_L1_BF16}, wave<={E2E_REL}"), ok=ok)
+    if not ok:
+        raise AssertionError(f"bf16 step disagrees with fp32: losses {loss_rel}, gradient {grad_rel}, "
+                             f"loud-bin log-mel L1 {mel_l1_loud}, wave {wave_rel}")
+    for i in range(2, 9):  # one more warm-up step, then six timed ones
+        wall, m16, counts = step(bf, 300 + i)
+        check(i, counts, m16)
+        for k in launches:
+            launches[k] += counts[k]
+        if i > 2:
+            walls.append(wall)
+        log("train-bf16", step=i, wall_s=f"{wall:.4f}", rel_attention_bf16=counts["rel_attention_bf16"],
+            rel_attention_bwd_bf16=counts["rel_attention_bwd_bf16"],
+            **{k.replace("loss/", ""): f"{v:.4f}" for k, v in m16.items()})
+    peak = torch.cuda.max_memory_allocated()
+    wall, busy, dev = _profiled(lambda: train_step(*nets[bf], batch, hps, generator=gen))
+    k1 = sum(v for k, v in dev.items() if "rel_attn_fwd" in k) / 1e3
+    k2 = sum(v for k, v in dev.items() if "rel_attn_bwd" in k) / 1e3
+    log("train-bf16", timed_steps=len(walls), steps_per_s=f"{len(walls) / sum(walls):.4f}",
+        step_s_mean=f"{sum(walls) / len(walls):.4f}", step_s_median=f"{np.median(walls):.4f}",
+        steps_s=[f"{w:.4f}" for w in walls], peak_mem_gb=f"{peak / 1e9:.3f}",
+        profiled_step_wall_ms=f"{1e3 * wall:.2f}", device_busy_ms=f"{busy:.2f}",
+        rel_attention_bf16_ms=f"{k1:.3f}", rel_attention_bwd_bf16_ms=f"{k2:.3f}", launches=launches)
+    for key, us in sorted(dev.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"    device {us / 1e3:9.3f} ms  {key[:110]}", flush=True)
+    return launches
+
+
 def phase_trio_shift() -> list[dict]:
     """The K4 microbench at its defaults (C 128, T 55104), as its CLI runs it."""
     from sovits_tpu_torch.tools import profile_trio_shift
@@ -1007,12 +1277,14 @@ def phase_trio_shift() -> list[dict]:
 
 
 K1 = ("sovits_tpu_torch/csrc/rel_attention.cu", "sovits_tpu/ops/attention.py:191")
+K2 = ("sovits_tpu_torch/csrc/rel_attention_bwd.cu", "sovits_tpu/ops/attention.py:217")
 K3 = ("sovits_tpu_torch/csrc/resblock_trio.cu", "sovits_tpu/ops/fused_stage.py:200")
 K4 = ("sovits_tpu_torch/csrc/trio_shift.cu", "tools/profile_trio_shift.py:106")
 KERNELS = {  # JSON name: (source, TPU kernel it replaces)
     "rel_attention": K1,
     "rel_attention_bf16": K1,
-    "rel_attention_bwd": ("sovits_tpu_torch/csrc/rel_attention_bwd.cu", "sovits_tpu/ops/attention.py:217"),
+    "rel_attention_bwd": K2,
+    "rel_attention_bwd_bf16": K2,
     "resblock_trio": K3,
     "resblock_trio_bf16": K3,
     "trio_shift_bf16": K4,
@@ -1030,6 +1302,7 @@ def main() -> None:
         infer_bf16 = phase_main_bf16(Path(tmp), svc)
         train, hps = phase_train(Path(tmp), svc.encoder)
         fused_tail = phase_train_fused_tail(hps)
+    train_bf16 = phase_train_bf16()
     k4 = {f"trio_shift_{r['variant']}": r for r in phase_trio_shift()}
     times = phase_times()
     for key, r in k4.items():
@@ -1037,8 +1310,10 @@ def main() -> None:
     paths = {
         "rel_attention": {"infer": infer["rel_attention"], "train": train["rel_attention"],
                           "train_fused_tail": fused_tail["rel_attention"]},
-        "rel_attention_bf16": {"infer_bf16": infer_bf16["rel_attention_bf16"]},
+        "rel_attention_bf16": {"infer_bf16": infer_bf16["rel_attention_bf16"],
+                               "train_bf16": train_bf16["rel_attention_bf16"]},
         "rel_attention_bwd": {"train": train["rel_attention_bwd"]},
+        "rel_attention_bwd_bf16": {"train_bf16": train_bf16["rel_attention_bwd_bf16"]},
         "resblock_trio": {"infer": infer["resblock_trio"], "train_fused_tail": fused_tail["resblock_trio"]},
         "resblock_trio_bf16": {"infer_bf16": infer_bf16["resblock_trio_bf16"]},
         **{key: {"microbench": r["launches"]} for key, r in k4.items()},

@@ -1,5 +1,5 @@
 // Backward of the fused relative-position self-attention (rel_attention.cu),
-// fp32 in and out.
+// fp32 or bf16 in and out.
 //
 // Replaces the TPU kernel sovits_tpu/ops/attention.py:_make_fused.bwd_rule
 // (Pallas body _bwd_kernel). On [BH, T, D] with q pre-scaled by 1/sqrt(D),
@@ -10,14 +10,34 @@
 //   pt      = p * dm
 //   dv      = pt^T . dout
 //   g       = (dout . v^T + band of dout . rel_v^T) * dm
-//   D[t]    = sum_u g[t, u] p[t, u] = dout[t] . out[t]
+//   D[t]    = sum_u g[t, u] p[t, u]
 //   ds      = p * (g - D)
 //   dq      = ds . k + band(ds) . rel_k
 //   dk      = ds^T . q
 //   drel_k  = sum_t band(ds)[t] q[t],  drel_v = sum_t band(pt)[t] dout[t]
-// D is taken from out and dout (the same number summed in another order):
-// out[t] = sum_u pt[t, u] v[u] + sum_o pt-band[t, o] rel_v[o], so dout[t] .
-// out[t] = sum_u p[t, u] dm[t, u] (dout[t] . v[u] + band term) = sum_u p g.
+//
+// Types. q, k, v, the rel tables, out, dout, dq, dk and dv are all fp32 or
+// all bf16; lse, the masks, the scratch and the rel-table partials are fp32.
+// Every value is widened to fp32 where it is staged in shared memory, so
+// products of two bf16 values are exact and every sum is fp32. In bf16 the
+// kernel rounds where the TPU kernel does (_bwd_kernel in q's type): p to
+// bf16 (its stored p_lo) before anything uses it; pt = p dm, and ds, to bf16
+// before they enter a product (dv, dq, dk and both band terms); g, D and
+// ds themselves stay fp32. dq, dk and dv are rounded once, at the store.
+// In fp32 every rounding is the identity.
+//
+// D, by type:
+//   fp32: D = dout[t] . out[t] (the same number summed in another order):
+//     out[t] = sum_u pt[t, u] v[u] + sum_o pt-band[t, o] rel_v[o], so dout[t]
+//     . out[t] = sum_u p[t, u] dm[t, u] (dout[t] . v[u] + band term) = sum_u p g.
+//   bf16: route (b), a sweep over the keys. out is bf16, rounded after its
+//     sum, so dout . out is not sum_u p g: on a row with one key (causal row
+//     0, the F0Decoder) ds = p (g - D) would no longer cancel to 0 and that
+//     row's dq would be rounding noise. Pass (a) therefore first sweeps the
+//     key tiles once, recomputing p (rounded) and g, and sums g p per row in
+//     fp32, as the TPU kernel does; out is not read. That costs the score
+//     and dout . v^T products once more (9 products of 2 T^2 D where 7 run in
+//     fp32), and keeps K1 and its fp32 output untouched.
 // Like the TPU kernel, masked positions are not replayed in ds: ds is p
 // times (g - D) wherever p is not 0, which matters only on a row whose keys
 // are all masked (uniform p).
@@ -25,31 +45,39 @@
 // Blocks run in no order, so nothing is carried across the grid and no
 // atomics are used; two passes, each deterministic:
 //   (a) rel_attn_bwd_q: one block per (bh, 32 query rows) streams the key
-//       tiles and computes dq, D, and the per-block partials of drel_k and
-//       drel_v (sums over query rows). The partials go to a scratch array
-//       [n_blocks, 2, 2w+1, D] that the caller sums (as the JAX package
-//       sums its per-program partials). It also stores q . rel_k and
-//       dout . rel_v per row ([BH, T, 2 (2w+1)]) for pass (b).
+//       tiles and computes dq, D (bf16: in a first sweep), and the per-block
+//       partials of drel_k and drel_v (sums over query rows). The partials
+//       go to a scratch array [n_blocks, 2, 2w+1, D] that the caller sums
+//       (as the JAX package sums its per-program partials). It also stores
+//       D, and q . rel_k and dout . rel_v per row ([BH, T, 2 (2w+1)]), for
+//       pass (b).
 //   (b) rel_attn_bwd_kv: one block per (bh, 64 keys) streams the query
 //       tiles and computes dk and dv.
 // Causal without a key mask (the F0Decoder), every row has a valid key at
 // or before its diagonal, so a key above the diagonal has p = exp(-1e4 -
-// lse) = 0 exactly in fp32: those tiles are skipped, in both passes. With a
-// key mask they are not (a fully masked row is uniform over all keys).
+// lse) = 0 exactly in fp32 (and in bf16): those tiles are skipped, in every
+// sweep. With a key mask they are not (a fully masked row is uniform over
+// all keys).
 //
-// What bounds it on an H100: 7 products of 2 T^2 D per (bh) as written (the
-// algorithm needs 5; the score and dout . v^T products run in both passes),
-// in fp32 FMA loops from shared memory, against about 0.1 GB of traffic at
-// the training shape (BH 12, T 800, D 96, with the 30.7 MB dropout mask read
-// once per pass): operation-bound on the fp32 pipes. Tiles live in shared
-// memory (about 95 KB a block at D = 96, two blocks an SM) with row strides
-// padded by one word. Tensor cores, TMA and an in-kernel Philox mask are
-// later work.
+// What bounds it on an H100: 7 products of 2 T^2 D per (bh) as written in
+// fp32, 9 in bf16 (the algorithm needs 5; the score and dout . v^T products
+// run in both passes, and in bf16's D sweep), in fp32 FMA loops from shared
+// memory, against about 0.1 GB of traffic at the training shape (BH 12,
+// T 800, D 96, with the 30.7 MB dropout mask read once per sweep):
+// operation-bound on the fp32 pipes, in both types (bf16 saves only bytes,
+// which do not bind). Tiles live in shared memory as fp32 (about 95 KB a
+// block at D = 96, two blocks an SM) with row strides padded by one word.
+// Tensor cores, TMA and an in-kernel Philox mask are later work.
 //
 // Plain C interface, bound with ctypes; returns cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
+
+#include "dtype.cuh"
 
 namespace {
 
@@ -61,13 +89,16 @@ constexpr int DJ = MAXD / 16;  // feature columns per thread at most
 constexpr float NEG = -1e4f;   // the reference's masking constant
 
 // Scores s and dout . v^T for rows (ty, ty + 16) of the query tile and keys
-// (tx + 16 j) of the key tile, then p, pt = p dm and ds in place:
-// s[i][j] <- pt, g[i][j] <- ds (0 outside the sequence).
+// (tx + 16 j) of the key tile, then per entry p (rounded to T_), pt = p dm
+// and ds. kRowSum: only D's row sums, dsum[i] += g p (bf16's D sweep); s and
+// g are left as they are. Otherwise in place, rounded to T_ as the products
+// that take them want: s[i][j] <- pt, g[i][j] <- ds (0 outside the sequence).
+template <typename T_, bool kRowSum>
 __device__ __forceinline__ void tile_ds(
     const float* sq, const float* sdo, const float* sk, const float* sv, const float* srl,
     const float* sgr, const float* s_lse, const float* s_D, const float* km, const float* dm,
     int q0, int k0, int T, int D, int ld, int window, int win, int causal, int tx, int ty,
-    float s[2][4], float g[2][4]) {
+    float s[2][4], float g[2][4], float dsum[2]) {
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -102,34 +133,43 @@ __device__ __forceinline__ void tile_ds(
         }
         if (causal && off > 0) x = NEG;
         if (km && !(km[u] > 0.f)) x = NEG;
-        const float p = expf(x - s_lse[r]);
+        const float p = round_to<T_>(expf(x - s_lse[r]));  // the TPU kernel's p_lo
         const float dmv = dm ? dm[(size_t)t * T + u] : 1.f;
-        pt = p * dmv;
-        ds = p * (gg * dmv - s_D[r]);
+        if constexpr (kRowSum) {
+          dsum[i] = fmaf(gg * dmv, p, dsum[i]);
+        } else {
+          pt = round_to<T_>(p * dmv);
+          ds = round_to<T_>(p * (gg * dmv - s_D[r]));
+        }
       }
-      s[i][j] = pt;
-      g[i][j] = ds;
+      if constexpr (!kRowSum) {
+        s[i][j] = pt;
+        g[i][j] = ds;
+      }
     }
   }
 }
 
-__device__ __forceinline__ void load_rows(float* dst, const float* src, int row0, int rows,
-                                          int T, int D, int ld, int tid) {
+template <typename T_>
+__device__ __forceinline__ void load_rows(float* dst, const T_* src, int row0, int rows, int T,
+                                          int D, int ld, int tid) {
   for (int i = tid; i < rows * D; i += NT) {
     const int r = i / D, c = i - r * D;
     const int t = row0 + r;
-    dst[r * ld + c] = t < T ? src[(size_t)t * D + c] : 0.f;
+    dst[r * ld + c] = t < T ? to_f(src[(size_t)t * D + c]) : 0.f;
   }
 }
 
+template <typename T_>
 __global__ void __launch_bounds__(NT) rel_attn_bwd_q(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ rel_k, const float* __restrict__ rel_v,
+    const T_* __restrict__ q, const T_* __restrict__ k, const T_* __restrict__ v,
+    const T_* __restrict__ rel_k, const T_* __restrict__ rel_v,
     const float* __restrict__ kmask, const float* __restrict__ dmask,
-    const float* __restrict__ out, const float* __restrict__ dout,
-    const float* __restrict__ lse, float* __restrict__ dq, float* __restrict__ dvec,
+    const T_* __restrict__ out, const T_* __restrict__ dout,
+    const float* __restrict__ lse, T_* __restrict__ dq, float* __restrict__ dvec,
     float* __restrict__ band, float* __restrict__ drel_part, int T, int D, int window,
     int causal, int skip_upper) {
+  constexpr bool kDFromOut = std::is_same<T_, float>::value;  // else the D sweep
   extern __shared__ float sm[];
   const int win = window >= 0 ? 2 * window + 1 : 0;
   const int ld = D + 1;
@@ -160,23 +200,25 @@ __global__ void __launch_bounds__(NT) rel_attn_bwd_q(
   load_rows(sq, q + base, q0, BQ, T, D, ld, tid);
   load_rows(sdo, dout + base, q0, BQ, T, D, ld, tid);
   for (int i = tid; i < win * D; i += NT) {
-    srk[i] = rel_k[i];
-    srv[i] = rel_v[i];
+    srk[i] = to_f(rel_k[i]);
+    srv[i] = to_f(rel_v[i]);
   }
   for (int i = tid; i < BQ * win; i += NT) sdsb[i] = sptb[i] = 0.f;
-  {  // D = dout . out and lse per row: 8 threads a row
+  {  // lse per row and, in fp32, D = dout . out: 8 threads a row
     const int r = tid >> 3, l8 = tid & 7;
     const int t = q0 + r;
     float a = 0.f;
-    if (t < T)
+    if (kDFromOut && t < T)
       for (int c = l8; c < D; c += 8)
-        a = fmaf(dout[base + (size_t)t * D + c], out[base + (size_t)t * D + c], a);
+        a = fmaf(to_f(dout[base + (size_t)t * D + c]), to_f(out[base + (size_t)t * D + c]), a);
 #pragma unroll
     for (int o = 4; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
     if (l8 == 0) {
-      s_D[r] = a;
       s_lse[r] = t < T ? lse[(size_t)bh * T + t] : 0.f;
-      if (t < T) dvec[(size_t)bh * T + t] = a;
+      if (kDFromOut) {
+        s_D[r] = a;
+        if (t < T) dvec[(size_t)bh * T + t] = a;
+      }
     }
   }
   __syncthreads();
@@ -197,21 +239,43 @@ __global__ void __launch_bounds__(NT) rel_attn_bwd_q(
     }
   }
 
+  const int k_end = skip_upper ? min(T, q0 + BQ) : T;
+  float s[2][4], g[2][4];
+  if constexpr (!kDFromOut) {  // D = sum_u g p per row, before any ds
+    float dsum[2] = {0.f, 0.f};
+    for (int k0 = 0; k0 < k_end; k0 += BK) {
+      __syncthreads();  // the previous tile is no longer read (first: srl and sgr are written)
+      load_rows(sk, k + base, k0, BK, T, D, ld, tid);
+      load_rows(sv, v + base, k0, BK, T, D, ld, tid);
+      __syncthreads();
+      tile_ds<T_, true>(sq, sdo, sk, sv, srl, sgr, s_lse, s_D, km, dm, q0, k0, T, D, ld, window,
+                        win, causal, tx, ty, s, g, dsum);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // over the 16 threads of a row (one half-warp)
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) dsum[i] += __shfl_xor_sync(0xffffffffu, dsum[i], o);
+      const int r = ty + 16 * i, t = q0 + r;
+      if (tx == 0) {
+        s_D[r] = dsum[i];
+        if (t < T) dvec[(size_t)bh * T + t] = dsum[i];
+      }
+    }
+  }
+
   float acc[2][DJ];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
 
-  const int k_end = skip_upper ? min(T, q0 + BQ) : T;
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();  // the previous tile's K, V and ds are no longer read
     load_rows(sk, k + base, k0, BK, T, D, ld, tid);
     load_rows(sv, v + base, k0, BK, T, D, ld, tid);
     __syncthreads();
-    float s[2][4], g[2][4];
-    tile_ds(sq, sdo, sk, sv, srl, sgr, s_lse, s_D, km, dm, q0, k0, T, D, ld, window, win,
-            causal, tx, ty, s, g);
+    tile_ds<T_, false>(sq, sdo, sk, sv, srl, sgr, s_lse, s_D, km, dm, q0, k0, T, D, ld, window,
+                       win, causal, tx, ty, s, g, nullptr);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = ty + 16 * i;
@@ -254,7 +318,7 @@ __global__ void __launch_bounds__(NT) rel_attn_bwd_q(
       if (c >= D) continue;
       float o = acc[i][j];
       for (int ow = 0; ow < win; ++ow) o = fmaf(sdsb[r * win + ow], srk[ow * D + c], o);
-      dq[base + (size_t)t * D + c] = o;
+      dq[base + (size_t)t * D + c] = from_f<T_>(o);
     }
   }
   if (win) {
@@ -272,12 +336,13 @@ __global__ void __launch_bounds__(NT) rel_attn_bwd_q(
   }
 }
 
+template <typename T_>
 __global__ void __launch_bounds__(NT) rel_attn_bwd_kv(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const T_* __restrict__ q, const T_* __restrict__ k, const T_* __restrict__ v,
     const float* __restrict__ kmask, const float* __restrict__ dmask,
-    const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ dvec, const float* __restrict__ band, float* __restrict__ dk,
-    float* __restrict__ dv, int T, int D, int window, int causal, int skip_upper) {
+    const T_* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ dvec, const float* __restrict__ band, T_* __restrict__ dk,
+    T_* __restrict__ dv, int T, int D, int window, int causal, int skip_upper) {
   extern __shared__ float sm[];
   const int win = window >= 0 ? 2 * window + 1 : 0;
   const int ld = D + 1;
@@ -329,8 +394,8 @@ __global__ void __launch_bounds__(NT) rel_attn_bwd_kv(
     }
     __syncthreads();
     float s[2][4], g[2][4];
-    tile_ds(sq, sdo, sk, sv, srl, sgr, s_lse, s_D, km, dm, q0, k0, T, D, ld, window, win,
-            causal, tx, ty, s, g);
+    tile_ds<T_, false>(sq, sdo, sk, sv, srl, sgr, s_lse, s_D, km, dm, q0, k0, T, D, ld, window,
+                       win, causal, tx, ty, s, g, nullptr);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -370,23 +435,17 @@ __global__ void __launch_bounds__(NT) rel_attn_bwd_kv(
     for (int j = 0; j < DJ; ++j) {
       const int c = tx + 16 * j;
       if (c >= D) continue;
-      dk[base + (size_t)u * D + c] = adk[i][j];
-      dv[base + (size_t)u * D + c] = adv[i][j];
+      dk[base + (size_t)u * D + c] = from_f<T_>(adk[i][j]);
+      dv[base + (size_t)u * D + c] = from_f<T_>(adv[i][j]);
     }
   }
 }
 
-}  // namespace
-
-// Scratch from the caller: dvec [bh * t], band [bh * t * 2 (2w+1)] and
-// drel_part [ceil(t / 32) * bh * 2 * (2w+1) * d] (both null without a window).
-extern "C" int sovits_rel_attention_bwd(
-    const float* q, const float* k, const float* v, const float* rel_k, const float* rel_v,
-    const float* kmask, const float* dmask, const float* out, const float* dout,
-    const float* lse, float* dq, float* dk, float* dv, float* dvec, float* band,
-    float* drel_part, int bh, int t, int d, int window, int causal, void* stream) {
-  if (d < 1 || d > MAXD || t < 1 || bh < 1) return (int)cudaErrorInvalidValue;
-  if (window >= 0 && (!rel_k || !rel_v || !band || !drel_part)) return (int)cudaErrorInvalidValue;
+template <typename T_>
+int launch(const void* q, const void* k, const void* v, const void* rel_k, const void* rel_v,
+           const float* kmask, const float* dmask, const void* out, const void* dout,
+           const float* lse, void* dq, void* dk, void* dv, float* dvec, float* band,
+           float* drel_part, int bh, int t, int d, int window, int causal, cudaStream_t s) {
   const int win = window >= 0 ? 2 * window + 1 : 0;
   const int ld = d + 1, ldp = BK + 1;
   const int skip_upper = causal && kmask == nullptr;
@@ -396,19 +455,41 @@ extern "C" int sovits_rel_attention_bwd(
   const size_t smem_kv = sizeof(float) * (2 * (size_t)BK * ld + 2 * (size_t)BQ * ld +
                                           2 * (size_t)BQ * ldp + 2 * (size_t)BQ * win +
                                           2 * (size_t)BQ);
-  cudaError_t e = cudaFuncSetAttribute(rel_attn_bwd_q,
+  cudaError_t e = cudaFuncSetAttribute(rel_attn_bwd_q<T_>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(rel_attn_bwd_kv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  e = cudaFuncSetAttribute(rel_attn_bwd_kv<T_>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem_kv);
   if (e != cudaSuccess) return (int)e;
-  cudaStream_t s = (cudaStream_t)stream;
-  rel_attn_bwd_q<<<dim3((t + BQ - 1) / BQ, bh), NT, smem_q, s>>>(
-      q, k, v, rel_k, rel_v, kmask, dmask, out, dout, lse, dq, dvec, band, drel_part, t, d,
-      window, causal, skip_upper);
+  rel_attn_bwd_q<T_><<<dim3((t + BQ - 1) / BQ, bh), NT, smem_q, s>>>(
+      (const T_*)q, (const T_*)k, (const T_*)v, (const T_*)rel_k, (const T_*)rel_v, kmask, dmask,
+      (const T_*)out, (const T_*)dout, lse, (T_*)dq, dvec, band, drel_part, t, d, window, causal,
+      skip_upper);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  rel_attn_bwd_kv<<<dim3((t + BK - 1) / BK, bh), NT, smem_kv, s>>>(
-      q, k, v, kmask, dmask, dout, lse, dvec, band, dk, dv, t, d, window, causal, skip_upper);
+  rel_attn_bwd_kv<T_><<<dim3((t + BK - 1) / BK, bh), NT, smem_kv, s>>>(
+      (const T_*)q, (const T_*)k, (const T_*)v, kmask, dmask, (const T_*)dout, lse, dvec, band,
+      (T_*)dk, (T_*)dv, t, d, window, causal, skip_upper);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// bf16 = 0: q, k, v, rel_k, rel_v, out, dout, dq, dk and dv are float; 1:
+// __nv_bfloat16 (out is then not read: D comes from the key sweep). Scratch
+// from the caller: dvec [bh * t], band [bh * t * 2 (2w+1)] and drel_part
+// [ceil(t / 32) * bh * 2 * (2w+1) * d] (both null without a window), fp32.
+extern "C" int sovits_rel_attention_bwd(
+    const void* q, const void* k, const void* v, const void* rel_k, const void* rel_v,
+    const float* kmask, const float* dmask, const void* out, const void* dout,
+    const float* lse, void* dq, void* dk, void* dv, float* dvec, float* band,
+    float* drel_part, int bh, int t, int d, int window, int causal, int bf16, void* stream) {
+  if (d < 1 || d > MAXD || t < 1 || bh < 1) return (int)cudaErrorInvalidValue;
+  if (window >= 0 && (!rel_k || !rel_v || !band || !drel_part)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16)
+    return launch<__nv_bfloat16>(q, k, v, rel_k, rel_v, kmask, dmask, out, dout, lse, dq, dk, dv,
+                                 dvec, band, drel_part, bh, t, d, window, causal, s);
+  return launch<float>(q, k, v, rel_k, rel_v, kmask, dmask, out, dout, lse, dq, dk, dv, dvec,
+                       band, drel_part, bh, t, d, window, causal, s);
 }

@@ -43,9 +43,12 @@ class F0Predictor:
 
 
 def get_f0_predictor(name: str, hop_length: int, sampling_rate: int, **kwargs) -> F0Predictor:
-    """Only DIO is ported; every other predictor raises."""
-    if name != "dio":
-        raise NotImplementedError(f"f0 predictor {name!r} is not supported by the port (use 'dio')")
+    """DIO and pm are ported; every other predictor raises."""
     from .dio import DioF0Predictor
+    from .praat import ParselmouthF0Predictor
 
-    return DioF0Predictor(hop_length=hop_length, sampling_rate=sampling_rate, **kwargs)
+    registry = {"dio": DioF0Predictor, "pm": ParselmouthF0Predictor}
+    if name not in registry:
+        raise NotImplementedError(f"f0 predictor {name!r} is not supported by the port "
+                                  f"(use one of {sorted(registry)})")
+    return registry[name](hop_length=hop_length, sampling_rate=sampling_rate, **kwargs)

@@ -1,8 +1,8 @@
 """Svc -- one voice conversion (counterpart of ``sovits_tpu/infer/svc.py``).
 
 Per clip: resample to the model rate -> launch the speech encoder on the
-16 kHz copy -> DIO f0 on the host while the card works -> units stretched
-to the f0 frames -> synthesizer (prior, flow, NSF-HiFiGAN) -> audio.
+16 kHz copy -> f0 on the host while the card works (``f0_predictor``: pm, the
+JAX package's default, or dio) -> units stretched to the f0 frames -> synthesizer (prior, flow, NSF-HiFiGAN) -> audio.
 Inputs are padded to the same length buckets as the JAX package's, and
 same-bucket chunks run as one batch padded to a power of two, so the two
 packages see identical tensors.
@@ -85,7 +85,7 @@ class Svc:
 
     # ------------------------------------------------------------------
     def get_unit_f0(self, wav: np.ndarray, tran: int, cluster_infer_ratio: float, speaker,
-                    f0_filter: bool = False, f0_predictor: str = "dio", cr_threshold: float = 0.05):
+                    f0_filter: bool = False, f0_predictor: str = "pm", cr_threshold: float = 0.05):
         """f0 + units aligned to the f0 frames."""
         if cluster_infer_ratio != 0:
             raise NotImplementedError("cluster / feature retrieval is not supported by the port")
@@ -94,7 +94,7 @@ class Svc:
                 f0_predictor, hop_length=self.hop_size, sampling_rate=self.target_sample,
                 threshold=cr_threshold,
             )
-        # launch the encoder first; DIO's host work then overlaps the card's
+        # launch the encoder first; the f0 predictor's host work then overlaps the card's
         wav16k = resample(wav, self.target_sample, 16000)
         pending = self.encoder.encode_async(wav16k)
         f0, uv = self.f0_predictor_object.compute_f0_uv(wav)
@@ -165,7 +165,7 @@ class Svc:
 
     def infer(self, speaker, tran: int, wav: np.ndarray, sr: int | None = None,
               cluster_infer_ratio: float = 0.0, auto_predict_f0: bool = False,
-              noice_scale: float = 0.4, f0_filter: bool = False, f0_predictor: str = "dio",
+              noice_scale: float = 0.4, f0_filter: bool = False, f0_predictor: str = "pm",
               cr_threshold: float = 0.05, k_step: int = 100, second_encoding: bool = False,
               loudness_envelope_adjustment: float = 1.0, seed: int = 52468,
               spk_mix_frames: np.ndarray | None = None, enhancer_adaptive_key: float = 0):

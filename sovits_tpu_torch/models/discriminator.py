@@ -7,6 +7,11 @@ Parameter names are so-vits-svc's (``discriminators.{0..5}.convs.*``,
 weight-normed; with ``use_spectral_norm`` they carry torch's spectral norm
 instead, as so-vits-svc selects it. Waveforms come in the JAX package's
 layout [B, T, 1]; feature maps go out channels-first (torch's layout).
+
+``dtype`` is the compute type, as the JAX ``MultiPeriodDiscriminator(dtype=)``:
+parameters stay float32, every conv (weight norm or spectral norm folded in
+float32 first) casts its input and weights to it, and logits and feature
+maps come out in it. The losses reduce in float32.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.conv import WNConv1d, WNConv2d
+from ..nn.conv import Conv1d, Conv2d, WNConv1d, WNConv2d, set_compute_dtype
 
 LRELU_SLOPE = 0.1
 PERIODS = (2, 3, 5, 7, 11)
@@ -27,13 +32,13 @@ S_SPECS = ((16, 15, 1, 1, 7), (64, 41, 4, 4, 20), (256, 41, 4, 16, 20),
 
 def _conv1d(spectral: bool, c_in, c_out, k, stride=1, groups=1, padding=0):
     if spectral:
-        return nn.utils.spectral_norm(nn.Conv1d(c_in, c_out, k, stride, padding, groups=groups))
+        return nn.utils.spectral_norm(Conv1d(c_in, c_out, k, stride, padding, groups=groups))
     return WNConv1d(c_in, c_out, k, stride, padding, groups=groups)
 
 
 def _conv2d(spectral: bool, c_in, c_out, k, stride, padding):
     if spectral:
-        return nn.utils.spectral_norm(nn.Conv2d(c_in, c_out, k, stride, padding))
+        return nn.utils.spectral_norm(Conv2d(c_in, c_out, k, stride, padding))
     return WNConv2d(c_in, c_out, k, stride, padding)
 
 
@@ -94,13 +99,14 @@ class MultiPeriodDiscriminator(nn.Module):
     """Slot 0 is the scale discriminator, slots 1.. the period ones."""
 
     def __init__(self, use_spectral_norm: bool = False, periods=PERIODS, p_channels=P_CHANNELS,
-                 s_specs=S_SPECS):
+                 s_specs=S_SPECS, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.discriminators = nn.ModuleList(
             [DiscriminatorS(use_spectral_norm, s_specs)]
             + [DiscriminatorP(p, use_spectral_norm=use_spectral_norm, channels=p_channels)
                for p in periods]
         )
+        set_compute_dtype(self, dtype)
 
     def forward(self, y: torch.Tensor, y_hat: torch.Tensor):
         """y, y_hat [B, T, 1] -> (real logits, fake logits, real fmaps, fake fmaps),

@@ -53,16 +53,18 @@ def build_synthesizer(hps, device: torch.device | str, *, fused_tail: bool,
     return model.to(device).eval()
 
 
-def build_discriminator(hps, device: torch.device | str) -> MultiPeriodDiscriminator:
-    """so-vits-svc's MultiPeriodDiscriminator. ``model.disc_tiny`` is the JAX
-    package's small-test knob (not a reference option): periods (2, 3) and
-    narrow towers."""
+def build_discriminator(hps, device: torch.device | str,
+                        dtype: torch.dtype = torch.float32) -> MultiPeriodDiscriminator:
+    """so-vits-svc's MultiPeriodDiscriminator, computing in ``dtype``
+    (parameters stay float32). ``model.disc_tiny`` is the JAX package's
+    small-test knob (not a reference option): periods (2, 3) and narrow
+    towers."""
     kw = {}
     if hps.model.get("disc_tiny"):
         kw = dict(periods=(2, 3), p_channels=(8, 16, 32, 64),
                   s_specs=((8, 15, 1, 1, 7), (16, 41, 4, 4, 20), (32, 41, 4, 4, 20),
                            (64, 5, 1, 1, 2)))
-    return MultiPeriodDiscriminator(bool(hps.model.use_spectral_norm), **kw).to(device)
+    return MultiPeriodDiscriminator(bool(hps.model.use_spectral_norm), dtype=dtype, **kw).to(device)
 
 
 @torch.no_grad()

@@ -8,7 +8,8 @@ key mask (ContentEncoder), or causal (F0Decoder) -- goes through
 ``ops.attention.fused_attention``; anything else takes the dense path here.
 
 Dropout sits where the JAX package puts it: on the attention weights (as a
-[B*H, T, T] keep mask handed to the kernel, or on ``p_attn`` in the dense
+[B*H, T, T] keep mask handed to the kernel, with the values JAX gives it in
+q's type, or as ``nn.dropout.dropout`` on the fp32 ``p_attn`` in the dense
 path), after the FFN's activation, and on both residual branches of the
 Encoder and FFT layers. It is active only when a ``drop_generator`` is
 passed; inference passes none and is deterministic.
@@ -98,11 +99,11 @@ class MultiHeadAttention(nn.Module):
         k = self.conv_k(c).view(b, h, d, t_s).transpose(2, 3)
         v = self.conv_v(c).view(b, h, d, t_s).transpose(2, 3)
         w = self.window_size
-        dm = None
-        if drop_generator is not None and self.p_dropout > 0.0:
-            dm = keep_mask((b * h, t_t, t_s), self.p_dropout, drop_generator, x.device)
 
         if self._fused_eligible(t_t, t_s, causal, key_mask, attn_mask):
+            dm = None
+            if drop_generator is not None and self.p_dropout > 0.0:
+                dm = keep_mask((b * h, t_t, t_s), self.p_dropout, drop_generator, x.device, q.dtype)
             km = key_mask.float().repeat_interleave(h, dim=0).contiguous() if key_mask is not None else None
             out = fused_attention(
                 q.reshape(b * h, t_t, d).contiguous(),
@@ -123,9 +124,7 @@ class MultiHeadAttention(nn.Module):
                 scores = scores.masked_fill(tri, NEG)
             if attn_mask is not None:
                 scores = scores.masked_fill(attn_mask == 0, NEG)
-            p = torch.softmax(scores.float(), dim=-1)
-            if dm is not None:
-                p = p * dm.view(b, h, t_t, t_s)
+            p = dropout(torch.softmax(scores.float(), dim=-1), self.p_dropout, drop_generator)
             p = p.to(v.dtype)
             out = torch.matmul(p, v)
             if w is not None:

@@ -16,9 +16,11 @@ Compute type: as in the JAX modules, parameters stay float32 (their
 its input, weight and bias to it, and its output is in it. The weight norm
 is folded in float32 first; the folded weight's copy in the compute type is
 kept beside it and refolded with it. ``set_compute_dtype`` sets ``dtype`` on
-every such module under a root. Plain convs are :class:`Conv1d` (a
-``torch.nn.Conv1d`` with a compute type). None of the JAX package's folded,
-block-dense, convvjp or im2col lowerings is ported: they are TPU layout work.
+every such module under a root. Plain convs are :class:`Conv1d` and
+:class:`Conv2d` (``torch.nn.Conv1d`` / ``Conv2d`` with a compute type; a
+spectral norm's hook sets their ``weight`` in float32 before the cast).
+None of the JAX package's folded, block-dense, convvjp or im2col lowerings
+is ported: they are TPU layout work.
 """
 
 from __future__ import annotations
@@ -47,6 +49,14 @@ def set_compute_dtype(root: nn.Module, dtype: torch.dtype) -> nn.Module:
 
 class Conv1d(Cast, nn.Conv1d):
     """``torch.nn.Conv1d`` in the compute type (the JAX ``Conv1d`` without
+    weight norm)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x.to(self.dtype), self.weight.to(self.dtype), self.cast_bias())
+
+
+class Conv2d(Cast, nn.Conv2d):
+    """``torch.nn.Conv2d`` in the compute type (the JAX ``Conv2d`` without
     weight norm)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

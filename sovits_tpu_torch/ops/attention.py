@@ -11,9 +11,13 @@ uniform row, as in the reference.
 
 Types, as the TPU kernel's: q, k, v and the rel tables in fp32 or bf16 (the
 tables are cast to q's type, as ``fused_attention`` casts them there); the
-masks fp32. Scores, band and softmax are fp32; p is rounded to the input
-type before p . v and the band sums; the output is in the input type. The
-backward kernel takes fp32 only.
+masks are stored fp32 (the dropout mask holding the values JAX gives it in
+q's type: ``nn.dropout.keep_mask``). Scores, band and softmax are fp32; p is
+rounded to the input type before p . v and the band sums; the output is in
+the input type. The backward takes both types too, with the TPU backward
+kernel's rounding points (:func:`fused_attention_bwd_plain`): out, dout,
+dq, dk and dv in q's type, the LSE fp32, the rel-table gradients summed in
+fp32 and returned in the tables' type.
 
 ``fused_attention`` dispatches by device: CPU tensors go to the plain
 versions; CUDA tensors launch ``csrc/rel_attention.cu`` (forward) and, when
@@ -88,35 +92,51 @@ def fused_attention_plain(q, k, v, rel_k=None, rel_v=None, key_mask=None, drop_m
     return out.to(q.dtype)
 
 
+def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x rounded to ``dtype`` and widened back to fp32 (the identity for fp32)."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
 def fused_attention_bwd_plain(q, k, v, rel_k, rel_v, key_mask, drop_mask, dout, *,
                               window: int | None = None, causal: bool = False):
-    """The TPU backward kernel (``_bwd_kernel``) step by step in PyTorch.
-    Returns (dq, dk, dv, drel_k, drel_v); the rel grads are None without a window."""
-    p = _probs(q, k, rel_k, key_mask, window, causal)
+    """The TPU backward kernel (``_bwd_kernel``) step by step in PyTorch, with
+    its rounding points: every product in fp32 on inputs in q's type; p is
+    the forward's p rounded to q's type; pt = p dm, ds and both bands are
+    rounded to q's type where a product takes them; g, D = rowsum(g p) and
+    ds = p (g - D) stay fp32. In fp32 every rounding is the identity.
+    Returns (dq, dk, dv) in q's type and (drel_k, drel_v), summed in fp32,
+    in the tables' type; the rel grads are None without a window."""
+    lo = q.dtype
+    q32, k32, v32, do32 = (x.float() for x in (q, k, v, dout))
+    p = _probs(q, k, rel_k, key_mask, window, causal).float()  # p_lo, widened
     pt = p * drop_mask if drop_mask is not None else p
-    dv = torch.matmul(pt.transpose(1, 2), dout)
-    g = torch.matmul(dout, v.transpose(1, 2))  # d(pt), before the value band
+    dv = torch.matmul(_rounded(pt, lo).transpose(1, 2), do32)
+    g = torch.matmul(do32, v32.transpose(1, 2))  # d(pt), before the value band
     drel_k = drel_v = None
     if window is not None:
-        drel_v = torch.matmul(_to_band(pt, window).transpose(1, 2), dout).sum(0)
-        _add_band_(g, torch.matmul(dout, rel_v.t()), window)
+        drel_v = torch.matmul(_rounded(_to_band(pt, window), lo).transpose(1, 2), do32).sum(0)
+        _add_band_(g, torch.matmul(do32, rel_v.float().t()), window)
     if drop_mask is not None:
         g = g * drop_mask
     ds = p * (g - (g * p).sum(-1, keepdim=True))  # softmax VJP
-    dq = torch.matmul(ds, k)
-    dk = torch.matmul(ds.transpose(1, 2), q)
+    ds_lo = _rounded(ds, lo)
+    dq = torch.matmul(ds_lo, k32)
+    dk = torch.matmul(ds_lo.transpose(1, 2), q32)
     if window is not None:
-        ds_band = _to_band(ds, window)
-        dq = dq + torch.matmul(ds_band, rel_k)
-        drel_k = torch.matmul(ds_band.transpose(1, 2), q).sum(0)
-    return dq, dk, dv, drel_k, drel_v
+        ds_band = _rounded(_to_band(ds, window), lo)
+        dq = dq + torch.matmul(ds_band, rel_k.float())
+        drel_k = torch.matmul(ds_band.transpose(1, 2), q32).sum(0).to(rel_k.dtype)
+        drel_v = drel_v.to(rel_v.dtype)
+    return dq.to(lo), dk.to(lo), dv.to(lo), drel_k, drel_v
 
 
-def _check(q, k, v, rel_k, rel_v, key_mask, drop_mask, window, what: str,
-           dtypes=(torch.float32, torch.bfloat16)) -> None:
+def _check(q, k, v, rel_k, rel_v, key_mask, drop_mask, window, what: str) -> None:
     """Raise on what the kernels do not take: q, k, v and the rel tables of
-    one type in ``dtypes``, float32 masks, all contiguous on q's device."""
+    one type, fp32 or bf16; float32 masks (the dropout mask's values are
+    those of q's type, as ``nn.dropout.keep_mask`` makes them); all
+    contiguous on q's device."""
     bh, t, d = q.shape
+    dtypes = (torch.float32, torch.bfloat16)
     if q.dtype not in dtypes:
         raise ValueError(f"{what}: q/k/v must be one of {dtypes}, got {q.dtype}")
     for x in (q, k, v, rel_k, rel_v, key_mask, drop_mask):
@@ -166,19 +186,19 @@ def _forward(q, k, v, rel_k, rel_v, key_mask, drop_mask, window, causal, want_ls
 
 def fused_attention_bwd(q, k, v, rel_k, rel_v, key_mask, drop_mask, out, lse, dout, *,
                         window: int | None = None, causal: bool = False):
-    """(dq, dk, dv, drel_k, drel_v) of the fused attention. CPU tensors take
-    :func:`fused_attention_bwd_plain`; CUDA tensors launch the backward kernel
-    on the forward's ``out`` and log-sum-exp ``lse``, or raise."""
+    """(dq, dk, dv, drel_k, drel_v) of the fused attention, in fp32 or bf16.
+    CPU tensors take :func:`fused_attention_bwd_plain`; CUDA tensors launch
+    the backward kernel on the forward's ``out`` and log-sum-exp ``lse``, or
+    raise."""
     if q.device.type == "cpu":
         return fused_attention_bwd_plain(q, k, v, rel_k, rel_v, key_mask, drop_mask, dout,
                                          window=window, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention_bwd: unsupported device {q.device}")
-    _check(q, k, v, rel_k, rel_v, key_mask, drop_mask, window, "fused_attention_bwd",
-           dtypes=(torch.float32,))
+    _check(q, k, v, rel_k, rel_v, key_mask, drop_mask, window, "fused_attention_bwd")
     for x in (out, dout):
-        if x.shape != q.shape or x.dtype != torch.float32 or not x.is_contiguous() or x.device != q.device:
-            raise ValueError("fused_attention_bwd: out and dout must be contiguous float32 like q")
+        if x.shape != q.shape or x.dtype != q.dtype or not x.is_contiguous() or x.device != q.device:
+            raise ValueError(f"fused_attention_bwd: out and dout must be contiguous {q.dtype} like q")
     bh, t, d = q.shape
     if lse is None or lse.shape != (bh, t) or lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"fused_attention_bwd: lse must be float32 [{bh}, {t}] on {q.device}")
@@ -193,15 +213,16 @@ def fused_attention_bwd(q, k, v, rel_k, rel_v, key_mask, drop_mask, out, lse, do
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rel_k), _ptr(rel_v), _ptr(key_mask),
         _ptr(drop_mask), out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), dvec.data_ptr(), _ptr(band), _ptr(part), bh, t, d,
-        -1 if window is None else window, int(causal),
+        -1 if window is None else window, int(causal), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(rc, "rel_attention_bwd launch")
     fused_attention_bwd.launches += 1
+    fused_attention_bwd.launches_bf16 += q.dtype == torch.bfloat16
     if window is None:
         return dq, dk, dv, None, None
     drel = part.sum(0)  # the per-block partials, summed as the JAX package sums its own
-    return dq, dk, dv, drel[0], drel[1]
+    return dq, dk, dv, drel[0].to(rel_k.dtype), drel[1].to(rel_v.dtype)
 
 
 class FusedAttention(torch.autograd.Function):
@@ -247,3 +268,4 @@ def fused_attention(q, k, v, rel_k=None, rel_v=None, key_mask=None, drop_mask=No
 fused_attention.launches = 0  # forward kernel launches since the last reset
 fused_attention.launches_bf16 = 0  # of which with bf16 inputs
 fused_attention_bwd.launches = 0  # backward kernel launches since the last reset
+fused_attention_bwd.launches_bf16 = 0  # of which with bf16 inputs

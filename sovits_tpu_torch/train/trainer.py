@@ -67,9 +67,10 @@ def train(hps, model_dir: str | Path, max_steps: int | None = None,
     steps_per_epoch = max(len(dataset) // batch_size, 1)
     generator = torch.Generator(device=device)
     start_step, t_start = step, time.perf_counter()
-    # a resumed run draws new batches, as its dropout generator draws new masks
+    # the data order restarts from hps.train.seed at every start, a resume
+    # included, as the JAX trainer's does; the dropout generator is reseeded per step
     with open(model_dir / "metrics.jsonl", "a") as mlog, \
-            contextlib.closing(batch_iterator(dataset, batch_size, seed=seed + step)) as batches:
+            contextlib.closing(batch_iterator(dataset, batch_size, seed=seed)) as batches:
         for epoch in range(start_epoch, (hps.train.epochs or 1) + 1):
             lr = epoch_lr(hps, epoch)
             set_learning_rate(optim_g, lr)

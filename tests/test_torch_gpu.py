@@ -172,8 +172,12 @@ def test_full_width_synthesizer_cuda_matches_cpu(cuda):
     torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-4)
 
 
-def _train_attention_case(bh, t, window, masked, seed, device):
-    """The training shapes' inputs: dropout 0.1 as keep/(1-rate) values."""
+def _train_attention_case(bh, t, window, masked, seed, device, dtype=torch.float32):
+    """The training shapes' inputs in ``dtype``: dropout 0.1 as the
+    attention modules draw it (keep/(1-rate), with the values of ``dtype``),
+    stored float32."""
+    from sovits_tpu_torch.nn.dropout import keep_mask
+
     g = _g(seed)
     d = 96
     q = torch.randn(bh, t, d, generator=g) * d**-0.5
@@ -183,35 +187,50 @@ def _train_attention_case(bh, t, window, masked, seed, device):
     if masked:
         km = torch.ones(bh, t)
         km[-2:, t - t // 4:] = 0.0  # shorter clips in the batch
-    dm = (torch.rand(bh, t, t, generator=g) >= 0.1).float() / 0.9
-    args = [x.to(device) if x is not None else None for x in (q, k.contiguous(), v.contiguous(), *rel, km, dm)]
-    return args, dout.contiguous().to(device)
+    dm = keep_mask((bh, t, t), 0.1, g, "cpu", dtype)
+    args = [x.to(device, dtype) if x is not None else None for x in (q, k.contiguous(), v.contiguous(), *rel)]
+    return args + [x.to(device) if x is not None else None for x in (km, dm)], dout.to(device, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("bh,t,window,masked", [
     (12, 800, 4, True),     # ContentEncoder, training batch of 6
     (12, 800, None, False),  # F0Decoder (causal)
     (3, 100, 4, True),      # off the tile grid
     (3, 100, None, True),   # causal with a key mask: no tile skipped
+    (12, 512, 4, True),     # ContentEncoder at bench.py's bf16 step (512 frames)
+    (3, 9, 4, True),        # lengths off every tile (32 query rows, 64 keys)
+    (3, 33, 4, True),
+    (3, 65, None, False),
+    (2, 1000, 4, True),
 ])
-def test_attention_backward_kernel_matches_plain(cuda, bh, t, window, masked):
-    args, dout = _train_attention_case(bh, t, window, masked, t + bh, cuda)
+def test_attention_backward_kernel_matches_plain(cuda, bh, t, window, masked, dtype):
+    """K2 against the plain backward on the same inputs: fp32 to TOL (the
+    rel-table gradients sum over every row, atol 1e-4); bf16 within 2e-2 x
+    max|plain| in all five outputs. Causal: row 0 has one key, so its dq
+    must cancel to 0 up to rounding in both."""
+    args, dout = _train_attention_case(bh, t, window, masked, t + bh, cuda, dtype)
     causal = window is None
     from sovits_tpu_torch.ops.attention import _forward
 
     out, lse = _forward(*args, window, causal, want_lse=True)
-    before = fused_attention_bwd.launches
+    before, before_bf16 = fused_attention_bwd.launches, fused_attention_bwd.launches_bf16
     got = fused_attention_bwd(*args, out, lse, dout, window=window, causal=causal)
     torch.cuda.synchronize()
     assert fused_attention_bwd.launches == before + 1
+    assert fused_attention_bwd.launches_bf16 == before_bf16 + (dtype == torch.bfloat16)
     want = fused_attention_bwd_plain(*args, dout, window=window, causal=causal)
-    for a, b in zip(got[:3], want[:3]):
-        torch.testing.assert_close(a, b, **TOL)
-    for a, b in zip(got[3:], want[3:]):
-        if window is None:
-            assert a is None and b is None
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None and window is None
+        elif dtype == torch.bfloat16:
+            _rel_close(a, b)
         else:
-            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+            torch.testing.assert_close(a, b, **(TOL if b.shape == args[0].shape else dict(rtol=1e-4, atol=1e-4)))
+    if causal:
+        row0 = (got[0][:, 0].float() - want[0][:, 0].float()).abs().max().item()
+        bar = 1e-5 if dtype == torch.float32 else 2e-2 * want[0].float().abs().max().item()
+        assert row0 <= bar, row0
 
 
 @pytest.mark.parametrize("window", [4, None], ids=["windowed", "causal"])
@@ -352,8 +371,11 @@ def test_kernels_reject_other_types(cuda):
 
     qb = q.bfloat16()
     out, lse = _forward(qb, qb, qb, None, None, None, None, None, True, want_lse=True)
-    with pytest.raises(ValueError):  # the backward kernel is fp32 only
-        fused_attention_bwd(qb, qb, qb, None, None, None, None, out, lse, torch.ones_like(out), causal=True)
+    with pytest.raises(ValueError):  # the backward kernel takes fp32 or bf16 only
+        fused_attention_bwd(q, q, q, None, None, None, None, q, lse, torch.ones_like(q), causal=True)
+    with pytest.raises(ValueError):  # out and dout in q's type: never a quiet cast
+        fused_attention_bwd(qb, qb, qb, None, None, None, None, out.float(), lse, torch.ones_like(out),
+                            causal=True)
 
 
 def test_full_width_bf16_synthesizer_launches_bf16_kernels(cuda):

@@ -264,3 +264,40 @@ def test_trio_shift_plain_matches_jnp_transcription(variant, mode):
     ref = np.asarray(ref, np.float32)
     err = np.abs(got.float().numpy() - ref).max()
     assert err <= 2e-2 * np.abs(ref).max(), (err, np.abs(ref).max())
+
+
+# --------------------------------------------------------------- dropout
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_dropout_matches_flax(dtype):
+    """nn.dropout.dropout is flax's nn.Dropout body, select(keep, x / (1 - p),
+    0) in x's type, bit for bit for the same keep mask: JAX rounds 1 - p to
+    x's type (0.8984375 in bf16) before it divides."""
+    from jax import lax
+
+    from sovits_tpu_torch.nn.dropout import dropout
+
+    x = np.random.default_rng(8).standard_normal(100_000).astype(np.float32)
+    xt = T(x).to(dtype)
+    got = dropout(xt, 0.1, torch.Generator().manual_seed(9))
+    keep = (torch.rand(xt.shape, generator=torch.Generator().manual_seed(9)) >= 0.1).numpy()
+    xj = jnp.asarray(x, {torch.bfloat16: jnp.bfloat16, torch.float32: jnp.float32}[dtype])
+    want = lax.select(jnp.asarray(keep), xj / (1.0 - 0.1), jnp.zeros_like(xj))
+    assert got.dtype == dtype and 0.85 < keep.mean() < 0.95
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_attention_keep_mask_takes_jax_values(dtype):
+    """The attention's mask holds keep.astype(q's type) / (1 - p), as the JAX
+    attention builds it: 0 and 1.109375 in bf16, 0 and float32's 1/0.9 in
+    float32; stored float32."""
+    from sovits_tpu_torch.nn.dropout import keep_mask
+
+    m = keep_mask((4, 16, 16), 0.1, torch.Generator().manual_seed(2), "cpu", dtype)
+    keep = torch.rand(4, 16, 16, generator=torch.Generator().manual_seed(2)) >= 0.1
+    jdt = {torch.bfloat16: jnp.bfloat16, torch.float32: jnp.float32}[dtype]
+    want = jnp.asarray(keep.numpy()).astype(jdt) / (1.0 - 0.1)
+    assert m.dtype == torch.float32
+    np.testing.assert_array_equal(m.numpy(), np.asarray(want, np.float32))
+    kept = 1.109375 if dtype == torch.bfloat16 else np.float32(1.0) / np.float32(0.9)
+    assert sorted(torch.unique(m).tolist()) == [0.0, float(kept)]

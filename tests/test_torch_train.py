@@ -10,10 +10,13 @@ network or a step sits between input and output.
 (b) Synthesizer.forward(deterministic=True), all seven outputs;
 (c) one full deterministic GAN step with its AdamW updates, against a
     reference step assembled from the JAX package's modules and optax;
-(d) train() for two steps and a resume, the seeded batch iterator and its
-    thread, and a G_*.pth train() wrote loaded by the JAX package;
+(d) train() for two steps and a resume (the resumed run restarts the data
+    order from hps.train.seed, as the JAX trainer does), the seeded batch
+    iterator against the JAX package's and its thread, and a G_*.pth
+    train() wrote loaded by the JAX package;
 (e) the port imports neither jax nor sovits_tpu;
-(f) the port's DIO against the JAX package's.
+(f) the port's DIO and pm against the JAX package's, and Svc's default f0
+    predictor.
 """
 
 import subprocess
@@ -335,23 +338,40 @@ def test_gan_step_matches_jax(jax_step):
 # ------------------------------------------- (d) train(), resume, JAX loading
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
-    from sovits_tpu_torch.train.trainer import train
+    """train() for two steps, then a resume to step 3; every batch the steps
+    were given, in order."""
+    from sovits_tpu_torch.train import trainer
 
     root = tmp_path_factory.mktemp("train")
     jhps = tiny_hps(**TRAIN_OVERRIDES)
     make_synthetic_dataset(root / "data", jhps)
     hps = pcfg.HParams(**jhps.to_dict())
-    train(hps, root / "model", max_steps=2, device="cpu")
-    after_two = sorted(p.name for p in (root / "model").glob("*.pth"))
-    train(hps, root / "model", max_steps=3, device="cpu")
-    return hps, root / "model", after_two
+    seen = []
+    real_step = trainer.train_step
+
+    def spy(net_g, net_d, optim_g, optim_d, batch, hps, **kw):
+        seen.append({k: v.clone() for k, v in batch.items()})
+        return real_step(net_g, net_d, optim_g, optim_d, batch, hps, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(trainer, "train_step", spy)
+        trainer.train(hps, root / "model", max_steps=2, device="cpu")
+        after_two = sorted(p.name for p in (root / "model").glob("*.pth"))
+        trainer.train(hps, root / "model", max_steps=3, device="cpu")
+    return hps, root / "model", after_two, seen
 
 
 def test_train_and_resume(trained):
     import json
 
-    hps, model_dir, after_two = trained
+    hps, model_dir, after_two, seen = trained
     assert after_two == ["D_2.pth", "G_2.pth"]
+    # the resumed run's first batch is the fresh run's first batch: both seed
+    # the data order with hps.train.seed (sovits_tpu/train/trainer.py's rule)
+    assert len(seen) == 3
+    for k in seen[0]:
+        torch.testing.assert_close(seen[2][k], seen[0][k], rtol=0, atol=0)
+    assert not torch.equal(seen[1]["c"], seen[0]["c"])
     assert sorted(p.name for p in model_dir.glob("*.pth")) == ["D_2.pth", "D_3.pth", "G_2.pth", "G_3.pth"]
     records = [json.loads(line) for line in (model_dir / "metrics.jsonl").read_text().splitlines()]
     assert [r["step"] for r in records] == [1, 2, 3]  # the resumed run continues at step 3
@@ -360,6 +380,32 @@ def test_train_and_resume(trained):
     ckpt = torch.load(model_dir / "G_3.pth", weights_only=False)
     assert set(ckpt) == {"model", "optimizer", "learning_rate", "iteration"}
     assert ckpt["optimizer"]["state"][0]["step"] == 3
+
+
+def test_batch_iterator_matches_jax(trained):
+    """The same dataset and seed give the same batches in both packages (the
+    JAX iterator's extra ``epoch`` key dropped)."""
+    import itertools
+
+    from sovits_tpu.train import data as jdata
+    from sovits_tpu_torch.train.data import FeatureDataset, batch_iterator
+
+    hps = trained[0]
+    seed = hps.train.seed
+    port = batch_iterator(FeatureDataset(hps.data.training_files, hps), 2, seed=seed)
+    got = list(itertools.islice(port, 2))
+    port.close()
+    from sovits_tpu.config import HParams as JaxHParams
+
+    jhps = JaxHParams(**hps.to_dict())
+    want = list(itertools.islice(jdata.batch_iterator(jdata.FeatureDataset(hps.data.training_files, jhps),
+                                                      2, seed=seed), 2))
+    for a, b in zip(got, want):
+        b.pop("epoch")
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert not np.array_equal(got[0]["c"], got[1]["c"])
 
 
 def test_batch_iterator_is_seeded_and_stops_its_thread(trained):
@@ -391,7 +437,7 @@ def test_batch_iterator_is_seeded_and_stops_its_thread(trained):
 def test_trained_generator_loads_into_jax(trained):
     from sovits_tpu.train.checkpoint import load_torch_generator
 
-    hps, model_dir, _ = trained
+    hps, model_dir, _, _ = trained
     net = factory.build_synthesizer(hps, "cpu", fused_tail=True)
     ckpt = torch.load(model_dir / "G_3.pth", weights_only=False)
     net.load_state_dict(ckpt["model"], strict=True)
@@ -466,3 +512,28 @@ def test_dio_matches_jax(exact):
     # (measured 1.5e-5 Hz). exact: native float64 against the JAX package's
     # float64 numpy oracle.
     _close(f0_t, f0_j, atol=1e-3 if not exact else 1e-4)
+
+
+def test_pm_matches_jax():
+    """pm is a numpy copy of the JAX package's Praat port: the same f0."""
+    from sovits_tpu.f0.praat import ParselmouthF0Predictor as JaxPm
+    from sovits_tpu_torch.f0.base import get_f0_predictor
+
+    wav = _voiced(3.0, 44100, 1)
+    port = get_f0_predictor("pm", hop_length=512, sampling_rate=44100, threshold=0.05)
+    f0_t, uv_t = port.compute_f0_uv(wav)
+    f0_j, uv_j = JaxPm(hop_length=512, sampling_rate=44100).compute_f0_uv(wav)
+    np.testing.assert_array_equal(uv_t, uv_j)
+    assert uv_t.mean() > 0.9
+    _close(f0_t, f0_j, atol=1e-6)
+
+
+@pytest.mark.parametrize("method", ["get_unit_f0", "infer"])
+def test_svc_default_f0_predictor_is_jax_default(method):
+    import inspect
+
+    from sovits_tpu.infer.svc import Svc as JaxSvc
+    from sovits_tpu_torch.infer.svc import Svc
+
+    default = lambda cls: inspect.signature(getattr(cls, method)).parameters["f0_predictor"].default  # noqa: E731
+    assert default(Svc) == default(JaxSvc) == "pm"
