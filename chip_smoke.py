@@ -109,28 +109,61 @@ def phase_build() -> None:
             print(f"    ptxas: {fn}: {regs} registers, {spills}", flush=True)
             if name == "rel_attention" and not spills.startswith("0 bytes spill stores, 0 bytes spill loads"):
                 raise AssertionError(f"{fn} spills: {spills}")
-        if name == "rel_attention":  # every instantiation must have been checked
-            missing = set(K1_INSTANTIATIONS) - {fn for fn, _, _ in rows}
-            if missing:
-                raise AssertionError(f"ptxas log of {kl.path.name} lacks {sorted(missing)}: "
-                                     f"delete {kl.path.parent} and rebuild")
+            if fn in K3_TENSOR_CORE and not spills.startswith("0 bytes spill stores, 0 bytes spill loads"):
+                raise AssertionError(f"{fn} spills: {spills}")
+        wanted = {"rel_attention": K1_INSTANTIATIONS, "resblock_trio": K3_INSTANTIATIONS}.get(name, [])
+        missing = set(wanted) - {fn for fn, _, _ in rows}  # every instantiation must have been checked
+        if missing:
+            raise AssertionError(f"ptxas log of {kl.path.name} lacks {sorted(missing)}: "
+                                 f"delete {kl.path.parent} and rebuild")
+        if name == "resblock_trio":
+            hmma = sass_hmma(kl.path)
+            log("build", kernel=name, hmma={fn: hmma.get(fn, 0) for fn in K3_INSTANTIATIONS})
+            idle = [fn for fn in K3_TENSOR_CORE if hmma.get(fn, 0) == 0]
+            if idle:
+                raise AssertionError(f"no HMMA in the SASS of {idle}: they do not run on the tensor cores")
     t0 = time.perf_counter()
     native.load()
     log("build", kernels_wall_s=f"{wall:.2f}", world_f0_s=f"{time.perf_counter() - t0:.2f}",
         world_lib=native.library_path().name)
 
 
-def ptxas_summary(log_text: str) -> list[tuple[str, str, str]]:
-    """(kernel, registers, spill line) per entry function of an nvcc -Xptxas -v
-    log; K1's instantiations read as rel_attn_fwd<type, padded D>."""
+def kernel_name(mangled: str) -> str:
+    """K1's instantiations as rel_attn_fwd<type, padded D>, K3's as
+    trio_<type><C>; anything else its mangled name, cut."""
     import re
 
+    m = re.search(r"rel_attn_fwdI(f|13__nv_bfloat16)Li(\d+)E", mangled)
+    if m:
+        return f"rel_attn_fwd<{'fp32' if m.group(1) == 'f' else 'bf16'}, {m.group(2)}>"
+    m = re.search(r"(trio_bf16|trio_fp32)ILi(\d+)E", mangled)
+    return f"{m.group(1)}<{m.group(2)}>" if m else mangled[:80]
+
+
+def sass_hmma(lib: Path) -> dict[str, int]:
+    """HMMA (tensor-core) instructions per entry function in the SASS of a
+    built library, from cuobjdump -sass (beside nvcc in the CUDA toolkit)."""
+    from sovits_tpu_torch.ops import build
+
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = kernel_name(ln.split("Function :")[1].strip())
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in ln:
+            counts[fn] += 1
+    return counts
+
+
+def ptxas_summary(log_text: str) -> list[tuple[str, str, str]]:
+    """(kernel, registers, spill line) per entry function of an nvcc -Xptxas -v
+    log, named by kernel_name."""
     rows, fn, spills = [], "?", ""
     for ln in log_text.splitlines():
         if "Compiling entry function" in ln:
-            mangled = ln.split("'")[1]
-            m = re.search(r"rel_attn_fwdI(f|13__nv_bfloat16)Li(\d+)E", mangled)
-            fn = f"rel_attn_fwd<{'fp32' if m.group(1) == 'f' else 'bf16'}, {m.group(2)}>" if m else mangled[:80]
+            fn = kernel_name(ln.split("'")[1])
         elif "spill" in ln:
             spills = ln.strip().split(", ", 1)[1]
         elif "Used" in ln and "registers" in ln:
@@ -140,6 +173,10 @@ def ptxas_summary(log_text: str) -> list[tuple[str, str, str]]:
 
 # K1's entry functions as ptxas_summary names them: both types, D padded to 32/64/96/128
 K1_INSTANTIATIONS = [f"rel_attn_fwd<{t}, {p}>" for t in ("fp32", "bf16") for p in (32, 64, 96, 128)]
+# K3's entry functions, both types, C = 16/32/64/128; those on the tensor cores
+# must show HMMA in their SASS and must not spill
+K3_INSTANTIATIONS = [f"trio_{t}<{c}>" for t in ("fp32", "bf16") for c in (16, 32, 64, 128)]
+K3_TENSOR_CORE = [fn for fn in K3_INSTANTIATIONS if fn.startswith("trio_bf16")]
 
 
 def _attn_case(t, causal, masked, seed):
@@ -229,11 +266,40 @@ def phase_parity() -> dict:
         if not ok:
             raise AssertionError(f"resblock_trio disagrees at C={c}: {err}")
         errs["resblock_trio"] = max(errs["resblock_trio"], err)
+    errs["resblock_trio"] = max(errs["resblock_trio"], parity_trio_edges(torch.float32))
     errs.update(parity_training_attention())
     errs.update(parity_bf16())
+    errs["resblock_trio_bf16"] = max(errs["resblock_trio_bf16"], parity_trio_edges(torch.bfloat16))
     errs.update(parity_bf16_backward())
     parity_trio_vjp()
     return errs
+
+
+def parity_trio_edges(dtype) -> float:
+    """K3 at the edges of its tile plan, against its plain version on the same
+    inputs: T shorter than a chain's halo (1, 5, 61), one past the largest
+    tile (TT + 1 from trio_plan) and one past the smallest (129 = 8 x 16 + 1,
+    the balanced plan's tile for short clips) at every C, and a batch of 6 at
+    C = 128 (fp32 TRIO_TOL, bf16 BF16_REL x max|plain|). Returns the largest
+    max-abs."""
+    from sovits_tpu_torch.ops.fused_stage import TRIO_CHANNELS, fused_resblock_trio
+    from sovits_tpu_torch.ops.fused_stage import fused_resblock_trio_plain, trio_plan
+
+    cases = [(c, t, 1) for c in TRIO_CHANNELS for t in (1, 5, 61, trio_plan(c, dtype).tt + 1, 129)]
+    cases.append((128, 2 * trio_plan(128, dtype).tt + 7, 6))
+    worst = 0.0
+    for i, (c, t, b) in enumerate(cases):
+        x, kernels, biases = _trio_case(c, t, 90 + i, batch=b)
+        x, kernels, biases = x.to(dtype), [w.to(dtype) for w in kernels], [bb.to(dtype) for bb in biases]
+        got = fused_resblock_trio(x, kernels, biases)
+        torch.cuda.synchronize()
+        ref = fused_resblock_trio_plain(x, kernels, biases)
+        what = f"K3 {dtype} B={b} T={t} C={c}"
+        err = _max_err(got, ref, TRIO_TOL, what) if dtype == torch.float32 else _rel_err(got, ref, what)
+        worst = max(worst, err)
+    log("parity", kernel="resblock_trio", dtype=str(dtype).split(".")[1], edge_cases=len(cases),
+        shapes=" ".join(f"{b}x{t}x{c}" for c, t, b in cases), max_abs_err=f"{worst:.3e}", ok=True)
+    return worst
 
 
 def _bf16(xs):
@@ -466,7 +532,6 @@ def _device_ms(fn, key: str | None = None, iters: int = 20) -> tuple[float, dict
 
 def phase_times() -> dict:
     from sovits_tpu_torch.ops.attention import fused_attention, fused_attention_plain
-    from sovits_tpu_torch.ops.fused_stage import fused_resblock_trio, fused_resblock_trio_plain
 
     times = {"rel_attention": [0.0, 0.0], "resblock_trio": [0.0, 0.0]}
     times.update(times_training_attention())
@@ -487,14 +552,33 @@ def phase_times() -> dict:
                 plain_ms=f"{ms_p:.4f}", **launch)
             if t == 1024 and not causal and dtype == torch.float32:  # the 10 s clip's bucket: the JSON line
                 times["rel_attention"] = [ms_k, ms_p]
-    for i, (c, t) in enumerate(TRIO_STAGES):
-        x, kernels, biases = _trio_case(c, t, 10 + i)
-        ms_k = _time(lambda: fused_resblock_trio(x, kernels, biases), iters=5)
-        ms_p = _time(lambda: fused_resblock_trio_plain(x, kernels, biases), iters=5)
-        log("times", kernel="resblock_trio", C=c, T=t, kernel_ms=f"{ms_k:.4f}", plain_ms=f"{ms_p:.4f}")
-        times["resblock_trio"][0] += ms_k  # the JSON line: all four stages of a 10 s clip
-        times["resblock_trio"][1] += ms_p
+    times["resblock_trio"] = times_trio(torch.float32, 10)  # the JSON line: all four stages of a 10 s clip
     return times
+
+
+def times_trio(dtype, seed: int) -> list[float]:
+    """K3 at the four stages of a 10 s clip in one type: CUDA events (the JSON
+    line's ms), the profiler's device time of the kernel and its launch
+    (grid, shared memory, blocks per SM), and the plain version's events;
+    per stage and summed. Returns [kernel ms, plain ms], summed."""
+    from sovits_tpu_torch.ops.fused_stage import fused_resblock_trio, fused_resblock_trio_plain
+
+    name = str(dtype).split(".")[1]
+    total = [0.0, 0.0, 0.0]
+    for i, (c, t) in enumerate(TRIO_STAGES):
+        x, kernels, biases = _trio_case(c, t, seed + i)
+        x, kernels, biases = x.to(dtype), [w.to(dtype) for w in kernels], [b.to(dtype) for b in biases]
+        call = lambda: fused_resblock_trio(x, kernels, biases)  # noqa: E731
+        ms_k = _time(call, iters=5)
+        ms_d, launch = _device_ms(call, "trio_fp32" if dtype == torch.float32 else "trio_bf16", iters=5)
+        ms_p = _time(lambda: fused_resblock_trio_plain(x, kernels, biases), iters=5)
+        log("times", kernel="resblock_trio", dtype=name, C=c, T=t, kernel_ms=f"{ms_k:.4f}",
+            kernel_device_ms=f"{ms_d:.4f}", plain_ms=f"{ms_p:.4f}", **launch)
+        for j, v in enumerate((ms_k, ms_d, ms_p)):
+            total[j] += v
+    log("times", kernel="resblock_trio", dtype=name, stages="four, 10 s clip", kernel_ms=f"{total[0]:.4f}",
+        kernel_device_ms=f"{total[1]:.4f}", plain_ms=f"{total[2]:.4f}")
+    return [total[0], total[2]]
 
 
 def times_training_attention() -> dict:
@@ -544,10 +628,9 @@ def times_bf16() -> dict:
     import torch.nn.functional as F
 
     from sovits_tpu_torch.ops.attention import fused_attention, fused_attention_plain
-    from sovits_tpu_torch.ops.fused_stage import fused_resblock_trio, fused_resblock_trio_plain
 
     args, _, _ = _train_attn_case(True, 22)
-    out = {"resblock_trio_bf16": [0.0, 0.0]}
+    out = {}
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = (x.to(dtype) for x in args[:3])
         qs, ks, vs = (x.view(6, 2, TRAIN_T, HEAD_D) for x in (q, k, v))
@@ -563,15 +646,7 @@ def times_bf16() -> dict:
             tf32="off", **launch)
         if dtype == torch.bfloat16:  # the JSON line's bf16 row, beside SDPA in bf16
             out["rel_attention_bf16"] = [ms_k, ms_p, ms_l]
-    for i, (c, t) in enumerate(TRIO_STAGES):
-        x, kernels, biases = _trio_case(c, t, 50 + i)
-        x, kernels, biases = x.bfloat16(), _bf16(kernels), _bf16(biases)
-        ms_k = _time(lambda: fused_resblock_trio(x, kernels, biases), iters=5)
-        ms_p = _time(lambda: fused_resblock_trio_plain(x, kernels, biases), iters=5)
-        log("times", kernel="resblock_trio", dtype="bf16", C=c, T=t, kernel_ms=f"{ms_k:.4f}",
-            plain_ms=f"{ms_p:.4f}")
-        out["resblock_trio_bf16"][0] += ms_k
-        out["resblock_trio_bf16"][1] += ms_p
+    out["resblock_trio_bf16"] = times_trio(torch.bfloat16, 50)
     return out
 
 

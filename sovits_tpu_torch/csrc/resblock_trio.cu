@@ -9,85 +9,109 @@
 // edges: rows outside [0, T) are zero at the input of every conv.
 //
 // Layout: x and out are [B, T, C] (channels last); the weights of the 18
-// convs are packed in chain order as [k, C_in, C_out] each; biases [18, C].
-// The TPU kernel time-folds to [T/P, P*C] with P*C = 128 to fill its matrix
+// convs are packed in chain order as [k, C_in, C_out] each; biases [18, C]
+// fp32. The
+// TPU kernel time-folds to [T/P, P*C] with P*C = 128 to fill its matrix
 // unit; that is TPU layout work and has no counterpart here.
 //
-// Design: one block per (batch row, tile of TT output rows). The block runs
-// the three chains one after another. For each chain it loads the tile plus
-// that chain's own halo (12, 36 and 60 rows on each side for k = 3, 7, 11:
-// the sum of the chain's six conv reaches) into shared memory, runs the six
-// convs on chip -- the residual stream in one buffer, the inner activation in
-// a second -- and adds the chain's centre rows into the output. Each conv
-// computes only the rows the rest of the chain still reads, so the halo
-// costs 6*TT + 2*sum(remaining reach) rows per chain, not 6*(TT + 2*halo).
-// Intermediates never touch device memory; x is read once per chain and the
-// output is written three times by the block that owns it.
+// Block structure (both types): one block per (batch row, tile of TT output
+// rows), TT and the window size from the wrapper's plan
+// (ops/fused_stage.py::trio_plan), which this entry point checks and then
+// trusts. The block runs the three chains one after another. For each chain
+// it loads the tile plus that chain's own halo (12, 36 and 60 rows on each
+// side for k = 3, 7, 11: the sum of the chain's six conv reaches) into
+// shared memory, runs the six convs on chip -- the fp32 residual stream in
+// one buffer, the inner activation in a second -- and adds the chain's
+// centre rows into the output. Each conv computes only the rows the rest of
+// the chain still reads, so the halo costs 6*TT + 2*sum(remaining reach)
+// rows per chain, not 6*(TT + 2*halo). Intermediates never touch device
+// memory; x is read once per chain and the output is written three times by
+// the block that owns it. The mean over the chains is summed in an fp32
+// scratch [B, T, C] (for fp32 the output itself).
 //
 // What bounds it on an H100: arithmetic. A 10 s clip needs about 0.43
 // TFLOP across the four stages (C = 128, 64, 32, 16), plus the halo
-// recompute, and this first version runs it as fp32 FMA from shared memory
-// (each thread a TM x C/16 register tile; weights staged 16 input channels
-// at a time). The two window buffers fill the 227 KB a block may use, so one
-// block of 8 warps runs per SM: latency, not bandwidth, limits it. Tensor
-// cores (mma.sync / wgmma on tf32 or bf16) are the next step.
+// recompute (about 1.37x at C = 128, under 1.1x at C <= 64).
 //
-// bf16 (the JAX package's bf16 serving path): x, the weights and the output
-// are bf16, the biases fp32, as the TPU kernel takes them (fused_stage.py:
-// 129-130). x and the weights are widened to fp32 as they are staged, and
-// the residual stream, every intermediate and the mean stay fp32 (the TPU
-// kernel's fp32 chain, :183, :215); the mean is rounded to bf16 once. Each
-// conv's input stays exact fp32, as in the TPU kernel's interpret mode (on
-// the TPU the matrix unit's default precision would round it to bf16). The
-// mean over the chains is summed in an fp32 scratch [B, T, C] (for fp32 the
-// output itself) and written as bf16 after the last chain.
+// bf16 (the serving path): the inner product runs on the tensor cores,
+// mma.sync.m16n8k16 bf16 with fp32 sums. 8 warps; each owns m16 row tiles
+// (tile i of the conv's rows goes to warp row i mod WM, so shrinking convs
+// keep every warp busy) across C / WN output channels, and keeps their fp32
+// sums in registers for the whole conv. Per conv, the weights stream
+// through shared memory one tap (C <= 64) or half a tap (C = 128) at a time,
+// [C_in][C_out + 8] as they are packed (B fragments by ldmatrix.trans),
+// double-buffered with cp.async: one barrier per step. The A operand:
+//  - the first conv of a pair reads the fp32 residual stream and builds its
+//    fragments in registers (lrelu, round to bf16, pack): 8-byte reads of a
+//    column pair, row stride C + 8 words, free of bank conflicts at every
+//    shift;
+//  - its epilogue stores bf16(lrelu(y)), the second conv's A operand as the
+//    TPU kernel's matrix unit would take it, so the second conv reads it with
+//    ldmatrix (row stride C + 8 elements) and the inner activation costs
+//    2 bytes a value, not 4; the window holds 242 rows at C = 128 (TT 122).
+// A tap's dilated shift is only another row base per lane. Rows past the
+// conv's range in a tile are computed and never stored; their reads are
+// clamped into the window. Conv inputs are rounded to bf16 (weights bf16),
+// sums, biases, the residual stream and the mean fp32, the output rounded
+// to bf16 once: within 2e-2 x max|plain| of the plain fp32 arithmetic.
+//
+// fp32: the first version's inner product, fp32 FMA from shared memory (each
+// thread a TM x C/16 register tile; weights staged 16 input channels at a
+// time; row stride C + 1), with the same plan.
 //
 // Plain C interface, bound with ctypes; returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-#include "dtype.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr int NT = 256;            // threads: 16 channel groups x 16 row groups
+constexpr int NT = 256;  // threads, 8 warps, in both instantiations
+constexpr int NWARP = NT / 32;
 constexpr int MAX_CHAINS = 3;
 constexpr int MAX_PAIRS = 3;
 constexpr int MAX_CONVS = 2 * MAX_CHAINS * MAX_PAIRS;
-constexpr int SMEM_BYTES = 225 * 1024;  // under the 227 KB a block may opt in to
+constexpr int SMEM_LIMIT = 232448;  // the 227 KB a block may opt in to
 constexpr float SLOPE = 0.1f;
 
 struct Plan {
   int n_chains;
+  int n_convs;
   int k[MAX_CHAINS];
   int n_pairs[MAX_CHAINS];
   int dil[MAX_CHAINS][MAX_PAIRS];
   int halo[MAX_CHAINS];
-  long long w_off[MAX_CONVS];  // element offset of each conv's [k, C, C] weights
+  long long w_off[MAX_CONVS];  // element offset of each conv's k * C * C weights
+  int rows;                    // window rows a block holds
+  int tt;                      // output rows per block
 };
 
+__device__ __forceinline__ float lrelu(float x) { return fmaxf(x, SLOPE * x); }
+
+// ---------------------------------------------------------------- fp32, FMA
+
 template <int C>
-struct Cfg {
-  static constexpr int LD = C + 1;            // row stride: two rows per warp, two banks
-  static constexpr int KC = 16;               // input channels per staged weight chunk
-  static constexpr int TN = C / 16;           // output channels per thread
-  static constexpr int TM = 8;                // rows per thread per pass
-  static constexpr int PASS = 16 * TM;        // rows per pass
-  static constexpr int R_MAX = (SMEM_BYTES - KC * C * 4) / (2 * LD * 4);
-  static constexpr int SMEM = (2 * R_MAX * LD + KC * C) * 4;
+struct Fma {
+  static constexpr int LD = C + 1;  // row stride: two rows per warp, two banks
+  static constexpr int KC = 16;     // input channels per staged weight chunk
+  static constexpr int TN = C / 16;  // output channels per thread
+  static constexpr int TM = 8;       // rows per thread per pass
+  static constexpr int PASS = 16 * TM;
+  static size_t bytes(int rows) { return (2 * (size_t)rows * LD + KC * C) * 4; }
   static_assert(C % 16 == 0, "C must be a multiple of 16");
-  static_assert(SMEM <= SMEM_BYTES, "shared memory budget");
 };
 
 // One 'same' conv over window rows [lo, hi): reads lrelu(in[r + (j-h)*d]),
 // writes (or, with accumulate, adds) bias + sum into dst, zero outside [0, T).
-template <int C, typename T_>
-__device__ __forceinline__ void conv(const float* __restrict__ in, float* __restrict__ dst,
-                                     bool accumulate, const T_* __restrict__ w,
-                                     const float* __restrict__ bias, float* __restrict__ wst,
-                                     int k, int d, int lo, int hi, int g0, int T) {
-  using K = Cfg<C>;
+template <int C>
+__device__ __forceinline__ void conv_fma(const float* __restrict__ in, float* __restrict__ dst,
+                                         bool accumulate, const float* __restrict__ w,
+                                         const float* __restrict__ bias, float* __restrict__ wst,
+                                         int k, int d, int lo, int hi, int g0, int T) {
+  using K = Fma<C>;
   const int tid = threadIdx.x;
   const int cg = tid & 15;
   const int rg = tid >> 4;
@@ -102,8 +126,8 @@ __device__ __forceinline__ void conv(const float* __restrict__ in, float* __rest
       const int shift = (j - half) * d;
       for (int c0 = 0; c0 < C; c0 += K::KC) {
         __syncthreads();  // everyone is done with the previous chunk (and the previous conv)
-        const T_* wj = w + ((size_t)j * C + c0) * C;
-        for (int i = tid; i < K::KC * C; i += NT) wst[i] = to_f(wj[i]);
+        const float* wj = w + ((size_t)j * C + c0) * C;
+        for (int i = tid; i < K::KC * C; i += NT) wst[i] = wj[i];
         __syncthreads();
 #pragma unroll 4
         for (int cc = 0; cc < K::KC; ++cc) {
@@ -113,7 +137,7 @@ __device__ __forceinline__ void conv(const float* __restrict__ in, float* __rest
             const int r = r0 + rg + 16 * m;
             float x = 0.f;
             if (r < hi) x = in[(r + shift) * K::LD + c0 + cc];
-            a[m] = fmaxf(x, SLOPE * x);
+            a[m] = lrelu(x);
           }
 #pragma unroll
           for (int n = 0; n < K::TN; ++n) {
@@ -143,21 +167,20 @@ __device__ __forceinline__ void conv(const float* __restrict__ in, float* __rest
   }
 }
 
-template <int C, typename T_>
+template <int C>
 __global__ void __launch_bounds__(NT, 1)
-    trio_kernel(const T_* __restrict__ x, const T_* __restrict__ w,
-                const float* __restrict__ bias, T_* out, float* acc, int T, int TT,
-                Plan plan) {
-  using K = Cfg<C>;
+    trio_fp32(const float* __restrict__ x, const float* __restrict__ w,
+              const float* __restrict__ bias, float* out, int T, Plan plan) {
+  using K = Fma<C>;
   extern __shared__ float sm[];
-  float* xr = sm;                  // residual stream [R_MAX][LD]
-  float* xt = xr + K::R_MAX * K::LD;  // inner activation [R_MAX][LD]
-  float* wst = xt + K::R_MAX * K::LD;  // staged weights [KC][C]
+  const int TT = plan.tt;
+  float* xr = sm;                        // residual stream [rows][LD]
+  float* xt = xr + plan.rows * K::LD;    // inner activation [rows][LD]
+  float* wst = xt + plan.rows * K::LD;   // staged weights [KC][C]
 
   const int t0 = blockIdx.x * TT;
-  const T_* xb = x + (size_t)blockIdx.y * T * C;
-  T_* ob = out + (size_t)blockIdx.y * T * C;
-  float* ab = acc + (size_t)blockIdx.y * T * C;  // for fp32 the output itself
+  const float* xb = x + (size_t)blockIdx.y * T * C;
+  float* ob = out + (size_t)blockIdx.y * T * C;  // also the running sum over the chains
   int ci = 0;
   for (int ch = 0; ch < plan.n_chains; ++ch) {
     const int h = plan.halo[ch];
@@ -169,18 +192,18 @@ __global__ void __launch_bounds__(NT, 1)
     for (int i = threadIdx.x; i < rows * C; i += NT) {
       const int r = i / C, c = i - r * C;
       const int g = g0 + r;
-      xr[r * K::LD + c] = (g >= 0 && g < T) ? to_f(xb[(size_t)g * C + c]) : 0.f;
+      xr[r * K::LD + c] = (g >= 0 && g < T) ? xb[(size_t)g * C + c] : 0.f;
     }
     int rem = h;  // reach still ahead of the conv being run
     for (int p = 0; p < plan.n_pairs[ch]; ++p) {
       const int d = plan.dil[ch][p];
       rem -= half * d;
-      conv<C, T_>(xr, xt, false, w + plan.w_off[ci], bias + ci * C, wst, k, d, h - rem,
-              h + TT + rem, g0, T);
+      conv_fma<C>(xr, xt, false, w + plan.w_off[ci], bias + ci * C, wst, k, d, h - rem,
+                  h + TT + rem, g0, T);
       ++ci;
       rem -= half;
-      conv<C, T_>(xt, xr, true, w + plan.w_off[ci], bias + ci * C, wst, k, 1, h - rem,
-              h + TT + rem, g0, T);
+      conv_fma<C>(xt, xr, true, w + plan.w_off[ci], bias + ci * C, wst, k, 1, h - rem,
+                  h + TT + rem, g0, T);
       ++ci;
     }
     __syncthreads();
@@ -191,60 +214,284 @@ __global__ void __launch_bounds__(NT, 1)
       if (g >= T) continue;
       const size_t o = (size_t)g * C + c;
       const float y = xr[(h + r) * K::LD + c];
-      const float s = ch == 0 ? y : ab[o] + y;  // same thread owns o in every chain
-      if (last)
-        ob[o] = from_f<T_>(s / (float)plan.n_chains);
-      else
-        ab[o] = s;
+      const float s = ch == 0 ? y : ob[o] + y;  // same thread owns o in every chain
+      ob[o] = last ? s / (float)plan.n_chains : s;
     }
   }
 }
 
-template <int C, typename T_>
-int launch(const void* x, const void* w, const float* bias, void* out, float* acc, int b, int t,
-           const Plan& plan, cudaStream_t stream) {
-  using K = Cfg<C>;
-  int hmax = 0;
-  for (int i = 0; i < plan.n_chains; ++i) hmax = plan.halo[i] > hmax ? plan.halo[i] : hmax;
-  const int tt = K::R_MAX - 2 * hmax;
-  if (tt < 16) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(trio_kernel<C, T_>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, K::SMEM);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((t + tt - 1) / tt, b);
-  trio_kernel<C, T_><<<grid, NT, K::SMEM, stream>>>((const T_*)x, (const T_*)w, bias, (T_*)out,
-                                                    acc, t, tt, plan);
-  return (int)cudaGetLastError();
+// ------------------------------------------------------- bf16, tensor cores
+
+template <int C>
+struct Mma {
+  static constexpr int LDX = C + 8;           // fp32 residual row stride (words): 8-byte reads conflict-free
+  static constexpr int LDA = C + 8;           // bf16 inner-activation row stride: ldmatrix conflict-free
+  static constexpr int KCH = C < 64 ? C : 64;  // input channels per staged weight step
+  static constexpr int LDW = C + 8;           // bf16 weight row stride (per input channel)
+  static constexpr int NKC = C / KCH;         // steps per tap
+  static constexpr int WN = C == 128 ? 2 : 1;  // warps across the output channels
+  static constexpr int WM = NWARP / WN;        // warps across the rows
+  static constexpr int NN = C / WN / 8;        // n8 tiles per warp
+  static constexpr int MI = C >= 64 ? 4 : C == 32 ? 8 : 16;  // m16 tiles per warp
+  static constexpr int PASS = WM * MI * 16;    // rows one conv covers: the window's cap
+  static constexpr int WBUF = KCH * LDW;       // one staged step (elements)
+  static size_t bytes(int rows) { return 2 * (size_t)WBUF * 2 + (size_t)rows * (LDX * 4 + LDA * 2); }
+  static_assert(C % 16 == 0 && NN % 2 == 0, "tiling");
+};
+
+// Step s of a conv's weights (tap s / NKC, input channels (s % NKC) * KCH
+// on), [KCH][C_out] of the packed [k][C_in][C_out], into dst [KCH][LDW].
+template <int C>
+__device__ __forceinline__ void issue_step(const __nv_bfloat16* __restrict__ w, int s,
+                                           __nv_bfloat16* dst) {
+  using K = Mma<C>;
+  constexpr int PER_ROW = C / 8;  // 16-byte pieces per input channel
+  const int j = s / K::NKC, kc = s - j * K::NKC;
+  const __nv_bfloat16* src = w + ((size_t)j * C + kc * K::KCH) * C;
+  for (int i = threadIdx.x; i < K::KCH * PER_ROW; i += NT) {
+    const int r = i / PER_ROW, p = i - r * PER_ROW;
+    cp_async16(dst + r * K::LDW + p * 8, src + (size_t)r * C + p * 8, true);
+  }
 }
 
-template <typename T_>
-int launch_c(int c, const void* x, const void* w, const float* bias, void* out, float* acc, int b,
-             int t, const Plan& plan, cudaStream_t s) {
-  switch (c) {
-    case 16: return launch<16, T_>(x, w, bias, out, acc, b, t, plan, s);
-    case 32: return launch<32, T_>(x, w, bias, out, acc, b, t, plan, s);
-    case 64: return launch<64, T_>(x, w, bias, out, acc, b, t, plan, s);
-    case 128: return launch<128, T_>(x, w, bias, out, acc, b, t, plan, s);
-    default: return (int)cudaErrorInvalidValue;
+// One 'same' conv on the tensor cores over window rows [lo, hi), as
+// conv_fma. FROM_X: the input is lrelu(xr), built into A fragments here, and
+// the result is stored as bf16(lrelu(y)) into at. Otherwise the input is at
+// (ldmatrix) and the result is added into xr. On entry step 0 of w is in
+// flight into wsm[buf]; on exit step 0 of w_next (if any) is.
+template <int C, bool FROM_X>
+__device__ __forceinline__ void conv_mma(float* xr, __nv_bfloat16* at, __nv_bfloat16* wsm, int& buf,
+                                         const __nv_bfloat16* __restrict__ w,
+                                         const __nv_bfloat16* __restrict__ w_next,
+                                         const float* __restrict__ bias, int k, int d, int lo,
+                                         int hi, int g0, int T, int rows) {
+  using K = Mma<C>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wn = warp % K::WN, wm = warp / K::WN;
+  const int g = lane >> 2, tq = lane & 3;
+  const int half = (k - 1) / 2;
+  const int n_steps = k * K::NKC;
+  const int n0 = wn * (C / K::WN);  // first output channel of this warp
+  int n_act = 0;                    // m16 tiles of this warp inside [lo, hi)
+#pragma unroll
+  for (int mi = 0; mi < K::MI; ++mi) n_act += lo + (wm + mi * K::WM) * 16 < hi;
+
+  float acc[K::MI][K::NN][4];
+#pragma unroll
+  for (int mi = 0; mi < K::MI; ++mi)
+#pragma unroll
+    for (int n = 0; n < K::NN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][n][e] = 0.f;
+
+  for (int s = 0; s < n_steps; ++s) {
+    cp_async_wait<0>();
+    __syncthreads();  // step s is in wsm[buf] for all; everyone is done with wsm[buf ^ 1]
+    if (s + 1 < n_steps)
+      issue_step<C>(w, s + 1, wsm + (buf ^ 1) * K::WBUF);
+    else if (w_next != nullptr)
+      issue_step<C>(w_next, 0, wsm + (buf ^ 1) * K::WBUF);
+    cp_async_commit();
+    const __nv_bfloat16* wb = wsm + buf * K::WBUF;
+    buf ^= 1;
+    if (n_act == 0) continue;
+    const int j = s / K::NKC;
+    const int shift = (j - half) * d;
+    const int cin0 = (s - j * K::NKC) * K::KCH;
+#pragma unroll
+    for (int kk = 0; kk < K::KCH / 16; ++kk) {
+      uint32_t b[K::NN][2];
+#pragma unroll
+      for (int np = 0; np < K::NN / 2; ++np) {
+        uint32_t r4[4];
+        ldsm_x4_t(r4, wb + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * K::LDW + n0 + np * 16 +
+                          (lane >> 4) * 8);
+        b[2 * np][0] = r4[0];
+        b[2 * np][1] = r4[1];
+        b[2 * np + 1][0] = r4[2];
+        b[2 * np + 1][1] = r4[3];
+      }
+      const int cin = cin0 + kk * 16;
+#pragma unroll
+      for (int mi = 0; mi < K::MI; ++mi) {
+        if (mi >= n_act) break;
+        const int r0 = lo + (wm + mi * K::WM) * 16 + shift;
+        uint32_t a[4];
+        if (FROM_X) {
+          const float* ra = xr + min(r0 + g, rows - 1) * K::LDX + cin + 2 * tq;
+          const float* rb = xr + min(r0 + g + 8, rows - 1) * K::LDX + cin + 2 * tq;
+          const float2 v0 = *reinterpret_cast<const float2*>(ra);
+          const float2 v1 = *reinterpret_cast<const float2*>(rb);
+          const float2 v2 = *reinterpret_cast<const float2*>(ra + 8);
+          const float2 v3 = *reinterpret_cast<const float2*>(rb + 8);
+          a[0] = pack_bf16(lrelu(v0.x), lrelu(v0.y));
+          a[1] = pack_bf16(lrelu(v1.x), lrelu(v1.y));
+          a[2] = pack_bf16(lrelu(v2.x), lrelu(v2.y));
+          a[3] = pack_bf16(lrelu(v3.x), lrelu(v3.y));
+        } else {
+          const int r = min(r0 + (lane & 7) + ((lane >> 3) & 1) * 8, rows - 1);
+          ldsm_x4(a, at + r * K::LDA + cin + (lane >> 4) * 8);
+        }
+#pragma unroll
+        for (int n = 0; n < K::NN; ++n) mma_bf16(acc[mi][n], a, b[n][0], b[n][1]);
+      }
+    }
   }
+
+#pragma unroll
+  for (int mi = 0; mi < K::MI; ++mi) {
+    if (mi >= n_act) break;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = lo + (wm + mi * K::WM) * 16 + g + 8 * hr;
+      if (r >= hi) continue;
+      const int gr = g0 + r;
+      const bool inside = gr >= 0 && gr < T;
+#pragma unroll
+      for (int n = 0; n < K::NN; ++n) {
+        const int c = n0 + n * 8 + 2 * tq;
+        const float2 bb = *reinterpret_cast<const float2*>(bias + c);
+        const float y0 = inside ? acc[mi][n][2 * hr] + bb.x : 0.f;
+        const float y1 = inside ? acc[mi][n][2 * hr + 1] + bb.y : 0.f;
+        if (FROM_X) {
+          *reinterpret_cast<uint32_t*>(at + r * K::LDA + c) = pack_bf16(lrelu(y0), lrelu(y1));
+        } else {
+          float2* p = reinterpret_cast<float2*>(xr + r * K::LDX + c);
+          float2 o = *p;
+          o.x += y0;
+          o.y += y1;
+          *p = o;
+        }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+template <int C>
+__global__ void __launch_bounds__(NT, 1)
+    trio_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+              const float* __restrict__ bias, __nv_bfloat16* out, float* acc, int T, Plan plan) {
+  using K = Mma<C>;
+  extern __shared__ __align__(16) unsigned char smraw[];
+  __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(smraw);  // two weight steps [KCH][LDW]
+  float* xr = reinterpret_cast<float*>(wsm + 2 * K::WBUF);         // residual stream [rows][LDX]
+  __nv_bfloat16* at = reinterpret_cast<__nv_bfloat16*>(xr + plan.rows * K::LDX);  // [rows][LDA]
+  constexpr int Q = C / 4;  // 4-wide column groups
+
+  const int TT = plan.tt;
+  const int t0 = blockIdx.x * TT;
+  const __nv_bfloat16* xb = x + (size_t)blockIdx.y * T * C;
+  __nv_bfloat16* ob = out + (size_t)blockIdx.y * T * C;
+  float* ab = acc + (size_t)blockIdx.y * T * C;
+  int buf = 0;
+  issue_step<C>(w + plan.w_off[0], 0, wsm);
+  cp_async_commit();
+  int ci = 0;
+  for (int ch = 0; ch < plan.n_chains; ++ch) {
+    const int h = plan.halo[ch];
+    const int rows = TT + 2 * h;
+    const int g0 = t0 - h;
+    const int k = plan.k[ch];
+    const int half = (k - 1) / 2;
+    __syncthreads();  // the previous chain's centre rows have been read
+    for (int i = threadIdx.x; i < rows * Q; i += NT) {
+      const int r = i / Q, c = (i - r * Q) * 4;
+      const int gr = g0 + r;
+      const float4 v = (gr >= 0 && gr < T) ? load4(xb + (size_t)gr * C + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(xr + r * K::LDX + c) = v;
+    }
+    int rem = h;  // reach still ahead of the conv being run
+    for (int p = 0; p < plan.n_pairs[ch]; ++p) {
+      const int d = plan.dil[ch][p];
+      rem -= half * d;
+      conv_mma<C, true>(xr, at, wsm, buf, w + plan.w_off[ci], w + plan.w_off[ci + 1], bias + ci * C,
+                        k, d, h - rem, h + TT + rem, g0, T, plan.rows);
+      ++ci;
+      rem -= half;
+      conv_mma<C, false>(xr, at, wsm, buf, w + plan.w_off[ci],
+                         ci + 1 < plan.n_convs ? w + plan.w_off[ci + 1] : nullptr, bias + ci * C,
+                         k, 1, h - rem, h + TT + rem, g0, T, plan.rows);
+      ++ci;
+    }
+    __syncthreads();
+    const bool last = ch + 1 == plan.n_chains;
+    for (int i = threadIdx.x; i < TT * Q; i += NT) {
+      const int r = i / Q, c = (i - r * Q) * 4;
+      const int gr = t0 + r;
+      if (gr >= T) continue;
+      const size_t o = (size_t)gr * C + c;
+      float4 s = *reinterpret_cast<const float4*>(xr + (h + r) * K::LDX + c);
+      if (ch > 0) {  // the same thread owns o in every chain
+        const float4 prev = *reinterpret_cast<const float4*>(ab + o);
+        s.x += prev.x, s.y += prev.y, s.z += prev.z, s.w += prev.w;
+      }
+      if (last) {
+        uint2 u;
+        u.x = pack_bf16(s.x / (float)plan.n_chains, s.y / (float)plan.n_chains);
+        u.y = pack_bf16(s.z / (float)plan.n_chains, s.w / (float)plan.n_chains);
+        *reinterpret_cast<uint2*>(ob + o) = u;
+      } else {
+        *reinterpret_cast<float4*>(ab + o) = s;
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// ------------------------------------------------------------------ launch
+
+template <int C>
+int launch_c(const void* x, const void* w, const float* bias, void* out, float* acc, int b, int t,
+             const Plan& plan, int smem, int grid_x, bool bf16, cudaStream_t s) {
+  dim3 grid(grid_x, b);
+  if (bf16) {
+    using K = Mma<C>;
+    if (plan.rows > K::PASS || (size_t)smem != K::bytes(plan.rows) || smem > SMEM_LIMIT)
+      return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(trio_bf16<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    trio_bf16<C><<<grid, NT, smem, s>>>((const __nv_bfloat16*)x, (const __nv_bfloat16*)w, bias,
+                                        (__nv_bfloat16*)out, acc, t, plan);
+  } else {
+    using K = Fma<C>;
+    if ((size_t)smem != K::bytes(plan.rows) || smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(trio_fp32<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    trio_fp32<C><<<grid, NT, smem, s>>>((const float*)x, (const float*)w, bias, (float*)out, t, plan);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// ks[n_chains]: odd kernel sizes; n_pairs[n_chains]; dils[n_chains * 3]
-// (row-major, the first n_pairs[i] of row i used). Weights and biases in
-// chain order: chain i, pair p -> conv (k_i, dil) then conv (k_i, 1).
-// bf16 = 0: x, w and out are float and acc is out; 1: __nv_bfloat16, and
-// acc an fp32 scratch of [B, T, C]. Biases are fp32 either way.
+// The plan (ops/fused_stage.py::trio_plan): ks[n_chains] odd kernel sizes,
+// n_pairs[n_chains], dils[n_chains * 3] (row-major, the first n_pairs[i] of
+// row i used), halos[n_chains] (each the sum of its chain's conv reaches),
+// rows (window rows), tt (output rows per block, rows >= tt + 2 max halo),
+// smem (dynamic shared memory bytes, as the instantiation lays out rows
+// window rows) and grid_x = ceil(t / tt). Checked here, then trusted.
+// Weights and biases in chain order: chain i, pair p -> conv (k_i, dil) then
+// conv (k_i, 1), each [k, C_in, C_out]. bf16 = 0: x, w and out are float
+// and acc is out; 1: __nv_bfloat16, and acc an fp32 scratch of [B, T, C].
+// Biases are fp32 either way.
 extern "C" int sovits_resblock_trio(const void* x, const void* w, const float* bias, void* out,
                                     float* acc, int b, int t, int c, int n_chains,
                                     const int* ks, const int* n_pairs, const int* dils,
+                                    const int* halos, int rows, int tt, int smem, int grid_x,
                                     int bf16, void* stream) {
-  if (b < 1 || t < 1 || n_chains < 1 || n_chains > MAX_CHAINS) return (int)cudaErrorInvalidValue;
+  if (b < 1 || t < 1 || n_chains < 1 || n_chains > MAX_CHAINS || acc == nullptr)
+    return (int)cudaErrorInvalidValue;
   Plan plan{};
   plan.n_chains = n_chains;
   long long off = 0;
-  int ci = 0;
+  int ci = 0, hmax = 0;
   for (int i = 0; i < n_chains; ++i) {
     const int k = ks[i];
     if (k < 1 || k % 2 == 0 || n_pairs[i] < 1 || n_pairs[i] > MAX_PAIRS)
@@ -262,10 +509,20 @@ extern "C" int sovits_resblock_trio(const void* x, const void* w, const float* b
       plan.w_off[ci++] = off;
       off += (long long)k * c * c;
     }
+    if (halos[i] != halo) return (int)cudaErrorInvalidValue;
     plan.halo[i] = halo;
+    hmax = halo > hmax ? halo : hmax;
   }
-  if (acc == nullptr) return (int)cudaErrorInvalidValue;
+  plan.n_convs = ci;
+  plan.rows = rows;
+  plan.tt = tt;
+  if (tt < 16 || rows < tt + 2 * hmax || grid_x != (t + tt - 1) / tt) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16) return launch_c<__nv_bfloat16>(c, x, w, bias, out, acc, b, t, plan, s);
-  return launch_c<float>(c, x, w, bias, out, acc, b, t, plan, s);
+  switch (c) {
+    case 16: return launch_c<16>(x, w, bias, out, acc, b, t, plan, smem, grid_x, bf16, s);
+    case 32: return launch_c<32>(x, w, bias, out, acc, b, t, plan, smem, grid_x, bf16, s);
+    case 64: return launch_c<64>(x, w, bias, out, acc, b, t, plan, smem, grid_x, bf16, s);
+    case 128: return launch_c<128>(x, w, bias, out, acc, b, t, plan, smem, grid_x, bf16, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

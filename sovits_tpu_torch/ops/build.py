@@ -43,7 +43,7 @@ SIGNATURES = {
         "sovits_rel_attention_bwd": [_P] * 16 + [_I] * 6 + [_P],
     },
     "resblock_trio": {
-        "sovits_resblock_trio": [_P] * 5 + [_I] * 4 + [_IP] * 3 + [_I, _P],
+        "sovits_resblock_trio": [_P] * 5 + [_I] * 4 + [_IP] * 4 + [_I] * 5 + [_P],
     },
     "trio_shift": {
         "sovits_trio_shift": [_P] * 3 + [_I] * 3 + [_P],

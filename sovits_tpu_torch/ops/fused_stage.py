@@ -13,7 +13,9 @@ intermediate are fp32 and the output is in x's type.
 
 ``fused_resblock_trio`` dispatches by device: a CPU tensor goes to
 ``fused_resblock_trio_plain``; a CUDA tensor launches ``csrc/resblock_trio.cu``
-or raises. When autograd needs a gradient the call goes through
+or raises. The kernel's tile plan (halos, output rows per block, window
+rows, shared memory, grid) comes from :func:`trio_plan`, which the CPU tests
+check and the kernel's entry point checks again before it launches. When autograd needs a gradient the call goes through
 :class:`FusedTrio`, whose backward recomputes the plain version, as the JAX
 package's custom VJP recomputes ``trio_folded_xla``.
 """
@@ -21,6 +23,8 @@ package's custom VJP recomputes ``trio_folded_xla``.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass, replace
+from functools import lru_cache
 from typing import Sequence
 
 import torch
@@ -33,6 +37,78 @@ LRELU_SLOPE = 0.1
 # package's fold condition (fold * C == 128) fires
 TRIO_CHANNELS = (16, 32, 64, 128)
 _MAX_PAIRS = 3
+SMEM_LIMIT = 232_448  # bytes of shared memory one block may opt in to on an H100
+# the kernel's tiling (csrc/resblock_trio.cu): bf16 runs on the tensor cores
+# with a window of at most the rows its warps' m16 tiles cover in one pass
+# (Mma<C>::PASS); fp32 keeps the first version's 225 KB FMA layout
+_BF16_PASS_ROWS = {16: 2048, 32: 1024, 64: 512, 128: 256}
+_FP32_BUDGET = 225 * 1024
+_SMEM_PER_SM = 233_472  # an H100 SM's shared memory; each block also reserves 1 KB
+
+
+@lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@dataclass(frozen=True)
+class TrioPlan:
+    """How the kernel tiles one stage: each block owns ``tt`` output rows of
+    one batch row and holds a window of ``rows`` >= tt + 2 max(halos) rows
+    in ``smem`` bytes of shared memory."""
+
+    c: int
+    bf16: bool
+    halos: tuple[int, ...]  # per chain: the sum of its convs' reaches
+    rows: int
+    tt: int
+    smem: int
+
+    def grid(self, b: int, t: int) -> tuple[int, int]:
+        """Blocks along T (covering it) and along the batch."""
+        return -(-t // self.tt), b
+
+    def balanced(self, b: int, t: int, sms: int) -> TrioPlan:
+        """The same window with ``tt`` cut (not below 16) so that [B, T]
+        fills whole waves of blocks on ``sms`` SMs: the largest tile would
+        leave the last wave part-empty (464 blocks at C = 128 on 132 SMs)."""
+        slots = sms * max(1, _SMEM_PER_SM // (self.smem + 1024))  # blocks resident at once
+        waves = -(-b * self.grid(b, t)[0] // slots)
+        per_row = max(1, waves * slots // b)  # blocks along T that fit those waves
+        return replace(self, tt=min(self.tt, max(16, -(-t // per_row))))
+
+
+def _trio_smem(c: int, bf16: bool, rows: int) -> int:
+    """Shared-memory bytes of a window of ``rows`` rows, as the kernel lays
+    them out: bf16 two staged weight steps [min(C, 64)][C + 8] bf16, the fp32
+    residual [rows][C + 8] and the bf16 inner activation [rows][C + 8]; fp32
+    two fp32 windows [rows][C + 1] and a [16][C] weight chunk."""
+    if bf16:
+        return 2 * min(c, 64) * (c + 8) * 2 + rows * ((c + 8) * 4 + (c + 8) * 2)
+    return (2 * rows * (c + 1) + 16 * c) * 4
+
+
+def trio_plan(
+    c: int,
+    dtype: torch.dtype,
+    kernel_sizes: Sequence[int] = (3, 7, 11),
+    dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5), (1, 3, 5), (1, 3, 5)),
+) -> TrioPlan:
+    """The kernel's tile plan for one stage of C channels in ``dtype``: the
+    largest window the shared memory (and, in bf16, one pass of the warps'
+    row tiles) holds, less the largest halo on each side."""
+    if c not in TRIO_CHANNELS or dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"trio_plan: C in {TRIO_CHANNELS}, float32 or bfloat16; got {c}, {dtype}")
+    bf16 = dtype == torch.bfloat16
+    halos = tuple(sum((k - 1) // 2 * (d + 1) for d in dils) for k, dils in zip(kernel_sizes, dilation_sizes))
+    fixed = _trio_smem(c, bf16, 0)
+    rows = ((SMEM_LIMIT if bf16 else _FP32_BUDGET) - fixed) // (_trio_smem(c, bf16, 1) - fixed)
+    if bf16:
+        rows = min(rows, _BF16_PASS_ROWS[c])
+    tt = rows - 2 * max(halos)
+    if tt < 16:
+        raise ValueError(f"trio_plan: halos {halos} leave {tt} output rows per block at C={c}")
+    return TrioPlan(c, bf16, halos, rows, tt, _trio_smem(c, bf16, rows))
 
 
 def fused_resblock_trio_plain(
@@ -65,9 +141,10 @@ def fused_resblock_trio_plain(
 def _check(x, kernels, biases, kernel_sizes, dilation_sizes) -> None:
     """Raise on what the kernel does not take."""
     b, t, c = x.shape
-    if x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous() or c not in TRIO_CHANNELS:
-        raise ValueError(f"fused_resblock_trio: contiguous float32 or bfloat16 [B, T, C] with C in "
-                         f"{TRIO_CHANNELS}, got {x.dtype} {tuple(x.shape)}")
+    if (x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous() or c not in TRIO_CHANNELS
+            or x.data_ptr() % 16):
+        raise ValueError(f"fused_resblock_trio: contiguous, 16-byte aligned float32 or bfloat16 [B, T, C] "
+                         f"with C in {TRIO_CHANNELS}, got {x.dtype} {tuple(x.shape)}")
     if not 1 <= len(kernel_sizes) <= 3 or any(not 1 <= len(d) <= _MAX_PAIRS for d in dilation_sizes):
         raise ValueError("fused_resblock_trio: 1-3 chains of 1-3 dilations")
     idx = 0
@@ -95,10 +172,11 @@ def _forward(x, kernels, biases, kernel_sizes, dilation_sizes) -> torch.Tensor:
         raise ValueError(f"fused_resblock_trio: unsupported device {x.device}")
     _check(x, kernels, biases, kernel_sizes, dilation_sizes)
     b, t, c = x.shape
-    w = torch.cat([kern.reshape(-1) for kern in kernels])
-    bias = torch.stack([bb.float() for bb in biases]).contiguous()  # fp32, as the TPU kernel's
-    out = torch.empty_like(x)
     bf16 = x.dtype == torch.bfloat16
+    plan = trio_plan(c, x.dtype, kernel_sizes, dilation_sizes).balanced(b, t, _sm_count(x.device))
+    w = torch.cat([kern.reshape(-1) for kern in kernels])
+    bias = torch.cat(biases).float()  # fp32, as the TPU kernel's
+    out = torch.empty_like(x)
     acc = torch.empty(x.shape, device=x.device, dtype=torch.float32) if bf16 else out
     n = len(kernel_sizes)
     ks = (ctypes.c_int * n)(*kernel_sizes)
@@ -106,10 +184,12 @@ def _forward(x, kernels, biases, kernel_sizes, dilation_sizes) -> torch.Tensor:
     dils = (ctypes.c_int * (n * _MAX_PAIRS))(
         *(d[i] if i < len(d) else 0 for d in dilation_sizes for i in range(_MAX_PAIRS))
     )
+    halos = (ctypes.c_int * n)(*plan.halos)
     lib = build.load("resblock_trio").lib
     rc = lib.sovits_resblock_trio(
         x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), acc.data_ptr(), b, t, c, n,
-        ks, n_pairs, dils, int(bf16), torch.cuda.current_stream(x.device).cuda_stream,
+        ks, n_pairs, dils, halos, plan.rows, plan.tt, plan.smem, plan.grid(b, t)[0], int(bf16),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(rc, "resblock_trio launch")
     fused_resblock_trio.launches += 1

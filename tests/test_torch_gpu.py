@@ -23,7 +23,7 @@ from sovits_tpu_torch.ops.attention import (
     fused_attention_bwd_plain,
     fused_attention_plain,
 )
-from sovits_tpu_torch.ops.fused_stage import fused_resblock_trio, fused_resblock_trio_plain
+from sovits_tpu_torch.ops.fused_stage import fused_resblock_trio, fused_resblock_trio_plain, trio_plan
 
 pytestmark = pytest.mark.gpu
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -326,6 +326,34 @@ def test_trio_bf16_kernel_matches_plain(cuda, c, t):
     torch.cuda.synchronize()
     assert fused_resblock_trio.launches == before + 1
     _rel_close(got, fused_resblock_trio_plain(x, kernels, biases))
+
+
+# K3 at the edges of its tile plan: T shorter than a chain's halo (1, 5, 61),
+# one past the largest tile ("tt+1": TT + 1 from trio_plan, read in the
+# test), one past the smallest (129 = 8 x 16 + 1: the wrapper's balanced plan
+# launches short clips with 16-row tiles), and a batch of 6 at C = 128
+TRIO_EDGE_CASES = [(c, t, 1) for c in (16, 32, 64, 128) for t in (1, 5, 61, "tt+1", 129)] + [(128, 1000, 6)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("c,t,b", TRIO_EDGE_CASES, ids=lambda v: str(v))
+def test_trio_kernel_edge_cases(cuda, c, t, b, dtype):
+    if t == "tt+1":
+        t = trio_plan(c, dtype).tt + 1
+    g = _g(c * 1000 + t + b)
+    x = torch.randn(b, t, c, generator=g).to(cuda, dtype)
+    kernels = [(torch.randn(k, c, c, generator=g) * (0.5 / (k * c) ** 0.5)).to(cuda, dtype)
+               for k in (3, 7, 11) for _ in range(6)]
+    biases = [(torch.randn(c, generator=g) * 0.01).to(cuda, dtype) for _ in range(18)]
+    before = fused_resblock_trio.launches
+    got = fused_resblock_trio(x, kernels, biases)
+    torch.cuda.synchronize()
+    assert fused_resblock_trio.launches == before + 1
+    want = fused_resblock_trio_plain(x, kernels, biases)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **TOL)
+    else:
+        _rel_close(got, want)
 
 
 @pytest.mark.parametrize("variant", ["bf16", "fp32"])
