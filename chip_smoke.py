@@ -173,10 +173,10 @@ def ptxas_summary(log_text: str) -> list[tuple[str, str, str]]:
 
 # K1's entry functions as ptxas_summary names them: both types, D padded to 32/64/96/128
 K1_INSTANTIATIONS = [f"rel_attn_fwd<{t}, {p}>" for t in ("fp32", "bf16") for p in (32, 64, 96, 128)]
-# K3's entry functions, both types, C = 16/32/64/128; those on the tensor cores
-# must show HMMA in their SASS and must not spill
+# K3's entry functions, both types, C = 16/32/64/128: all on the tensor cores,
+# so each must show HMMA in its SASS and must not spill
 K3_INSTANTIATIONS = [f"trio_{t}<{c}>" for t in ("fp32", "bf16") for c in (16, 32, 64, 128)]
-K3_TENSOR_CORE = [fn for fn in K3_INSTANTIATIONS if fn.startswith("trio_bf16")]
+K3_TENSOR_CORE = K3_INSTANTIATIONS
 
 
 def _attn_case(t, causal, masked, seed):
@@ -716,7 +716,7 @@ def times_trio_vjp() -> None:
 def bounds() -> dict:
     """Least time of each kernel's work at the JSON line's shapes: the larger
     of its operations over the peak for their type (fp32 FMA 67 TFLOP/s,
-    bf16 tensor cores 989 TFLOP/s; K1 fp32 runs 3xTF32, 495/3 TFLOP/s) and
+    bf16 tensor cores 989 TFLOP/s; K1 and K3 fp32 run 3xTF32, 495/3 TFLOP/s) and
     its bytes (each input read once, each output written once) over
     3.35 TB/s. ms and what bounds it."""
     def bound(flops, nbytes, peak=FP32_FLOPS):
@@ -754,7 +754,7 @@ def bounds() -> dict:
     rows = q // 1024 * 1024
     k4_bytes = 2 * ((q + 32) * d4 + 36 * d4 * d4 + rows * d4)
     return {"rel_attention": k1, "rel_attention_bwd": k2, "rel_attention_bwd_bf16": k2_bf16,
-            "resblock_trio": bound(flops, nbytes),
+            "resblock_trio": bound(flops, nbytes, TF32_TC_FLOPS / 3),
             "rel_attention_bf16": k1_bf16, "resblock_trio_bf16": bound(flops, nbytes_bf16, BF16_TC_FLOPS),
             "trio_shift_bf16": bound(k4_flops(rows, d4), k4_bytes, BF16_TC_FLOPS),
             "trio_shift_fp32": bound(k4_flops(rows, d4), k4_bytes)}

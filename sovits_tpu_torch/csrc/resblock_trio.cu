@@ -31,33 +31,48 @@
 //
 // What bounds it on an H100: arithmetic. A 10 s clip needs about 0.43
 // TFLOP across the four stages (C = 128, 64, 32, 16), plus the halo
-// recompute (about 1.37x at C = 128, under 1.1x at C <= 64).
+// recompute (1.4-1.7x at C = 128, under 1.1x at C <= 32).
 //
-// bf16 (the serving path): the inner product runs on the tensor cores,
-// mma.sync.m16n8k16 bf16 with fp32 sums. 8 warps; each owns m16 row tiles
+// Both types run the inner product on the tensor cores (mma.sync) with the
+// same structure. 8 warps; each owns m16 row tiles
 // (tile i of the conv's rows goes to warp row i mod WM, so shrinking convs
 // keep every warp busy) across C / WN output channels, and keeps their fp32
 // sums in registers for the whole conv. Per conv, the weights stream
-// through shared memory one tap (C <= 64) or half a tap (C = 128) at a time,
-// [C_in][C_out + 8] as they are packed (B fragments by ldmatrix.trans),
-// double-buffered with cp.async: one barrier per step. The A operand:
-//  - the first conv of a pair reads the fp32 residual stream and builds its
-//    fragments in registers (lrelu, round to bf16, pack): 8-byte reads of a
-//    column pair, row stride C + 8 words, free of bank conflicts at every
-//    shift;
-//  - its epilogue stores bf16(lrelu(y)), the second conv's A operand as the
-//    TPU kernel's matrix unit would take it, so the second conv reads it with
-//    ldmatrix (row stride C + 8 elements) and the inner activation costs
-//    2 bytes a value, not 4; the window holds 242 rows at C = 128 (TT 122).
-// A tap's dilated shift is only another row base per lane. Rows past the
-// conv's range in a tile are computed and never stored; their reads are
-// clamped into the window. Conv inputs are rounded to bf16 (weights bf16),
-// sums, biases, the residual stream and the mean fp32, the output rounded
-// to bf16 once: within 2e-2 x max|plain| of the plain fp32 arithmetic.
+// through shared memory in steps of a tap or part of one, as they are packed
+// ([C_in][C_out] rows), double-buffered with cp.async: one barrier per step.
+// The first conv of a pair builds its A fragments in registers from the
+// fp32 residual (lrelu, then the type's rounding); its epilogue stores
+// lrelu(y), the second conv's A operand. A tap's dilated shift is only
+// another row base per lane. Rows past the conv's range in a tile are
+// computed and never stored; their reads are clamped into the window.
 //
-// fp32: the first version's inner product, fp32 FMA from shared memory (each
-// thread a TM x C/16 register tile; weights staged 16 input channels at a
-// time; row stride C + 1), with the same plan.
+// bf16 (the serving path): mma.sync.m16n8k16 bf16 with fp32 sums. The
+// first conv's A: 8-byte reads of a column pair, row stride C + 8 words,
+// free of bank conflicts at every shift; the inner activation is stored as
+// bf16(lrelu(y)), the A operand as the TPU kernel's matrix unit would take
+// it, and read with ldmatrix (row stride C + 8 elements), so it costs 2
+// bytes a value: the window holds 242 rows at C = 128. B fragments by
+// ldmatrix.trans from [C_in][C_out + 8] bf16 steps (a tap, half a tap at
+// C = 128). Conv inputs are rounded to bf16 (weights bf16); sums, biases,
+// the residual stream and the mean fp32; the output rounded to bf16 once:
+// within 2e-2 x max|plain| of the plain fp32 arithmetic.
+//
+// fp32: 3xTF32 on mma.sync.m16n8k8.tf32, as K1 (rel_attention.cu) keeps
+// fp32 accuracy on the tensor cores: A (after lrelu) and B are each split
+// into hi = tf32(v) and lo = tf32(v - hi), and every 8-deep step sums
+// lo.hi + hi.lo + hi.hi from zero, then adds that to its fp32 total: the
+// tensor cores do not round their own sums to nearest, and a conv sums up
+// to 11 x 128 products (summed straight into the total, the C = 128 stage
+// of a 10 s clip came to 9.2e-6 max-abs on an H100, 74% of the fp32 bar;
+// summed per step, 9.5e-7). Both windows are fp32 (row stride C + 8 words);
+// inside each 8-deep step the input channels are permuted (logical k = tq
+// and tq + 4 are channels 2tq and 2tq + 1) so that one 8-byte read gives a
+// lane both of its A values of a row; B's two values per lane are 4-byte
+// reads of rows 2tq and 2tq + 1 of [C_in][C_out + 4] fp32 steps (32 input
+// channels, 16 at C = 16; row stride C + 4 words, conflict-free), split in
+// registers once per 8-deep step and reused by every row tile. The window
+// holds 182 rows at C = 128. One-pass TF32 would miss the fp32 bar (rtol
+// 1e-4, atol 1e-5).
 //
 // Plain C interface, bound with ctypes; returns cudaGetLastError().
 
@@ -91,191 +106,164 @@ struct Plan {
 
 __device__ __forceinline__ float lrelu(float x) { return fmaxf(x, SLOPE * x); }
 
-// ---------------------------------------------------------------- fp32, FMA
+// c = a . b on a 16x8x8 tf32 tile, summed from zero
+__device__ __forceinline__ void mma_tf32_from_zero(float c[4], const uint32_t a[4], uint32_t b0,
+                                                   uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
 
-template <int C>
-struct Fma {
-  static constexpr int LD = C + 1;  // row stride: two rows per warp, two banks
-  static constexpr int KC = 16;     // input channels per staged weight chunk
-  static constexpr int TN = C / 16;  // output channels per thread
-  static constexpr int TM = 8;       // rows per thread per pass
-  static constexpr int PASS = 16 * TM;
-  static size_t bytes(int rows) { return (2 * (size_t)rows * LD + KC * C) * 4; }
-  static_assert(C % 16 == 0, "C must be a multiple of 16");
+// Tiling shared by both types: WN warps across the output channels, WM
+// across the rows, MI m16 tiles per warp, so one conv covers PASS rows (the
+// window's cap); weights staged KCH input channels per step, row stride LDW.
+template <int C, typename E, int KCH_, int LDW_, int MI_>
+struct Tiling {
+  using T = E;  // x, weights and output
+  static constexpr int CH = C;
+  static constexpr int LDX = C + 8;  // fp32 residual row stride (words): 8-byte reads conflict-free
+  static constexpr int KCH = KCH_;
+  static constexpr int LDW = LDW_;
+  static constexpr int NKC = C / KCH;  // steps per tap
+  static constexpr int WN = C == 128 ? 2 : 1;
+  static constexpr int WM = NWARP / WN;
+  static constexpr int NN = C / WN / 8;  // n8 tiles per warp
+  static constexpr int MI = MI_;
+  static constexpr int PASS = WM * MI * 16;
+  static constexpr int WBUF = KCH * LDW;  // one staged step (elements)
+  static_assert(C % 16 == 0 && NN % 2 == 0 && C % KCH == 0, "tiling");
 };
 
-// One 'same' conv over window rows [lo, hi): reads lrelu(in[r + (j-h)*d]),
-// writes (or, with accumulate, adds) bias + sum into dst, zero outside [0, T).
+// bf16: the inner activation bf16 [rows][C + 8]; weight steps [KCH][C + 8] bf16
 template <int C>
-__device__ __forceinline__ void conv_fma(const float* __restrict__ in, float* __restrict__ dst,
-                                         bool accumulate, const float* __restrict__ w,
-                                         const float* __restrict__ bias, float* __restrict__ wst,
-                                         int k, int d, int lo, int hi, int g0, int T) {
-  using K = Fma<C>;
-  const int tid = threadIdx.x;
-  const int cg = tid & 15;
-  const int rg = tid >> 4;
-  const int half = (k - 1) / 2;
-  for (int r0 = lo; r0 < hi; r0 += K::PASS) {
-    float acc[K::TM][K::TN];
-#pragma unroll
-    for (int m = 0; m < K::TM; ++m)
-#pragma unroll
-      for (int n = 0; n < K::TN; ++n) acc[m][n] = 0.f;
-    for (int j = 0; j < k; ++j) {
-      const int shift = (j - half) * d;
-      for (int c0 = 0; c0 < C; c0 += K::KC) {
-        __syncthreads();  // everyone is done with the previous chunk (and the previous conv)
-        const float* wj = w + ((size_t)j * C + c0) * C;
-        for (int i = tid; i < K::KC * C; i += NT) wst[i] = wj[i];
-        __syncthreads();
-#pragma unroll 4
-        for (int cc = 0; cc < K::KC; ++cc) {
-          float a[K::TM];
-#pragma unroll
-          for (int m = 0; m < K::TM; ++m) {
-            const int r = r0 + rg + 16 * m;
-            float x = 0.f;
-            if (r < hi) x = in[(r + shift) * K::LD + c0 + cc];
-            a[m] = lrelu(x);
-          }
-#pragma unroll
-          for (int n = 0; n < K::TN; ++n) {
-            const float b = wst[cc * C + cg + 16 * n];
-#pragma unroll
-            for (int m = 0; m < K::TM; ++m) acc[m][n] = fmaf(a[m], b, acc[m][n]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < K::TM; ++m) {
-      const int r = r0 + rg + 16 * m;
-      if (r >= hi) continue;
-      const int g = g0 + r;
-      const bool inside = g >= 0 && g < T;
-#pragma unroll
-      for (int n = 0; n < K::TN; ++n) {
-        const int c = cg + 16 * n;
-        const float y = inside ? acc[m][n] + bias[c] : 0.f;
-        if (accumulate)
-          dst[r * K::LD + c] += y;
-        else
-          dst[r * K::LD + c] = y;
-      }
-    }
+struct Bf16 : Tiling<C, __nv_bfloat16, (C < 64 ? C : 64), C + 8, (C >= 64 ? 4 : C == 32 ? 8 : 16)> {
+  using A = __nv_bfloat16;
+  static constexpr int LDA = C + 8;
+  static size_t bytes(int rows) {
+    return 2 * (size_t)Bf16::WBUF * 2 + (size_t)rows * (Bf16::LDX * 4 + LDA * 2);
   }
-}
+};
 
+// fp32: the inner activation fp32 [rows][C + 8]; weight steps [KCH][C + 4] fp32
 template <int C>
-__global__ void __launch_bounds__(NT, 1)
-    trio_fp32(const float* __restrict__ x, const float* __restrict__ w,
-              const float* __restrict__ bias, float* out, int T, Plan plan) {
-  using K = Fma<C>;
-  extern __shared__ float sm[];
-  const int TT = plan.tt;
-  float* xr = sm;                        // residual stream [rows][LD]
-  float* xt = xr + plan.rows * K::LD;    // inner activation [rows][LD]
-  float* wst = xt + plan.rows * K::LD;   // staged weights [KC][C]
-
-  const int t0 = blockIdx.x * TT;
-  const float* xb = x + (size_t)blockIdx.y * T * C;
-  float* ob = out + (size_t)blockIdx.y * T * C;  // also the running sum over the chains
-  int ci = 0;
-  for (int ch = 0; ch < plan.n_chains; ++ch) {
-    const int h = plan.halo[ch];
-    const int rows = TT + 2 * h;
-    const int g0 = t0 - h;
-    const int k = plan.k[ch];
-    const int half = (k - 1) / 2;
-    __syncthreads();  // the previous chain's centre rows have been read
-    for (int i = threadIdx.x; i < rows * C; i += NT) {
-      const int r = i / C, c = i - r * C;
-      const int g = g0 + r;
-      xr[r * K::LD + c] = (g >= 0 && g < T) ? xb[(size_t)g * C + c] : 0.f;
-    }
-    int rem = h;  // reach still ahead of the conv being run
-    for (int p = 0; p < plan.n_pairs[ch]; ++p) {
-      const int d = plan.dil[ch][p];
-      rem -= half * d;
-      conv_fma<C>(xr, xt, false, w + plan.w_off[ci], bias + ci * C, wst, k, d, h - rem,
-                  h + TT + rem, g0, T);
-      ++ci;
-      rem -= half;
-      conv_fma<C>(xt, xr, true, w + plan.w_off[ci], bias + ci * C, wst, k, 1, h - rem,
-                  h + TT + rem, g0, T);
-      ++ci;
-    }
-    __syncthreads();
-    const bool last = ch + 1 == plan.n_chains;
-    for (int i = threadIdx.x; i < TT * C; i += NT) {
-      const int r = i / C, c = i - r * C;
-      const int g = t0 + r;
-      if (g >= T) continue;
-      const size_t o = (size_t)g * C + c;
-      const float y = xr[(h + r) * K::LD + c];
-      const float s = ch == 0 ? y : ob[o] + y;  // same thread owns o in every chain
-      ob[o] = last ? s / (float)plan.n_chains : s;
-    }
+struct Fp32 : Tiling<C, float, (C < 32 ? C : 32), C + 4, (C >= 64 ? 3 : C == 32 ? 6 : 10)> {
+  using A = float;
+  static constexpr int LDA = C + 8;
+  static size_t bytes(int rows) {
+    return 2 * (size_t)Fp32::WBUF * 4 + (size_t)rows * (Fp32::LDX + LDA) * 4;
   }
-}
-
-// ------------------------------------------------------- bf16, tensor cores
-
-template <int C>
-struct Mma {
-  static constexpr int LDX = C + 8;           // fp32 residual row stride (words): 8-byte reads conflict-free
-  static constexpr int LDA = C + 8;           // bf16 inner-activation row stride: ldmatrix conflict-free
-  static constexpr int KCH = C < 64 ? C : 64;  // input channels per staged weight step
-  static constexpr int LDW = C + 8;           // bf16 weight row stride (per input channel)
-  static constexpr int NKC = C / KCH;         // steps per tap
-  static constexpr int WN = C == 128 ? 2 : 1;  // warps across the output channels
-  static constexpr int WM = NWARP / WN;        // warps across the rows
-  static constexpr int NN = C / WN / 8;        // n8 tiles per warp
-  static constexpr int MI = C >= 64 ? 4 : C == 32 ? 8 : 16;  // m16 tiles per warp
-  static constexpr int PASS = WM * MI * 16;    // rows one conv covers: the window's cap
-  static constexpr int WBUF = KCH * LDW;       // one staged step (elements)
-  static size_t bytes(int rows) { return 2 * (size_t)WBUF * 2 + (size_t)rows * (LDX * 4 + LDA * 2); }
-  static_assert(C % 16 == 0 && NN % 2 == 0, "tiling");
 };
 
 // Step s of a conv's weights (tap s / NKC, input channels (s % NKC) * KCH
 // on), [KCH][C_out] of the packed [k][C_in][C_out], into dst [KCH][LDW].
-template <int C>
-__device__ __forceinline__ void issue_step(const __nv_bfloat16* __restrict__ w, int s,
-                                           __nv_bfloat16* dst) {
-  using K = Mma<C>;
-  constexpr int PER_ROW = C / 8;  // 16-byte pieces per input channel
+template <typename K>
+__device__ __forceinline__ void issue_step(const typename K::T* __restrict__ w, int s,
+                                           typename K::T* dst) {
+  constexpr int C = K::CH;
+  constexpr int EPP = 16 / sizeof(typename K::T);  // elements per 16-byte piece
+  constexpr int PER_ROW = C / EPP;
   const int j = s / K::NKC, kc = s - j * K::NKC;
-  const __nv_bfloat16* src = w + ((size_t)j * C + kc * K::KCH) * C;
+  const typename K::T* src = w + ((size_t)j * C + kc * K::KCH) * C;
   for (int i = threadIdx.x; i < K::KCH * PER_ROW; i += NT) {
     const int r = i / PER_ROW, p = i - r * PER_ROW;
-    cp_async16(dst + r * K::LDW + p * 8, src + (size_t)r * C + p * 8, true);
+    cp_async16(dst + r * K::LDW + p * EPP, src + (size_t)r * C + p * EPP, true);
   }
 }
 
-// One 'same' conv on the tensor cores over window rows [lo, hi), as
-// conv_fma. FROM_X: the input is lrelu(xr), built into A fragments here, and
-// the result is stored as bf16(lrelu(y)) into at. Otherwise the input is at
-// (ldmatrix) and the result is added into xr. On entry step 0 of w is in
-// flight into wsm[buf]; on exit step 0 of w_next (if any) is.
+// The m16 row tiles of this warp inside [lo, hi): tile i of the conv's rows
+// goes to warp row i mod WM, so the shrinking convs keep every warp busy.
+template <typename K>
+__device__ __forceinline__ int active_tiles(int wm, int lo, int hi) {
+  int n = 0;
+#pragma unroll
+  for (int mi = 0; mi < K::MI; ++mi) n += lo + (wm + mi * K::WM) * 16 < hi;
+  return n;
+}
+
+// The weight pipeline of one conv: before step s, wait for it and issue the
+// next (step s + 1, or step 0 of w_next), then compute(step's weights, tap,
+// first input channel). On entry step 0 of w is in flight into wsm[buf].
+template <typename K, typename F>
+__device__ __forceinline__ void stream_steps(typename K::T* wsm, int& buf,
+                                             const typename K::T* __restrict__ w,
+                                             const typename K::T* __restrict__ w_next, int k,
+                                             bool active, F&& compute) {
+  const int n_steps = k * K::NKC;
+  for (int s = 0; s < n_steps; ++s) {
+    cp_async_wait<0>();
+    __syncthreads();  // step s is in wsm[buf] for all; everyone is done with wsm[buf ^ 1]
+    if (s + 1 < n_steps)
+      issue_step<K>(w, s + 1, wsm + (buf ^ 1) * K::WBUF);
+    else if (w_next != nullptr)
+      issue_step<K>(w_next, 0, wsm + (buf ^ 1) * K::WBUF);
+    cp_async_commit();
+    const typename K::T* wb = wsm + buf * K::WBUF;
+    buf ^= 1;
+    if (!active) continue;
+    const int j = s / K::NKC;
+    compute(wb, j, (s - j * K::NKC) * K::KCH);
+  }
+}
+
+// The epilogue of one conv: y = sum + bias inside [0, T), 0 outside, for the
+// rows of [lo, hi) this warp holds. FROM_X: xa = lrelu(y) (in xa's type);
+// otherwise xr += y.
+template <typename K, bool FROM_X>
+__device__ __forceinline__ void epilogue(float (&acc)[K::MI][K::NN][4], float* xr,
+                                         typename K::A* xa, const float* __restrict__ bias,
+                                         int n_act, int wm, int n0, int lo, int hi, int g0, int T) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < K::MI; ++mi) {
+    if (mi >= n_act) break;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = lo + (wm + mi * K::WM) * 16 + g + 8 * hr;
+      if (r >= hi) continue;
+      const int gr = g0 + r;
+      const bool inside = gr >= 0 && gr < T;
+#pragma unroll
+      for (int n = 0; n < K::NN; ++n) {
+        const int c = n0 + n * 8 + 2 * tq;
+        const float2 bb = *reinterpret_cast<const float2*>(bias + c);
+        const float y0 = inside ? acc[mi][n][2 * hr] + bb.x : 0.f;
+        const float y1 = inside ? acc[mi][n][2 * hr + 1] + bb.y : 0.f;
+        if (FROM_X) {
+          if constexpr (sizeof(typename K::A) == 2)
+            *reinterpret_cast<uint32_t*>(xa + r * K::LDA + c) = pack_bf16(lrelu(y0), lrelu(y1));
+          else
+            *reinterpret_cast<float2*>(xa + r * K::LDA + c) = make_float2(lrelu(y0), lrelu(y1));
+        } else {
+          float2* p = reinterpret_cast<float2*>(xr + r * K::LDX + c);
+          float2 o = *p;
+          o.x += y0;
+          o.y += y1;
+          *p = o;
+        }
+      }
+    }
+  }
+}
+
+// One 'same' conv over window rows [lo, hi): y[r] = bias + sum_j
+// lrelu(in[r + (j - half) d]) . w_j, rows outside [0, T) zero. FROM_X: in
+// is the fp32 residual xr and lrelu(y) goes to xa; otherwise in is xa
+// (lrelu already applied) and y is added into xr. bf16 inner product.
 template <int C, bool FROM_X>
-__device__ __forceinline__ void conv_mma(float* xr, __nv_bfloat16* at, __nv_bfloat16* wsm, int& buf,
-                                         const __nv_bfloat16* __restrict__ w,
-                                         const __nv_bfloat16* __restrict__ w_next,
-                                         const float* __restrict__ bias, int k, int d, int lo,
-                                         int hi, int g0, int T, int rows) {
-  using K = Mma<C>;
+__device__ __forceinline__ void conv_bf16(float* xr, __nv_bfloat16* xa, __nv_bfloat16* wsm, int& buf,
+                                          const __nv_bfloat16* __restrict__ w,
+                                          const __nv_bfloat16* __restrict__ w_next,
+                                          const float* __restrict__ bias, int k, int d, int lo,
+                                          int hi, int g0, int T, int rows) {
+  using K = Bf16<C>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wn = warp % K::WN, wm = warp / K::WN;
   const int g = lane >> 2, tq = lane & 3;
   const int half = (k - 1) / 2;
-  const int n_steps = k * K::NKC;
   const int n0 = wn * (C / K::WN);  // first output channel of this warp
-  int n_act = 0;                    // m16 tiles of this warp inside [lo, hi)
-#pragma unroll
-  for (int mi = 0; mi < K::MI; ++mi) n_act += lo + (wm + mi * K::WM) * 16 < hi;
-
+  const int n_act = active_tiles<K>(wm, lo, hi);
   float acc[K::MI][K::NN][4];
 #pragma unroll
   for (int mi = 0; mi < K::MI; ++mi)
@@ -284,20 +272,8 @@ __device__ __forceinline__ void conv_mma(float* xr, __nv_bfloat16* at, __nv_bflo
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][n][e] = 0.f;
 
-  for (int s = 0; s < n_steps; ++s) {
-    cp_async_wait<0>();
-    __syncthreads();  // step s is in wsm[buf] for all; everyone is done with wsm[buf ^ 1]
-    if (s + 1 < n_steps)
-      issue_step<C>(w, s + 1, wsm + (buf ^ 1) * K::WBUF);
-    else if (w_next != nullptr)
-      issue_step<C>(w_next, 0, wsm + (buf ^ 1) * K::WBUF);
-    cp_async_commit();
-    const __nv_bfloat16* wb = wsm + buf * K::WBUF;
-    buf ^= 1;
-    if (n_act == 0) continue;
-    const int j = s / K::NKC;
+  stream_steps<K>(wsm, buf, w, w_next, k, n_act > 0, [&](const __nv_bfloat16* wb, int j, int cin0) {
     const int shift = (j - half) * d;
-    const int cin0 = (s - j * K::NKC) * K::KCH;
 #pragma unroll
     for (int kk = 0; kk < K::KCH / 16; ++kk) {
       uint32_t b[K::NN][2];
@@ -330,68 +306,135 @@ __device__ __forceinline__ void conv_mma(float* xr, __nv_bfloat16* at, __nv_bflo
           a[3] = pack_bf16(lrelu(v3.x), lrelu(v3.y));
         } else {
           const int r = min(r0 + (lane & 7) + ((lane >> 3) & 1) * 8, rows - 1);
-          ldsm_x4(a, at + r * K::LDA + cin + (lane >> 4) * 8);
+          ldsm_x4(a, xa + r * K::LDA + cin + (lane >> 4) * 8);
         }
 #pragma unroll
         for (int n = 0; n < K::NN; ++n) mma_bf16(acc[mi][n], a, b[n][0], b[n][1]);
       }
     }
-  }
+  });
+  epilogue<K, FROM_X>(acc, xr, xa, bias, n_act, wm, n0, lo, hi, g0, T);
+}
 
+// As conv_bf16, 3xTF32: each 8-deep step's three products are summed from
+// zero and added to the fp32 total.
+template <int C, bool FROM_X>
+__device__ __forceinline__ void conv_fp32(float* xr, float* xa, float* wsm, int& buf,
+                                          const float* __restrict__ w, const float* __restrict__ w_next,
+                                          const float* __restrict__ bias, int k, int d, int lo, int hi,
+                                          int g0, int T, int rows) {
+  using K = Fp32<C>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wn = warp % K::WN, wm = warp / K::WN;
+  const int g = lane >> 2, tq = lane & 3;
+  const int half = (k - 1) / 2;
+  const int n0 = wn * (C / K::WN);
+  const int n_act = active_tiles<K>(wm, lo, hi);
+  float acc[K::MI][K::NN][4];
 #pragma unroll
-  for (int mi = 0; mi < K::MI; ++mi) {
-    if (mi >= n_act) break;
+  for (int mi = 0; mi < K::MI; ++mi)
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int r = lo + (wm + mi * K::WM) * 16 + g + 8 * hr;
-      if (r >= hi) continue;
-      const int gr = g0 + r;
-      const bool inside = gr >= 0 && gr < T;
+    for (int n = 0; n < K::NN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][n][e] = 0.f;
+  const float* in = FROM_X ? xr : xa;
+
+  stream_steps<K>(wsm, buf, w, w_next, k, n_act > 0, [&](const float* wb, int j, int cin0) {
+    const int shift = (j - half) * d;
+#pragma unroll 1
+    for (int kk = 0; kk < K::KCH / 8; ++kk) {  // not unrolled: its registers would spill at C >= 64
+      // A, every row tile's: channels 2tq and 2tq + 1 of the step (logical k = tq, tq + 4)
+      const int cin = cin0 + kk * 8 + 2 * tq;
+      uint32_t ah[K::MI][4], al[K::MI][4];
+#pragma unroll
+      for (int mi = 0; mi < K::MI; ++mi) {
+        if (mi >= n_act) break;
+        const int r0 = lo + (wm + mi * K::WM) * 16 + shift;
+        float2 v0 = *reinterpret_cast<const float2*>(in + min(r0 + g, rows - 1) * K::LDX + cin);
+        float2 v1 = *reinterpret_cast<const float2*>(in + min(r0 + g + 8, rows - 1) * K::LDX + cin);
+        if (FROM_X) {
+          v0 = make_float2(lrelu(v0.x), lrelu(v0.y));
+          v1 = make_float2(lrelu(v1.x), lrelu(v1.y));
+        }
+        split(v0.x, ah[mi][0], al[mi][0]);
+        split(v1.x, ah[mi][1], al[mi][1]);
+        split(v0.y, ah[mi][2], al[mi][2]);
+        split(v1.y, ah[mi][3], al[mi][3]);
+      }
+      // B, one n8 tile at a time (the same channels, column n0 + 8n + g), split once for every row tile
 #pragma unroll
       for (int n = 0; n < K::NN; ++n) {
-        const int c = n0 + n * 8 + 2 * tq;
-        const float2 bb = *reinterpret_cast<const float2*>(bias + c);
-        const float y0 = inside ? acc[mi][n][2 * hr] + bb.x : 0.f;
-        const float y1 = inside ? acc[mi][n][2 * hr + 1] + bb.y : 0.f;
-        if (FROM_X) {
-          *reinterpret_cast<uint32_t*>(at + r * K::LDA + c) = pack_bf16(lrelu(y0), lrelu(y1));
-        } else {
-          float2* p = reinterpret_cast<float2*>(xr + r * K::LDX + c);
-          float2 o = *p;
-          o.x += y0;
-          o.y += y1;
-          *p = o;
+        const float* bp = wb + (kk * 8 + 2 * tq) * K::LDW + n0 + n * 8 + g;
+        uint32_t bh0, bl0, bh1, bl1;
+        split(bp[0], bh0, bl0);
+        split(bp[K::LDW], bh1, bl1);
+#pragma unroll
+        for (int mi = 0; mi < K::MI; ++mi) {
+          if (mi >= n_act) break;
+          float t[4];
+          mma_tf32_from_zero(t, al[mi], bh0, bh1);
+          mma_tf32(t, ah[mi], bl0, bl1);
+          mma_tf32(t, ah[mi], bh0, bh1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][n][e] += t[e];
         }
       }
     }
-  }
+  });
+  epilogue<K, FROM_X>(acc, xr, xa, bias, n_act, wm, n0, lo, hi, g0, T);
 }
 
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(a.x, a.y, b.x, b.y);
 }
+__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  uint2 u;
+  u.x = pack_bf16(v.x, v.y);
+  u.y = pack_bf16(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) = u;
+}
 
-template <int C>
-__global__ void __launch_bounds__(NT, 1)
-    trio_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-              const float* __restrict__ bias, __nv_bfloat16* out, float* acc, int T, Plan plan) {
-  using K = Mma<C>;
-  extern __shared__ __align__(16) unsigned char smraw[];
-  __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(smraw);  // two weight steps [KCH][LDW]
-  float* xr = reinterpret_cast<float*>(wsm + 2 * K::WBUF);         // residual stream [rows][LDX]
-  __nv_bfloat16* at = reinterpret_cast<__nv_bfloat16*>(xr + plan.rows * K::LDX);  // [rows][LDA]
+template <int C, bool FROM_X>
+__device__ __forceinline__ void conv(float* xr, __nv_bfloat16* xa, __nv_bfloat16* wsm, int& buf,
+                                     const __nv_bfloat16* w, const __nv_bfloat16* w_next,
+                                     const float* bias, int k, int d, int lo, int hi, int g0, int T,
+                                     int rows) {
+  conv_bf16<C, FROM_X>(xr, xa, wsm, buf, w, w_next, bias, k, d, lo, hi, g0, T, rows);
+}
+template <int C, bool FROM_X>
+__device__ __forceinline__ void conv(float* xr, float* xa, float* wsm, int& buf, const float* w,
+                                     const float* w_next, const float* bias, int k, int d, int lo,
+                                     int hi, int g0, int T, int rows) {
+  conv_fp32<C, FROM_X>(xr, xa, wsm, buf, w, w_next, bias, k, d, lo, hi, g0, T, rows);
+}
+
+// The block: the chains one after another, each over its own window; the
+// mean summed in acc (fp32; for fp32 the output itself).
+template <typename K>
+__device__ __forceinline__ void trio_body(const typename K::T* __restrict__ x,
+                                          const typename K::T* __restrict__ w,
+                                          const float* __restrict__ bias, typename K::T* out,
+                                          float* acc, int T, const Plan& plan) {
+  using E = typename K::T;
+  constexpr int C = K::CH;
   constexpr int Q = C / 4;  // 4-wide column groups
+  extern __shared__ __align__(16) unsigned char smraw[];
+  E* wsm = reinterpret_cast<E*>(smraw);                                   // two weight steps [KCH][LDW]
+  float* xr = reinterpret_cast<float*>(wsm + 2 * K::WBUF);                // residual stream [rows][LDX]
+  typename K::A* xa = reinterpret_cast<typename K::A*>(xr + plan.rows * K::LDX);  // lrelu(inner) [rows][LDA]
 
   const int TT = plan.tt;
   const int t0 = blockIdx.x * TT;
-  const __nv_bfloat16* xb = x + (size_t)blockIdx.y * T * C;
-  __nv_bfloat16* ob = out + (size_t)blockIdx.y * T * C;
+  const E* xb = x + (size_t)blockIdx.y * T * C;
+  E* ob = out + (size_t)blockIdx.y * T * C;
   float* ab = acc + (size_t)blockIdx.y * T * C;
   int buf = 0;
-  issue_step<C>(w + plan.w_off[0], 0, wsm);
+  issue_step<K>(w + plan.w_off[0], 0, wsm);
   cp_async_commit();
   int ci = 0;
   for (int ch = 0; ch < plan.n_chains; ++ch) {
@@ -411,13 +454,13 @@ __global__ void __launch_bounds__(NT, 1)
     for (int p = 0; p < plan.n_pairs[ch]; ++p) {
       const int d = plan.dil[ch][p];
       rem -= half * d;
-      conv_mma<C, true>(xr, at, wsm, buf, w + plan.w_off[ci], w + plan.w_off[ci + 1], bias + ci * C,
-                        k, d, h - rem, h + TT + rem, g0, T, plan.rows);
+      conv<C, true>(xr, xa, wsm, buf, w + plan.w_off[ci], w + plan.w_off[ci + 1], bias + ci * C, k, d,
+                    h - rem, h + TT + rem, g0, T, plan.rows);
       ++ci;
       rem -= half;
-      conv_mma<C, false>(xr, at, wsm, buf, w + plan.w_off[ci],
-                         ci + 1 < plan.n_convs ? w + plan.w_off[ci + 1] : nullptr, bias + ci * C,
-                         k, 1, h - rem, h + TT + rem, g0, T, plan.rows);
+      conv<C, false>(xr, xa, wsm, buf, w + plan.w_off[ci],
+                     ci + 1 < plan.n_convs ? w + plan.w_off[ci + 1] : nullptr, bias + ci * C, k, 1,
+                     h - rem, h + TT + rem, g0, T, plan.rows);
       ++ci;
     }
     __syncthreads();
@@ -433,10 +476,8 @@ __global__ void __launch_bounds__(NT, 1)
         s.x += prev.x, s.y += prev.y, s.z += prev.z, s.w += prev.w;
       }
       if (last) {
-        uint2 u;
-        u.x = pack_bf16(s.x / (float)plan.n_chains, s.y / (float)plan.n_chains);
-        u.y = pack_bf16(s.z / (float)plan.n_chains, s.w / (float)plan.n_chains);
-        *reinterpret_cast<uint2*>(ob + o) = u;
+        const float n = (float)plan.n_chains;
+        store4(ob + o, make_float4(s.x / n, s.y / n, s.z / n, s.w / n));
       } else {
         *reinterpret_cast<float4*>(ab + o) = s;
       }
@@ -445,25 +486,37 @@ __global__ void __launch_bounds__(NT, 1)
   cp_async_wait<0>();
 }
 
-// ------------------------------------------------------------------ launch
+template <int C>
+__global__ void __launch_bounds__(NT, 1)
+    trio_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+              const float* __restrict__ bias, __nv_bfloat16* out, float* acc, int T, Plan plan) {
+  trio_body<Bf16<C>>(x, w, bias, out, acc, T, plan);
+}
+
+template <int C>
+__global__ void __launch_bounds__(NT, 1)
+    trio_fp32(const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ bias,
+              float* out, int T, Plan plan) {
+  trio_body<Fp32<C>>(x, w, bias, out, out, T, plan);
+}
+
+template <typename K, typename Kernel>
+int check_and_size(Kernel kernel, const Plan& plan, int smem) {
+  if (plan.rows > K::PASS || (size_t)smem != K::bytes(plan.rows) || smem > SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
 
 template <int C>
 int launch_c(const void* x, const void* w, const float* bias, void* out, float* acc, int b, int t,
              const Plan& plan, int smem, int grid_x, bool bf16, cudaStream_t s) {
-  dim3 grid(grid_x, b);
+  const dim3 grid(grid_x, b);
   if (bf16) {
-    using K = Mma<C>;
-    if (plan.rows > K::PASS || (size_t)smem != K::bytes(plan.rows) || smem > SMEM_LIMIT)
-      return (int)cudaErrorInvalidValue;
-    cudaError_t e = cudaFuncSetAttribute(trio_bf16<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
+    if (int e = check_and_size<Bf16<C>>(trio_bf16<C>, plan, smem)) return e;
     trio_bf16<C><<<grid, NT, smem, s>>>((const __nv_bfloat16*)x, (const __nv_bfloat16*)w, bias,
                                         (__nv_bfloat16*)out, acc, t, plan);
   } else {
-    using K = Fma<C>;
-    if ((size_t)smem != K::bytes(plan.rows) || smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-    cudaError_t e = cudaFuncSetAttribute(trio_fp32<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
+    if (int e = check_and_size<Fp32<C>>(trio_fp32<C>, plan, smem)) return e;
     trio_fp32<C><<<grid, NT, smem, s>>>((const float*)x, (const float*)w, bias, (float*)out, t, plan);
   }
   return (int)cudaGetLastError();

@@ -13,9 +13,11 @@ intermediate are fp32 and the output is in x's type.
 
 ``fused_resblock_trio`` dispatches by device: a CPU tensor goes to
 ``fused_resblock_trio_plain``; a CUDA tensor launches ``csrc/resblock_trio.cu``
-or raises. The kernel's tile plan (halos, output rows per block, window
-rows, shared memory, grid) comes from :func:`trio_plan`, which the CPU tests
-check and the kernel's entry point checks again before it launches. When autograd needs a gradient the call goes through
+or raises. The kernel runs on the tensor cores in both types (bf16 products
+with fp32 sums; fp32 as 3xTF32). Its tile plan (halos, output rows per
+block, window rows, shared memory, grid) comes from :func:`trio_plan`, which
+the CPU tests check and the kernel's entry point checks again before it
+launches. When autograd needs a gradient the call goes through
 :class:`FusedTrio`, whose backward recomputes the plain version, as the JAX
 package's custom VJP recomputes ``trio_folded_xla``.
 """
@@ -38,11 +40,9 @@ LRELU_SLOPE = 0.1
 TRIO_CHANNELS = (16, 32, 64, 128)
 _MAX_PAIRS = 3
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may opt in to on an H100
-# the kernel's tiling (csrc/resblock_trio.cu): bf16 runs on the tensor cores
-# with a window of at most the rows its warps' m16 tiles cover in one pass
-# (Mma<C>::PASS); fp32 keeps the first version's 225 KB FMA layout
-_BF16_PASS_ROWS = {16: 2048, 32: 1024, 64: 512, 128: 256}
-_FP32_BUDGET = 225 * 1024
+# the kernel's tiling (csrc/resblock_trio.cu): a window holds at most the rows
+# its warps' m16 tiles cover in one pass (Bf16<C>::PASS, Fp32<C>::PASS)
+_PASS_ROWS = {True: {16: 2048, 32: 1024, 64: 512, 128: 256}, False: {16: 1280, 32: 768, 64: 384, 128: 192}}
 _SMEM_PER_SM = 233_472  # an H100 SM's shared memory; each block also reserves 1 KB
 
 
@@ -80,12 +80,12 @@ class TrioPlan:
 
 def _trio_smem(c: int, bf16: bool, rows: int) -> int:
     """Shared-memory bytes of a window of ``rows`` rows, as the kernel lays
-    them out: bf16 two staged weight steps [min(C, 64)][C + 8] bf16, the fp32
-    residual [rows][C + 8] and the bf16 inner activation [rows][C + 8]; fp32
-    two fp32 windows [rows][C + 1] and a [16][C] weight chunk."""
+    them out: the fp32 residual [rows][C + 8], the inner activation [rows][C
+    + 8] in bf16 (bf16) or fp32 (fp32), and two staged weight steps, bf16
+    [min(C, 64)][C + 8] or fp32 [min(C, 32)][C + 4]."""
     if bf16:
         return 2 * min(c, 64) * (c + 8) * 2 + rows * ((c + 8) * 4 + (c + 8) * 2)
-    return (2 * rows * (c + 1) + 16 * c) * 4
+    return 2 * min(c, 32) * (c + 4) * 4 + rows * 2 * (c + 8) * 4
 
 
 def trio_plan(
@@ -95,16 +95,14 @@ def trio_plan(
     dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5), (1, 3, 5), (1, 3, 5)),
 ) -> TrioPlan:
     """The kernel's tile plan for one stage of C channels in ``dtype``: the
-    largest window the shared memory (and, in bf16, one pass of the warps'
-    row tiles) holds, less the largest halo on each side."""
+    largest window the shared memory and one pass of the warps' row tiles
+    hold, less the largest halo on each side."""
     if c not in TRIO_CHANNELS or dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"trio_plan: C in {TRIO_CHANNELS}, float32 or bfloat16; got {c}, {dtype}")
     bf16 = dtype == torch.bfloat16
     halos = tuple(sum((k - 1) // 2 * (d + 1) for d in dils) for k, dils in zip(kernel_sizes, dilation_sizes))
     fixed = _trio_smem(c, bf16, 0)
-    rows = ((SMEM_LIMIT if bf16 else _FP32_BUDGET) - fixed) // (_trio_smem(c, bf16, 1) - fixed)
-    if bf16:
-        rows = min(rows, _BF16_PASS_ROWS[c])
+    rows = min((SMEM_LIMIT - fixed) // (_trio_smem(c, bf16, 1) - fixed), _PASS_ROWS[bf16][c])
     tt = rows - 2 * max(halos)
     if tt < 16:
         raise ValueError(f"trio_plan: halos {halos} leave {tt} output rows per block at C={c}")
