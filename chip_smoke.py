@@ -109,7 +109,7 @@ def phase_build() -> None:
             print(f"    ptxas: {fn}: {regs} registers, {spills}", flush=True)
             if name == "rel_attention" and not spills.startswith("0 bytes spill stores, 0 bytes spill loads"):
                 raise AssertionError(f"{fn} spills: {spills}")
-            if fn in K3_TENSOR_CORE and not spills.startswith("0 bytes spill stores, 0 bytes spill loads"):
+            if fn in K3_INSTANTIATIONS and not spills.startswith("0 bytes spill stores, 0 bytes spill loads"):
                 raise AssertionError(f"{fn} spills: {spills}")
         wanted = {"rel_attention": K1_INSTANTIATIONS, "resblock_trio": K3_INSTANTIATIONS}.get(name, [])
         missing = set(wanted) - {fn for fn, _, _ in rows}  # every instantiation must have been checked
@@ -119,7 +119,7 @@ def phase_build() -> None:
         if name == "resblock_trio":
             hmma = sass_hmma(kl.path)
             log("build", kernel=name, hmma={fn: hmma.get(fn, 0) for fn in K3_INSTANTIATIONS})
-            idle = [fn for fn in K3_TENSOR_CORE if hmma.get(fn, 0) == 0]
+            idle = [fn for fn in K3_INSTANTIATIONS if hmma.get(fn, 0) == 0]
             if idle:
                 raise AssertionError(f"no HMMA in the SASS of {idle}: they do not run on the tensor cores")
     t0 = time.perf_counter()
@@ -176,7 +176,6 @@ K1_INSTANTIATIONS = [f"rel_attn_fwd<{t}, {p}>" for t in ("fp32", "bf16") for p i
 # K3's entry functions, both types, C = 16/32/64/128: all on the tensor cores,
 # so each must show HMMA in its SASS and must not spill
 K3_INSTANTIATIONS = [f"trio_{t}<{c}>" for t in ("fp32", "bf16") for c in (16, 32, 64, 128)]
-K3_TENSOR_CORE = K3_INSTANTIATIONS
 
 
 def _attn_case(t, causal, masked, seed):

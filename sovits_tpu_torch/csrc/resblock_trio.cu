@@ -252,7 +252,7 @@ __device__ __forceinline__ void epilogue(float (&acc)[K::MI][K::NN][4], float* x
 // is the fp32 residual xr and lrelu(y) goes to xa; otherwise in is xa
 // (lrelu already applied) and y is added into xr. bf16 inner product.
 template <int C, bool FROM_X>
-__device__ __forceinline__ void conv_bf16(float* xr, __nv_bfloat16* xa, __nv_bfloat16* wsm, int& buf,
+__device__ __forceinline__ void conv(float* xr, __nv_bfloat16* xa, __nv_bfloat16* wsm, int& buf,
                                           const __nv_bfloat16* __restrict__ w,
                                           const __nv_bfloat16* __restrict__ w_next,
                                           const float* __restrict__ bias, int k, int d, int lo,
@@ -316,10 +316,10 @@ __device__ __forceinline__ void conv_bf16(float* xr, __nv_bfloat16* xa, __nv_bfl
   epilogue<K, FROM_X>(acc, xr, xa, bias, n_act, wm, n0, lo, hi, g0, T);
 }
 
-// As conv_bf16, 3xTF32: each 8-deep step's three products are summed from
+// As above, 3xTF32: each 8-deep step's three products are summed from
 // zero and added to the fp32 total.
 template <int C, bool FROM_X>
-__device__ __forceinline__ void conv_fp32(float* xr, float* xa, float* wsm, int& buf,
+__device__ __forceinline__ void conv(float* xr, float* xa, float* wsm, int& buf,
                                           const float* __restrict__ w, const float* __restrict__ w_next,
                                           const float* __restrict__ bias, int k, int d, int lo, int hi,
                                           int g0, int T, int rows) {
@@ -397,20 +397,6 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   u.x = pack_bf16(v.x, v.y);
   u.y = pack_bf16(v.z, v.w);
   *reinterpret_cast<uint2*>(p) = u;
-}
-
-template <int C, bool FROM_X>
-__device__ __forceinline__ void conv(float* xr, __nv_bfloat16* xa, __nv_bfloat16* wsm, int& buf,
-                                     const __nv_bfloat16* w, const __nv_bfloat16* w_next,
-                                     const float* bias, int k, int d, int lo, int hi, int g0, int T,
-                                     int rows) {
-  conv_bf16<C, FROM_X>(xr, xa, wsm, buf, w, w_next, bias, k, d, lo, hi, g0, T, rows);
-}
-template <int C, bool FROM_X>
-__device__ __forceinline__ void conv(float* xr, float* xa, float* wsm, int& buf, const float* w,
-                                     const float* w_next, const float* bias, int k, int d, int lo,
-                                     int hi, int g0, int T, int rows) {
-  conv_fp32<C, FROM_X>(xr, xa, wsm, buf, w, w_next, bias, k, d, lo, hi, g0, T, rows);
 }
 
 // The block: the chains one after another, each over its own window; the

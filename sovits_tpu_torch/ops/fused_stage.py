@@ -57,8 +57,6 @@ class TrioPlan:
     one batch row and holds a window of ``rows`` >= tt + 2 max(halos) rows
     in ``smem`` bytes of shared memory."""
 
-    c: int
-    bf16: bool
     halos: tuple[int, ...]  # per chain: the sum of its convs' reaches
     rows: int
     tt: int
@@ -106,7 +104,7 @@ def trio_plan(
     tt = rows - 2 * max(halos)
     if tt < 16:
         raise ValueError(f"trio_plan: halos {halos} leave {tt} output rows per block at C={c}")
-    return TrioPlan(c, bf16, halos, rows, tt, _trio_smem(c, bf16, rows))
+    return TrioPlan(halos, rows, tt, _trio_smem(c, bf16, rows))
 
 
 def fused_resblock_trio_plain(
