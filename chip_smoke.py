@@ -105,21 +105,20 @@ def phase_build() -> None:
     for name, kl in libs.items():
         log("build", kernel=name, seconds=f"{kl.build_seconds:.2f}", lib=kl.path.name)
         rows = ptxas_summary(kl.ptxas_log)  # the log of this build, or of the reused one
+        wanted = CHECKED_INSTANTIATIONS.get(name, [])
         for fn, regs, spills in rows:
             print(f"    ptxas: {fn}: {regs} registers, {spills}", flush=True)
-            if name == "rel_attention" and not spills.startswith("0 bytes spill stores, 0 bytes spill loads"):
+            if fn in wanted and not spills.startswith("0 bytes spill stores, 0 bytes spill loads"):
                 raise AssertionError(f"{fn} spills: {spills}")
-            if fn in K3_INSTANTIATIONS and not spills.startswith("0 bytes spill stores, 0 bytes spill loads"):
-                raise AssertionError(f"{fn} spills: {spills}")
-        wanted = {"rel_attention": K1_INSTANTIATIONS, "resblock_trio": K3_INSTANTIATIONS}.get(name, [])
         missing = set(wanted) - {fn for fn, _, _ in rows}  # every instantiation must have been checked
         if missing:
             raise AssertionError(f"ptxas log of {kl.path.name} lacks {sorted(missing)}: "
                                  f"delete {kl.path.parent} and rebuild")
-        if name == "resblock_trio":
+        tensor_core = [fn for fn in wanted if fn in HMMA_INSTANTIATIONS]
+        if tensor_core:
             hmma = sass_hmma(kl.path)
-            log("build", kernel=name, hmma={fn: hmma.get(fn, 0) for fn in K3_INSTANTIATIONS})
-            idle = [fn for fn in K3_INSTANTIATIONS if hmma.get(fn, 0) == 0]
+            log("build", kernel=name, hmma={fn: hmma.get(fn, 0) for fn in tensor_core})
+            idle = [fn for fn in tensor_core if hmma.get(fn, 0) == 0]
             if idle:
                 raise AssertionError(f"no HMMA in the SASS of {idle}: they do not run on the tensor cores")
     t0 = time.perf_counter()
@@ -130,13 +129,14 @@ def phase_build() -> None:
 
 def kernel_name(mangled: str) -> str:
     """K1's instantiations as rel_attn_fwd<type, padded D>, K3's as
-    trio_<type><C>; anything else its mangled name, cut."""
+    trio_<type><C>, fp32 K2's as bwd_<pass>_tf32<padded D>; anything else
+    its mangled name, cut."""
     import re
 
     m = re.search(r"rel_attn_fwdI(f|13__nv_bfloat16)Li(\d+)E", mangled)
     if m:
         return f"rel_attn_fwd<{'fp32' if m.group(1) == 'f' else 'bf16'}, {m.group(2)}>"
-    m = re.search(r"(trio_bf16|trio_fp32)ILi(\d+)E", mangled)
+    m = re.search(r"(trio_bf16|trio_fp32|bwd_q_tf32|bwd_kv_tf32)ILi(\d+)E", mangled)
     return f"{m.group(1)}<{m.group(2)}>" if m else mangled[:80]
 
 
@@ -173,9 +173,17 @@ def ptxas_summary(log_text: str) -> list[tuple[str, str, str]]:
 
 # K1's entry functions as ptxas_summary names them: both types, D padded to 32/64/96/128
 K1_INSTANTIATIONS = [f"rel_attn_fwd<{t}, {p}>" for t in ("fp32", "bf16") for p in (32, 64, 96, 128)]
-# K3's entry functions, both types, C = 16/32/64/128: all on the tensor cores,
-# so each must show HMMA in its SASS and must not spill
+# K3's entry functions, both types, C = 16/32/64/128
 K3_INSTANTIATIONS = [f"trio_{t}<{c}>" for t in ("fp32", "bf16") for c in (16, 32, 64, 128)]
+# fp32 K2's entry functions (its two passes), D padded to 32/64/96/128
+K2_FP32_INSTANTIATIONS = [f"bwd_{p}_tf32<{d}>" for p in ("q", "kv") for d in (32, 64, 96, 128)]
+# K2's kernels as the profiler names them: the bf16 FMA passes, the fp32 tensor-core ones
+K2_KERNELS = ("rel_attn_bwd", "bwd_q_tf32", "bwd_kv_tf32")
+# the entry functions each library's ptxas log must list, each with 0 spills;
+# of them K3's and fp32 K2's must show HMMA in their SASS (run on the tensor cores)
+CHECKED_INSTANTIATIONS = {"rel_attention": K1_INSTANTIATIONS, "resblock_trio": K3_INSTANTIATIONS,
+                          "rel_attention_bwd": K2_FP32_INSTANTIATIONS}
+HMMA_INSTANTIATIONS = K3_INSTANTIATIONS + K2_FP32_INSTANTIATIONS
 
 
 def _attn_case(t, causal, masked, seed):
@@ -460,6 +468,7 @@ def parity_training_attention() -> dict:
         torch.cuda.synchronize()
         want = fused_attention_bwd_plain(*args, dout, window=w, causal=causal)
         e_bwd = [_max_err(a, b, BWD_TOL, f"K2 {n}") for n, a, b in zip(("dq", "dk", "dv"), got, want)]
+        row0 = (got[0][:, 0] - want[0][:, 0]).abs().max().item()  # causal: one key, ds = 0
         if w is not None:
             e_bwd += [_max_err(a, b, REL_GRAD_TOL, f"K2 {n}")
                       for n, a, b in zip(("drel_k", "drel_v"), got[3:], want[3:])]
@@ -475,7 +484,7 @@ def parity_training_attention() -> dict:
             key_mask=km is not None, max_abs_err=f"{e_out:.3e}", lse_err=f"{e_lse:.3e}", ok=True)
         log("parity", kernel="rel_attention_bwd", shape=shape, window=w, causal=causal, dropout=0.1,
             key_mask=km is not None, max_abs_err=f"{max(e_bwd):.3e}",
-            per_output=[f"{e:.2e}" for e in e_bwd], ok=True)
+            per_output=[f"{e:.2e}" for e in e_bwd], row0_dq_err=f"{row0:.3e}" if causal else "n/a", ok=True)
         log("parity", what="FusedAttention grads vs autograd(plain)", shape=shape, causal=causal,
             max_abs_err=f"{max(e_auto):.3e}", ok=True)
         errs["rel_attention"] = max(errs["rel_attention"], e_out)
@@ -500,33 +509,43 @@ LAUNCH_ARGS = {"grid": "grid", "block": "block", "shared memory": "smem_bytes",
                "registers per thread": "registers", "blocks per SM": "blocks_per_sm"}
 
 
-def _device_ms(fn, key: str | None = None, iters: int = 20) -> tuple[float, dict]:
-    """Device time per call of fn, from torch.profiler over `iters` calls
-    after a warm-up, of the kernels whose name holds `key` (or of all of
-    them), and the launch attributes (grid, block, shared memory, ...) the
-    profiler recorded for the first such kernel. CUDA events around a kernel
-    of a few tens of microseconds time the wrapper's host work as well: this
-    is the card's own time, printed beside the events' and used nowhere else."""
+def _device_ms_each(fn, keys: tuple[str, ...], iters: int = 20) -> dict[str, tuple[float, dict]]:
+    """Device time per call of fn, from one torch.profiler window over `iters`
+    calls after a warm-up, of the kernels whose name holds each key, and the
+    launch attributes (grid, block, shared memory, ...) the profiler recorded
+    for the first such kernel. CUDA events around a kernel of a few tens of
+    microseconds time the wrapper's host work as well: this is the card's own
+    time, printed beside the events' and used nowhere else. CUPTI has once
+    returned a window without a kernel's records on an H100, so a window that
+    misses one is taken once more before this fails."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA and (key is None or key in e.key))
-    if us <= 0:
-        raise AssertionError(f"the profiler saw no device time{' for ' + key if key else ''}")
-    launch = {}
-    if key is not None:
-        with tempfile.TemporaryDirectory() as tmp:
-            prof.export_chrome_trace(str(Path(tmp) / "trace.json"))
-            events = json.loads((Path(tmp) / "trace.json").read_text()).get("traceEvents", [])
-        args = next((e.get("args", {}) for e in events
-                     if e.get("cat") == "kernel" and key in e.get("name", "")), {})
-        launch = {ours: str(args[theirs]).replace(" ", "") for theirs, ours in LAUNCH_ARGS.items()
-                  if theirs in args}
-    return us / iters / 1e3, launch
+    for _ in range(2):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = {key: sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key) for key in keys}
+        if all(v > 0 for v in us.values()):
+            break
+    missing = [key for key, v in us.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"the profiler saw no device time for {missing}")
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(str(Path(tmp) / "trace.json"))
+        events = json.loads((Path(tmp) / "trace.json").read_text()).get("traceEvents", [])
+    out = {}
+    for key in keys:
+        args = next((e.get("args", {}) for e in events if e.get("cat") == "kernel" and key in e.get("name", "")), {})
+        launch = {ours: str(args[theirs]).replace(" ", "") for theirs, ours in LAUNCH_ARGS.items() if theirs in args}
+        out[key] = (us[key] / iters / 1e3, launch)
+    return out
+
+
+def _device_ms(fn, key: str = "", iters: int = 20) -> tuple[float, dict]:
+    """_device_ms_each for one key ("": every kernel fn launches)."""
+    return _device_ms_each(fn, (key,), iters)[key]
 
 
 def phase_times() -> dict:
@@ -597,9 +616,14 @@ def times_training_attention() -> dict:
         kw = dict(window=w, causal=causal)
         fwd_k = _time(lambda: _forward(*args, w, causal, want_lse=True))
         fwd_p = _time(lambda: fused_attention_plain(*args, **kw))
-        bwd_k = _time(lambda: fused_attention_bwd(*args, o, lse, dout, **kw))
+        bwd = lambda: fused_attention_bwd(*args, o, lse, dout, **kw)  # noqa: E731
+        bwd_k = _time(bwd)
         bwd_p = _time(lambda: fused_attention_bwd_plain(*args, dout, **kw))
-        extra = {}
+        # device time and launch of each of K2's two passes (fp32: bwd_q_tf32, bwd_kv_tf32)
+        passes = _device_ms_each(bwd, ("bwd_q_tf32", "bwd_kv_tf32"))
+        launch = {f"{name}_{k}": v for name, (_, attrs) in passes.items() for k, v in attrs.items()}
+        extra = {"bwd_kernel_device_ms": f"{sum(ms for ms, _ in passes.values()):.4f}",
+                 **{f"{name}_device_ms": f"{ms:.4f}" for name, (ms, _) in passes.items()}, **launch}
         if causal:
             q, k, v = (x.view(6, 2, TRAIN_T, HEAD_D).detach().clone().requires_grad_() for x in args[:3])
             g = dout.view(6, 2, TRAIN_T, HEAD_D)
@@ -609,7 +633,7 @@ def times_training_attention() -> dict:
 
             with torch.no_grad():
                 sdpa_fwd = _time(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=1.0))
-            extra = dict(sdpa_fwd_ms=f"{sdpa_fwd:.4f}", sdpa_fwd_bwd_ms=f"{_time(sdpa):.4f}",
+            extra.update(sdpa_fwd_ms=f"{sdpa_fwd:.4f}", sdpa_fwd_bwd_ms=f"{_time(sdpa):.4f}",
                          kernels_fwd_bwd_ms=f"{fwd_k + bwd_k:.4f}")
         log("times", shape=f"BH={TRAIN_BH},T={TRAIN_T},D={HEAD_D}", window=w, causal=causal,
             dropout=0.1, fwd_kernel_ms=f"{fwd_k:.4f}", fwd_plain_ms=f"{fwd_p:.4f}",
@@ -715,7 +739,7 @@ def times_trio_vjp() -> None:
 def bounds() -> dict:
     """Least time of each kernel's work at the JSON line's shapes: the larger
     of its operations over the peak for their type (fp32 FMA 67 TFLOP/s,
-    bf16 tensor cores 989 TFLOP/s; K1 and K3 fp32 run 3xTF32, 495/3 TFLOP/s) and
+    bf16 tensor cores 989 TFLOP/s; K1, K2 and K3 fp32 run 3xTF32, 495/3 TFLOP/s) and
     its bytes (each input read once, each output written once) over
     3.35 TB/s. ms and what bounds it."""
     def bound(flops, nbytes, peak=FP32_FLOPS):
@@ -729,8 +753,12 @@ def bounds() -> dict:
     log("bounds", kernel="rel_attention", at="3xTF32 (495/3 TFLOP/s)", bound_ms=f"{k1[0]:.4f}",
         fma_bound_ms=f"{bound(k1_ops, k1_bytes)[0]:.4f}")
     bh, t = TRAIN_BH, TRAIN_T  # rel_attention_bwd: the ContentEncoder's, dropout 0.1
-    k2 = bound(10 * bh * t * t * d + 8 * bh * t * win * d,  # 5 products of 2 T^2 D, 4 band ones
-               4 * (8 * bh * t * d + 2 * bh * t + bh * t * t + 4 * win * d))
+    # 5 products of 2 T^2 D, 4 band ones; 3xTF32, as K1
+    k2_ops = 10 * bh * t * t * d + 8 * bh * t * win * d
+    k2_bytes = 4 * (8 * bh * t * d + 2 * bh * t + bh * t * t + 4 * win * d)
+    k2 = bound(k2_ops, k2_bytes, TF32_TC_FLOPS / 3)
+    log("bounds", kernel="rel_attention_bwd", at="3xTF32 (495/3 TFLOP/s)", bound_ms=f"{k2[0]:.4f}",
+        fma_bound_ms=f"{bound(k2_ops, k2_bytes)[0]:.4f}")
     # rel_attention_bwd_bf16: bench.py's bf16 step, BH 12, T 512, window 4, key
     # mask, dropout; 5 products of 2 T^2 D (bf16 operands, fp32 sums) and 4 band
     # ones; bytes: q, k, v, dout in and dq, dk, dv out in bf16 (out is not read),
@@ -1063,7 +1091,7 @@ def phase_train(tmp: Path, encoder) -> dict:
     train_step(net_g, net_d, *opts, batch, hps, generator=gen)  # warm-up
     wall, busy, dev = _profiled(lambda: train_step(net_g, net_d, *opts, batch, hps, generator=gen))
     k1 = sum(v for k, v in dev.items() if "rel_attn_fwd" in k) / 1e3
-    k2 = sum(v for k, v in dev.items() if "rel_attn_bwd" in k) / 1e3
+    k2 = sum(v for k, v in dev.items() if any(n in k for n in K2_KERNELS)) / 1e3
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
     log("train", profiled_step_wall_ms=f"{1e3 * wall:.2f}", device_busy_ms=f"{busy:.2f}",
         rel_attention_ms=f"{k1:.3f}", rel_attention_bwd_ms=f"{k2:.3f}",
@@ -1326,7 +1354,7 @@ def phase_train_bf16() -> dict:
     peak = torch.cuda.max_memory_allocated()
     wall, busy, dev = _profiled(lambda: train_step(*nets[bf], batch, hps, generator=gen))
     k1 = sum(v for k, v in dev.items() if "rel_attn_fwd" in k) / 1e3
-    k2 = sum(v for k, v in dev.items() if "rel_attn_bwd" in k) / 1e3
+    k2 = sum(v for k, v in dev.items() if any(n in k for n in K2_KERNELS)) / 1e3
     log("train-bf16", timed_steps=len(walls), steps_per_s=f"{len(walls) / sum(walls):.4f}",
         step_s_mean=f"{sum(walls) / len(walls):.4f}", step_s_median=f"{np.median(walls):.4f}",
         steps_s=[f"{w:.4f}" for w in walls], peak_mem_gb=f"{peak / 1e9:.3f}",

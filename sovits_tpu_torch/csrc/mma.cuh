@@ -1,6 +1,7 @@
 // The warp-level tensor-core, ldmatrix and cp.async helpers shared by the
 // kernels that run on the H100's tensor cores (rel_attention.cu, K1;
-// resblock_trio.cu, K3): one copy, so the two cannot drift.
+// rel_attention_bwd.cu, fp32 K2; resblock_trio.cu, K3): one copy, so they
+// cannot drift.
 
 #pragma once
 

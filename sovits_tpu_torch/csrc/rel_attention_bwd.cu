@@ -15,59 +15,77 @@
 //   dq      = ds . k + band(ds) . rel_k
 //   dk      = ds^T . q
 //   drel_k  = sum_t band(ds)[t] q[t],  drel_v = sum_t band(pt)[t] dout[t]
-//
-// Types. q, k, v, the rel tables, out, dout, dq, dk and dv are all fp32 or
-// all bf16; lse, the masks, the scratch and the rel-table partials are fp32.
-// Every value is widened to fp32 where it is staged in shared memory, so
-// products of two bf16 values are exact and every sum is fp32. In bf16 the
-// kernel rounds where the TPU kernel does (_bwd_kernel in q's type): p to
-// bf16 (its stored p_lo) before anything uses it; pt = p dm, and ds, to bf16
-// before they enter a product (dv, dq, dk and both band terms); g, D and
-// ds themselves stay fp32. dq, dk and dv are rounded once, at the store.
-// In fp32 every rounding is the identity.
-//
-// D, by type:
-//   fp32: D = dout[t] . out[t] (the same number summed in another order):
-//     out[t] = sum_u pt[t, u] v[u] + sum_o pt-band[t, o] rel_v[o], so dout[t]
-//     . out[t] = sum_u p[t, u] dm[t, u] (dout[t] . v[u] + band term) = sum_u p g.
-//   bf16: route (b), a sweep over the keys. out is bf16, rounded after its
-//     sum, so dout . out is not sum_u p g: on a row with one key (causal row
-//     0, the F0Decoder) ds = p (g - D) would no longer cancel to 0 and that
-//     row's dq would be rounding noise. Pass (a) therefore first sweeps the
-//     key tiles once, recomputing p (rounded) and g, and sums g p per row in
-//     fp32, as the TPU kernel does; out is not read. That costs the score
-//     and dout . v^T products once more (9 products of 2 T^2 D where 7 run in
-//     fp32), and keeps K1 and its fp32 output untouched.
 // Like the TPU kernel, masked positions are not replayed in ds: ds is p
 // times (g - D) wherever p is not 0, which matters only on a row whose keys
 // are all masked (uniform p).
 //
 // Blocks run in no order, so nothing is carried across the grid and no
 // atomics are used; two passes, each deterministic:
-//   (a) rel_attn_bwd_q: one block per (bh, 32 query rows) streams the key
-//       tiles and computes dq, D (bf16: in a first sweep), and the per-block
-//       partials of drel_k and drel_v (sums over query rows). The partials
-//       go to a scratch array [n_blocks, 2, 2w+1, D] that the caller sums
-//       (as the JAX package sums its per-program partials). It also stores
-//       D, and q . rel_k and dout . rel_v per row ([BH, T, 2 (2w+1)]), for
-//       pass (b).
-//   (b) rel_attn_bwd_kv: one block per (bh, 64 keys) streams the query
+//   (a) one block per (bh, 32 query rows) streams the key tiles and computes
+//       dq, D, and the per-block partials of drel_k and drel_v (sums over
+//       query rows), into a scratch array [n_blocks, 2, 2w+1, D] that the
+//       caller sums, as the JAX package sums its per-program partials. It
+//       also stores D, and q . rel_k and dout . rel_v per row ([BH, T,
+//       2 (2w+1)]), for pass (b).
+//   (b) one block per (bh, 32 keys in fp32, 64 in bf16) streams the query
 //       tiles and computes dk and dv.
+// The tiling is ops/attention.py::bwd_plan's, which the entry point checks.
 // Causal without a key mask (the F0Decoder), every row has a valid key at
 // or before its diagonal, so a key above the diagonal has p = exp(-1e4 -
-// lse) = 0 exactly in fp32 (and in bf16): those tiles are skipped, in every
-// sweep. With a key mask they are not (a fully masked row is uniform over
-// all keys).
+// lse) = 0 exactly in fp32 (and in bf16): those tiles are skipped. With a
+// key mask they are not (a fully masked row is uniform over all keys).
 //
-// What bounds it on an H100: 7 products of 2 T^2 D per (bh) as written in
-// fp32, 9 in bf16 (the algorithm needs 5; the score and dout . v^T products
-// run in both passes, and in bf16's D sweep), in fp32 FMA loops from shared
-// memory, against about 0.1 GB of traffic at the training shape (BH 12,
-// T 800, D 96, with the 30.7 MB dropout mask read once per sweep):
-// operation-bound on the fp32 pipes, in both types (bf16 saves only bytes,
-// which do not bind). Tiles live in shared memory as fp32 (about 95 KB a
-// block at D = 96, two blocks an SM) with row strides padded by one word.
-// Tensor cores, TMA and an in-kernel Philox mask are later work.
+// fp32 (bwd_q_tf32, bwd_kv_tf32): the T^2 D products run on the tensor
+// cores as 3xTF32 on mma.sync.m16n8k8.tf32, as K1 takes them: each operand
+// split into tf32 hi and lo, lo.hi + hi.lo + hi.hi, each 8-deep step's
+// products summed from zero and added to an fp32 total, rounded to nearest
+// (the tensor cores' own sums are not; one-pass TF32 misses the fp32 bar).
+// A warp owns 16 query rows (pass (a)) or 16 keys (pass (b)), the
+// FlashAttention-2 backward's layout: pass (b) takes S^T = K . q^T and G^T
+// = V . dout^T, so that pt^T and ds^T land in the C layout, whose registers
+// are the A operands of dv += pt^T . dout and dk += ds^T . q as they are
+// (A column t <-> C column 2t, t + 4 <-> 2t + 1, the B rows following, as
+// K1 does for P); pass (a) takes S and G the same way and dq += ds . k.
+// K and V (pass (b)), q and dout (pass (a)) stay resident; the other side
+// streams through shared memory by cp.async, double buffered, rows of D
+// zero-padded to 32, 64, 96 or 128 (plus a pad that keeps the fragment
+// loads free of bank conflicts), or loaded element by element where a row
+// is not a whole number of 16-byte chunks. The band products (q . rel_k,
+// dout . rel_v, band(ds) . rel_k, the rel-table partials) stay fp32 FMA.
+//
+// fp32 D, and the one-key row. On a row with one key (causal row 0, the
+// F0Decoder) the plain version's ds = 1 (g - g) is exactly 0, and the card
+// tests hold that row's dq to 1e-5. D is taken as dout . out (the same
+// number as sum_u g p: out[t] = sum_u pt[t, u] v[u] + the value band) with
+// fp32 FMA, which is not the 3xTF32 g to the last bit, so g - D would not
+// cancel there. Instead pass (a) replays S with K1's arithmetic to the bit
+// (the same operand order, splits and sums), so on such a row p = exp(s -
+// lse) is exactly 1, and ds is set to 0 wherever p == 1. That is exact
+// where it matters: p rounds to 1 only if the row's other keys hold under
+// 3e-8 of its mass, where the true ds is below 3e-8 |g|. The route costs no
+// product; a sweep over the keys for D = rowsum(g p), which bf16 takes
+// (below), would cost two more T^2 D products and a third pass over the
+// dropout mask.
+//
+// bf16 (rel_attn_bwd_q, rel_attn_bwd_kv): fp32 FMA loops from shared memory,
+// every value widened to fp32 where it is staged, so products of two bf16
+// values are exact and every sum is fp32. The kernel rounds where the TPU
+// kernel does (_bwd_kernel in q's type): p to bf16 (its stored p_lo) before
+// anything uses it; pt = p dm, and ds, to bf16 before they enter a product
+// (dv, dq, dk and both band terms); g, D and ds themselves stay fp32. dq, dk
+// and dv are rounded once, at the store. D comes from a sweep over the keys
+// in pass (a), recomputing p (rounded) and g and summing g p per row in fp32,
+// as the TPU kernel does: bf16 out is rounded after its sum, so dout . out
+// would leave a one-key row's dq at rounding noise. out is not read.
+//
+// What bounds it on an H100, at the training shape (BH 12, T 800, D 96):
+// 5 products of 2 T^2 D are needed (1.47 GFLOP each); fp32 takes 7 (S and G
+// in both passes) on the tensor cores, bf16 9 in FMA (also its D sweep),
+// against about 0.1 GB of traffic (the 30.7 MB dropout mask read once per
+// pass or sweep): operation-bound, 0.045 ms at the 3xTF32 rate. What holds
+// fp32 back is latency: 600 warps in all (16 rows or keys each) leave 4-5
+// warps an SM, each issuing dependent mma chains. Splitting the streamed
+// side among more warps, wgmma and an in-kernel Philox mask are later work.
 //
 // Plain C interface, bound with ctypes; returns cudaGetLastError().
 
@@ -75,11 +93,13 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include <type_traits>
-
 #include "dtype.cuh"
+#include "mma.cuh"
 
 namespace {
+
+// ---- bf16: fp32 FMA from shared memory (templates on the input type, taken
+// for __nv_bfloat16 only) ----
 
 constexpr int BQ = 32;   // query rows per tile
 constexpr int BK = 64;   // keys per tile
@@ -165,11 +185,9 @@ __global__ void __launch_bounds__(NT) rel_attn_bwd_q(
     const T_* __restrict__ q, const T_* __restrict__ k, const T_* __restrict__ v,
     const T_* __restrict__ rel_k, const T_* __restrict__ rel_v,
     const float* __restrict__ kmask, const float* __restrict__ dmask,
-    const T_* __restrict__ out, const T_* __restrict__ dout,
-    const float* __restrict__ lse, T_* __restrict__ dq, float* __restrict__ dvec,
+    const T_* __restrict__ dout, const float* __restrict__ lse, T_* __restrict__ dq, float* __restrict__ dvec,
     float* __restrict__ band, float* __restrict__ drel_part, int T, int D, int window,
     int causal, int skip_upper) {
-  constexpr bool kDFromOut = std::is_same<T_, float>::value;  // else the D sweep
   extern __shared__ float sm[];
   const int win = window >= 0 ? 2 * window + 1 : 0;
   const int ld = D + 1;
@@ -204,23 +222,7 @@ __global__ void __launch_bounds__(NT) rel_attn_bwd_q(
     srv[i] = to_f(rel_v[i]);
   }
   for (int i = tid; i < BQ * win; i += NT) sdsb[i] = sptb[i] = 0.f;
-  {  // lse per row and, in fp32, D = dout . out: 8 threads a row
-    const int r = tid >> 3, l8 = tid & 7;
-    const int t = q0 + r;
-    float a = 0.f;
-    if (kDFromOut && t < T)
-      for (int c = l8; c < D; c += 8)
-        a = fmaf(to_f(dout[base + (size_t)t * D + c]), to_f(out[base + (size_t)t * D + c]), a);
-#pragma unroll
-    for (int o = 4; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
-    if (l8 == 0) {
-      s_lse[r] = t < T ? lse[(size_t)bh * T + t] : 0.f;
-      if (kDFromOut) {
-        s_D[r] = a;
-        if (t < T) dvec[(size_t)bh * T + t] = a;
-      }
-    }
-  }
+  if (tid < BQ) s_lse[tid] = q0 + tid < T ? lse[(size_t)bh * T + q0 + tid] : 0.f;
   __syncthreads();
   for (int i = tid; i < BQ * win; i += NT) {
     const int r = i / win, o = i - r * win;
@@ -241,7 +243,7 @@ __global__ void __launch_bounds__(NT) rel_attn_bwd_q(
 
   const int k_end = skip_upper ? min(T, q0 + BQ) : T;
   float s[2][4], g[2][4];
-  if constexpr (!kDFromOut) {  // D = sum_u g p per row, before any ds
+  {  // D = sum_u g p per row, before any ds
     float dsum[2] = {0.f, 0.f};
     for (int k0 = 0; k0 < k_end; k0 += BK) {
       __syncthreads();  // the previous tile is no longer read (first: srl and sgr are written)
@@ -441,55 +443,629 @@ __global__ void __launch_bounds__(NT) rel_attn_bwd_kv(
   }
 }
 
-template <typename T_>
-int launch(const void* q, const void* k, const void* v, const void* rel_k, const void* rel_v,
-           const float* kmask, const float* dmask, const void* out, const void* dout,
-           const float* lse, void* dq, void* dk, void* dv, float* dvec, float* band,
-           float* drel_part, int bh, int t, int d, int window, int causal, cudaStream_t s) {
+// ---- fp32 on the tensor cores: 3xTF32 on mma.sync.m16n8k8.tf32 ----
+
+// pass (b): groups of 16 keys per block, each owned by KV_QSPLIT warps that
+// take 16 rows of every query tile each (so 2x the warps of 16 keys alone)
+constexpr int KV_GROUPS = 2, KV_QSPLIT = 2;
+constexpr int KV_KEYS = 16 * KV_GROUPS;  // keys per pass-(b) block
+constexpr int QT = 16 * KV_QSPLIT;       // query rows per streamed tile of pass (b)
+// pass (a): warps per block, 16 query rows each, sharing 16-key tiles
+constexpr int Q_WARPS = 2;
+constexpr int Q_ROWS = 16 * Q_WARPS;  // query rows per pass-(a) block (one rel-table partial)
+constexpr int BKT = 16;               // keys per streamed tile of pass (a)
+
+// Pass (b) at DP = 128 also splits the columns of dk and dv between two
+// warps (all 128 columns of both spilled); both take the whole S and G.
+template <int DP>
+constexpr int KV_CSPLIT = DP == MAXD ? 2 : 1;
+
+// Rows [row0, row0 + rows) of a [T, D] fp32 tensor into a tile of row stride
+// ld, zero past T. Columns D.. are not written (zeroed once at the start).
+// vec: 16-byte cp.async (D a multiple of 4, 16-byte aligned tensors);
+// otherwise element by element.
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src, int row0, int rows,
+                                           int T, int D, int ld, bool vec, int tid, int nt) {
+  if (vec) {
+    const int cpr = D / 4;
+    for (int i = tid; i < rows * cpr; i += nt) {
+      const int r = i / cpr, c = (i - r * cpr) * 4;
+      const int t = row0 + r;
+      cp_async16(dst + r * ld + c, src + (size_t)(t < T ? t : 0) * D + c, t < T);
+    }
+  } else {
+    for (int i = tid; i < rows * D; i += nt) {
+      const int r = i / D, c = i - r * D;
+      const int t = row0 + r;
+      dst[r * ld + c] = t < T ? src[(size_t)t * D + c] : 0.f;
+    }
+  }
+}
+
+// Tile `it` of a stream double buffered in stages of `stage` floats: tile it
+// + 1 is loaded (`load(tile, dst)`) while tile it is computed. Returns tile
+// it's stage, complete for every thread.
+template <typename F>
+__device__ __forceinline__ float* next_stage(float* stages, int stage, int it, int ntiles, F load) {
+  if (it + 1 < ntiles) load(it + 1, stages + ((it + 1) & 1) * stage);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  return stages + (it & 1) * stage;
+}
+
+// x = hi + lo (+ a remainder below 2^-22 |x|), both tf32, as mma.cuh's split
+// but rounded by integer arithmetic: to nearest, ties away from zero, as
+// cvt.rna.tf32.f32 rounds (so S stays K1's to the bit), at the integer
+// rate; the conversions were what the 3xTF32 products waited on
+// (0.87 -> 0.74 ms at the training shape on an H100)
+__device__ __forceinline__ void split_rna(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+// acc += a . b by 3xTF32 (lo.hi + hi.lo + hi.hi, K1's order), this 8-deep
+// step's products summed from zero and added in fp32 (rounded to nearest;
+// the tensor cores' own sums are not)
+__device__ __forceinline__ void mma_step(float acc[4], const uint32_t ah[4], const uint32_t al[4], float b0,
+                                         float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_rna(b0, bh0, bl0);
+  split_rna(b1, bh1, bl1);
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += c[e];
+}
+
+// The tf32 A fragment (hi, lo) of 16 rows x 8 columns at a, row stride ld.
+// K1 order (rel_attention.cu's S): tf32 column t <-> column 2t, t + 4 <->
+// 2t + 1, by 8-byte loads; otherwise the columns in order, by 4-byte loads.
+template <bool K1_ORDER>
+__device__ __forceinline__ void a_frag(const float* a, int ld, int g, int tq, uint32_t hi[4], uint32_t lo[4]) {
+  if constexpr (K1_ORDER) {
+    const float2 x = *reinterpret_cast<const float2*>(a + g * ld + 2 * tq);
+    const float2 y = *reinterpret_cast<const float2*>(a + (g + 8) * ld + 2 * tq);
+    split_rna(x.x, hi[0], lo[0]);
+    split_rna(y.x, hi[1], lo[1]);
+    split_rna(x.y, hi[2], lo[2]);
+    split_rna(y.y, hi[3], lo[3]);
+  } else {
+    const float* p = a + g * ld + tq;
+    split_rna(p[0], hi[0], lo[0]);
+    split_rna(p[8 * ld], hi[1], lo[1]);
+    split_rna(p[4], hi[2], lo[2]);
+    split_rna(p[8 * ld + 4], hi[3], lo[3]);
+  }
+}
+
+// The two B values of an 8-deep step whose columns are rows of b: row g,
+// in the order of a_frag
+template <bool K1_ORDER>
+__device__ __forceinline__ float2 b_pair(const float* b, int ld, int g, int tq) {
+  if constexpr (K1_ORDER) return *reinterpret_cast<const float2*>(b + g * ld + 2 * tq);
+  return make_float2(b[g * ld + tq], b[g * ld + tq + 4]);
+}
+
+// S and G of one 16 x 16 tile in one loop, as independent chains: s[j] +=
+// a1 . b1^T and gt[j] += a2 . b2^T over DP (a: 16 rows, b: 16 rows, stride ld)
+template <int DP, bool K1_ORDER>
+__device__ __forceinline__ void sg_products(const float* a1, const float* b1, const float* a2, const float* b2,
+                                            int ld, int g, int tq, float s[2][4], float gt[2][4]) {
+#pragma unroll 1
+  for (int kk = 0; kk < DP / 8; ++kk) {
+    uint32_t h1[4], l1[4], h2[4], l2[4];
+    a_frag<K1_ORDER>(a1 + kk * 8, ld, g, tq, h1, l1);
+    a_frag<K1_ORDER>(a2 + kk * 8, ld, g, tq, h2, l2);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float2 x = b_pair<K1_ORDER>(b1 + j * 8 * ld + kk * 8, ld, g, tq);
+      const float2 y = b_pair<K1_ORDER>(b2 + j * 8 * ld + kk * 8, ld, g, tq);
+      mma_step(s[j], h1, l1, x.x, x.y);
+      mma_step(gt[j], h2, l2, y.x, y.y);
+    }
+  }
+}
+
+// acc[n] += c . b over one 8-deep step, 3xTF32: c a C tile in registers,
+// whose columns are the step (A column tq <-> C column 2tq, tq + 4 <-> 2tq +
+// 1: the C layout as it is, no shuffle); b the step's row 2tq, column g
+template <int NN>
+__device__ __forceinline__ void c_tile_times_rows(float acc[NN][4], const float c[4], const float* b, int ld) {
+  uint32_t ah[4], al[4];
+  split_rna(c[0], ah[0], al[0]);
+  split_rna(c[2], ah[1], al[1]);
+  split_rna(c[1], ah[2], al[2]);
+  split_rna(c[3], ah[3], al[3]);
+#pragma unroll
+  for (int n = 0; n < NN; ++n) mma_step(acc[n], ah, al, b[n * 8], b[ld + n * 8]);
+}
+
+// Pass (b)'s shared memory, in floats. Rows padded by 4 words: every
+// fragment load (4-byte, rows g or 2tq apart) hits 32 different banks.
+template <int DP>
+struct KvTile {
+  static constexpr int LD = DP + 4;
+  static constexpr int KV = KV_KEYS * LD;    // K or V, resident
+  static constexpr int STAGE = 2 * QT * LD;  // one q + dout tile
+  static constexpr int CS = KV_CSPLIT<DP>, NN = DP / 8 / CS;  // column split; 8-column tiles a warp sums
+  static constexpr int WARPS = KV_GROUPS * KV_QSPLIT * CS;
+  static constexpr size_t BYTES = (2 * (size_t)KV + 2 * (size_t)STAGE) * sizeof(float);
+  static_assert(2 * STAGE >= 2 * KV_GROUPS * CS * (KV_QSPLIT - 1) * NN * 128,
+                "the stages hold the partial sums of dk and dv");
+};
+
+// Pass (b), fp32: dk and dv. Each 16 keys of the block are owned by
+// KV_QSPLIT warps (at DP = 128 twice as many, each summing half the
+// columns), each taking 16 rows of every query tile; the tiles stream through
+// shared memory by cp.async, double buffered. Per tile: S^T = K . q^T and
+// G^T = V . dout^T (K and V the A operands), then p, pt and ds in registers
+// (C layout: rows are keys, columns queries), which are the A operands of
+// dv += pt^T . dout and dk += ds^T . q as they are. The warps of one key
+// group add their sums at the end, in shared memory, in a fixed order.
+template <int DP>
+__global__ void __launch_bounds__(32 * KvTile<DP>::WARPS, 1) bwd_kv_tf32(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ kmask, const float* __restrict__ dmask, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dvec, const float* __restrict__ band,
+    float* __restrict__ dk, float* __restrict__ dv, int T, int D, int window, int causal, int skip_upper,
+    int vec) {
+  using L = KvTile<DP>;
+  constexpr int LD = L::LD, CS = L::CS, NN = L::NN, NTH = 32 * L::WARPS;
+  extern __shared__ __align__(16) float smf[];
+  float* sk = smf;
+  float* sv = sk + L::KV;
+  float* stages = sv + L::KV;  // 2 x (q [QT][LD], dout [QT][LD])
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int cs = warp % CS, qs = (warp / CS) % KV_QSPLIT, kg = warp / (CS * KV_QSPLIT);
+  const int kr = 16 * kg;         // this warp's first key row in the block
+  const int c0 = cs * (DP / CS);  // its first column of dk and dv
+  const int bh = blockIdx.y, k0 = blockIdx.x * KV_KEYS;
   const int win = window >= 0 ? 2 * window + 1 : 0;
-  const int ld = d + 1, ldp = BK + 1;
-  const int skip_upper = causal && kmask == nullptr;
-  const size_t smem_q = sizeof(float) * (2 * (size_t)BQ * ld + 2 * (size_t)BK * ld +
-                                         (size_t)BQ * ldp + 2 * (size_t)win * d +
-                                         4 * (size_t)BQ * win + 2 * (size_t)BQ);
-  const size_t smem_kv = sizeof(float) * (2 * (size_t)BK * ld + 2 * (size_t)BQ * ld +
-                                          2 * (size_t)BQ * ldp + 2 * (size_t)BQ * win +
-                                          2 * (size_t)BQ);
-  cudaError_t e = cudaFuncSetAttribute(rel_attn_bwd_q<T_>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
+  const size_t base = (size_t)bh * T * D;
+  const float* dm = dmask ? dmask + (size_t)bh * T * T : nullptr;
+  bool key_in[2], key_masked[2];  // keys k0 + kr + g and + 8
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int u = k0 + kr + g + 8 * r;
+    key_in[r] = u < T;
+    key_masked[r] = kmask && u < T && !(kmask[(size_t)bh * T + u] > 0.f);
+  }
+
+  for (int i = tid; i < 2 * L::KV + 2 * L::STAGE; i += NTH) smf[i] = 0.f;  // pad columns
+  __syncthreads();
+  stage_rows(sk, k + base, k0, KV_KEYS, T, D, LD, vec, tid, NTH);
+  stage_rows(sv, v + base, k0, KV_KEYS, T, D, LD, vec, tid, NTH);
+  const int q_begin = skip_upper ? (k0 / QT) * QT : 0;  // causal: no query above the first key sees it
+  const int ntiles = (T - q_begin + QT - 1) / QT;
+  auto load = [&](int tile, float* dst) {
+    stage_rows(dst, q + base, q_begin + tile * QT, QT, T, D, LD, vec, tid, NTH);
+    stage_rows(dst + QT * LD, dout + base, q_begin + tile * QT, QT, T, D, LD, vec, tid, NTH);
+  };
+  load(0, stages);
+  cp_async_commit();
+
+  float adk[NN][4], adv[NN][4];
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const float* sq = next_stage(stages, L::STAGE, it, ntiles, load) + 16 * qs * LD;
+    const float* sdo = sq + QT * LD;
+    const int q0 = q_begin + it * QT + 16 * qs;  // this warp's first query
+    if (!skip_upper || k0 + kr <= q0 + 15) {      // else every p of this warp's tile is 0
+      // thread holds keys k0 + kr + g (e = 0, 1) and + 8 (e = 2, 3), queries
+      // q0 + 8j + 2tq + (e & 1); the per-query values and the dropout mask
+      // first, so that their loads pass under the products
+      float l_q[2][2], d_q[2][2], dmr[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int t = q0 + j * 8 + 2 * tq + h;
+          const bool tin = t < T;
+          l_q[j][h] = tin ? lse[(size_t)bh * T + t] : 0.f;
+          d_q[j][h] = tin ? dvec[(size_t)bh * T + t] : 0.f;
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            dmr[j][2 * r + h] = dm && tin && key_in[r] ? dm[(size_t)t * T + k0 + kr + g + 8 * r] : 1.f;
+        }
+      float s[2][4], gt[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = gt[j][e] = 0.f;
+      sg_products<DP, false>(sk + kr * LD, sq, sv + kr * LD, sdo, LD, g, tq, s, gt);  // S^T, G^T
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // s <- pt, gt <- ds (0 outside the sequence)
+          const int h = e & 1, r = e >> 1;
+          const int t = q0 + j * 8 + 2 * tq + h, u = k0 + kr + g + 8 * r;
+          float pt = 0.f, ds = 0.f;
+          if (t < T && key_in[r]) {
+            const int off = u - t;
+            float x = s[j][e], gv = gt[j][e];
+            if (win && off >= -window && off <= window) {
+              const float* row = band + ((size_t)bh * T + t) * 2 * win;
+              x += row[off + window];
+              gv += row[win + off + window];
+            }
+            if ((causal && off > 0) || key_masked[r]) x = NEG;
+            const float p = expf(x - l_q[j][h]);
+            pt = p * dmr[j][e];
+            if (p != 1.f) ds = p * (gv * dmr[j][e] - d_q[j][h]);  // as pass (a)
+          }
+          s[j][e] = pt;
+          gt[j][e] = ds;
+        }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        c_tile_times_rows<NN>(adv, s[j], sdo + (j * 8 + 2 * tq) * LD + c0 + g, LD);  // dv += pt^T . dout
+        c_tile_times_rows<NN>(adk, gt[j], sq + (j * 8 + 2 * tq) * LD + c0 + g, LD);  // dk += ds^T . q
+      }
+    }
+    __syncthreads();  // this stage is read: it may be refilled
+  }
+
+  // the warps with qs > 0 park their sums in the stages (lane-major, no bank
+  // conflicts), the warp with qs = 0 adds them and stores
+  constexpr int PARK = 2 * NN * 4 * 32;  // floats a warp parks
+  float* park = stages + (size_t)(kg * CS + cs) * (KV_QSPLIT - 1) * PARK;
+  if (qs > 0)
+#pragma unroll
+    for (int n = 0; n < NN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        park[(qs - 1) * PARK + (n * 4 + e) * 32 + lane] = adk[n][e];
+        park[(qs - 1) * PARK + ((NN + n) * 4 + e) * 32 + lane] = adv[n][e];
+      }
+  __syncthreads();
+  if (qs > 0) return;
+  for (int o = 1; o < KV_QSPLIT; ++o) {
+    const float* other = park + (o - 1) * PARK;
+#pragma unroll
+    for (int n = 0; n < NN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        adk[n][e] += other[(n * 4 + e) * 32 + lane];
+        adv[n][e] += other[((NN + n) * 4 + e) * 32 + lane];
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int u = k0 + kr + g + 8 * r;
+    if (u >= T) continue;
+#pragma unroll
+    for (int n = 0; n < NN; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = c0 + n * 8 + 2 * tq + h;
+        if (c >= D) continue;
+        dk[base + (size_t)u * D + c] = adk[n][2 * r + h];
+        dv[base + (size_t)u * D + c] = adv[n][2 * r + h];
+      }
+  }
+}
+
+template <int DP>
+int launch_kv_tf32(const float* q, const float* k, const float* v, const float* kmask, const float* dmask,
+                   const float* dout, const float* lse, const float* dvec, const float* band, float* dk,
+                   float* dv, int bh, int t, int d, int window, int causal, int skip_upper, cudaStream_t s) {
+  using L = KvTile<DP>;
+  cudaError_t e = cudaFuncSetAttribute(bwd_kv_tf32<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(rel_attn_bwd_kv<T_>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem_kv);
-  if (e != cudaSuccess) return (int)e;
-  rel_attn_bwd_q<T_><<<dim3((t + BQ - 1) / BQ, bh), NT, smem_q, s>>>(
-      (const T_*)q, (const T_*)k, (const T_*)v, (const T_*)rel_k, (const T_*)rel_v, kmask, dmask,
-      (const T_*)out, (const T_*)dout, lse, (T_*)dq, dvec, band, drel_part, t, d, window, causal,
-      skip_upper);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  rel_attn_bwd_kv<T_><<<dim3((t + BK - 1) / BK, bh), NT, smem_kv, s>>>(
-      (const T_*)q, (const T_*)k, (const T_*)v, kmask, dmask, (const T_*)dout, lse, dvec, band,
-      (T_*)dk, (T_*)dv, t, d, window, causal, skip_upper);
+  const int vec = d % 4 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout) % 16 == 0;
+  bwd_kv_tf32<DP><<<dim3((t + KV_KEYS - 1) / KV_KEYS, bh), 32 * L::WARPS, L::BYTES, s>>>(
+      q, k, v, kmask, dmask, dout, lse, dvec, band, dk, dv, t, d, window, causal, skip_upper, vec);
   return (int)cudaGetLastError();
 }
+
+// Pass (a)'s shared memory, in floats: q and dout resident, K and V tiles
+// double buffered, rows padded by 8 words (K1's layout: the 8-byte fragment
+// loads of S and G are free of bank conflicts; dq's B loads, rows 2tq
+// apart, meet 2-way conflicts); then the fp32 band tables.
+template <int DP>
+struct QTile {
+  static constexpr int LD = DP + 8;
+  static constexpr int ROWS = Q_ROWS * LD;   // q or dout
+  static constexpr int STAGE = 2 * BKT * LD;  // one K + V tile
+  static constexpr int TILES = 2 * ROWS + 2 * STAGE;
+  static size_t bytes(int win, int d) {
+    return sizeof(float) * ((size_t)TILES + 2 * (size_t)win * d + 4 * (size_t)Q_ROWS * win);
+  }
+};
+
+// Pass (a), fp32: dq, D, the band tables for pass (b) and the rel-table
+// partials. A warp owns 16 query rows; the block's warps share the key
+// tiles, streamed through shared memory by cp.async, double buffered. Per
+// tile: S = q . K^T and G = dout . V^T, then ds in registers, whose C tile is
+// the A operand of dq += ds . K. S is K1's to the bit, so on a row with one
+// key p = exp(s - lse) is 1 (see the top).
+template <int DP>
+__global__ void __launch_bounds__(32 * Q_WARPS, 1) bwd_q_tf32(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ rel_k, const float* __restrict__ rel_v, const float* __restrict__ kmask,
+    const float* __restrict__ dmask, const float* __restrict__ out, const float* __restrict__ dout,
+    const float* __restrict__ lse, float* __restrict__ dq, float* __restrict__ dvec, float* __restrict__ band,
+    float* __restrict__ drel_part, int T, int D, int window, int causal, int skip_upper, int vec) {
+  using L = QTile<DP>;
+  constexpr int LD = L::LD, NN = DP / 8, NTH = 32 * Q_WARPS;
+  extern __shared__ __align__(16) float smf[];
+  const int win = window >= 0 ? 2 * window + 1 : 0;
+  float* sq = smf;                    // [Q_ROWS][LD]
+  float* sdo = sq + L::ROWS;          // [Q_ROWS][LD]
+  float* stages = sdo + L::ROWS;      // 2 x (K [BKT][LD], V [BKT][LD])
+  float* srk = smf + L::TILES;        // [win][D]
+  float* srv = srk + win * D;         // [win][D]
+  float* srl = srv + win * D;         // [Q_ROWS][win] q . rel_k
+  float* sgr = srl + Q_ROWS * win;    // [Q_ROWS][win] dout . rel_v
+  float* sdsb = sgr + Q_ROWS * win;   // [Q_ROWS][win] band of ds
+  float* sptb = sdsb + Q_ROWS * win;  // [Q_ROWS][win] band of pt
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int qr = 16 * (tid >> 5);  // this warp's first row in the block
+  const int bh = blockIdx.y, q0 = blockIdx.x * Q_ROWS;
+  const size_t base = (size_t)bh * T * D;
+  const float* km = kmask ? kmask + (size_t)bh * T : nullptr;
+  const float* dm = dmask ? dmask + (size_t)bh * T * T : nullptr;
+
+  for (int i = tid; i < L::TILES; i += NTH) smf[i] = 0.f;  // pad columns
+  for (int i = tid; i < Q_ROWS * win; i += NTH) sdsb[i] = sptb[i] = 0.f;
+  for (int i = tid; i < win * D; i += NTH) {
+    srk[i] = rel_k[i];
+    srv[i] = rel_v[i];
+  }
+  __syncthreads();
+  stage_rows(sq, q + base, q0, Q_ROWS, T, D, LD, vec, tid, NTH);
+  stage_rows(sdo, dout + base, q0, Q_ROWS, T, D, LD, vec, tid, NTH);
+  cp_async_commit();
+  const int k_end = skip_upper ? min(T, q0 + Q_ROWS) : T;  // causal: no key past the block's last row
+  const int ntiles = (k_end + BKT - 1) / BKT;
+  auto load = [&](int tile, float* dst) {
+    stage_rows(dst, k + base, tile * BKT, BKT, T, D, LD, vec, tid, NTH);
+    stage_rows(dst + BKT * LD, v + base, tile * BKT, BKT, T, D, LD, vec, tid, NTH);
+  };
+  load(0, stages);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();  // q and dout are in
+  for (int i = tid; i < Q_ROWS * win; i += NTH) {  // the band products, fp32 FMA as K1 takes q . rel_k
+    const int r = i / win, o = i - r * win;
+    float a = 0.f, b = 0.f;
+    for (int c = 0; c < D; ++c) {
+      a = fmaf(sq[r * LD + c], srk[o * D + c], a);
+      b = fmaf(sdo[r * LD + c], srv[o * D + c], b);
+    }
+    srl[i] = a;
+    sgr[i] = b;
+    const int t = q0 + r;
+    if (t < T) {
+      float* row = band + ((size_t)bh * T + t) * 2 * win;
+      row[o] = a;
+      row[win + o] = b;
+    }
+  }
+  float l_r[2], d_r[2];  // rows qr + g and + 8: LSE and D = dout . out (a quad's 4 threads a row)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = qr + g + 8 * h, t = q0 + r;
+    l_r[h] = t < T ? lse[(size_t)bh * T + t] : 0.f;
+    float a = 0.f;
+    if (t < T)
+      for (int c = tq; c < D; c += 4) a = fmaf(sdo[r * LD + c], out[base + (size_t)t * D + c], a);
+    a += __shfl_xor_sync(0xffffffffu, a, 1);
+    d_r[h] = a + __shfl_xor_sync(0xffffffffu, a, 2);
+    if (tq == 0 && t < T) dvec[(size_t)bh * T + t] = d_r[h];
+  }
+  __syncthreads();  // srl and sgr are in
+
+  float acc[NN][4];
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const float* sk = next_stage(stages, L::STAGE, it, ntiles, load);
+    const float* sv = sk + BKT * LD;
+    const int k0 = it * BKT;
+    if (!skip_upper || k0 <= q0 + qr + 15) {  // else every p of this warp's tile is 0
+      // thread holds rows qr + g (e = 0, 1) and + 8 (e = 2, 3), keys k0 + 8j
+      // + 2tq + (e & 1); the dropout and key mask first, under the products
+      float dmr[2][4];
+      bool masked[2][2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = q0 + qr + g + 8 * (e >> 1), u = k0 + j * 8 + 2 * tq + (e & 1);
+          dmr[j][e] = dm && t < T && u < T ? dm[(size_t)t * T + u] : 1.f;
+          if (e < 2) masked[j][e] = km && u < T && !(km[u] > 0.f);
+        }
+      float s[2][4], gt[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = gt[j][e] = 0.f;
+      sg_products<DP, true>(sq + qr * LD, sk, sdo + qr * LD, sv, LD, g, tq, s, gt);  // S, G
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // gt <- ds (0 outside the sequence)
+          const int h = e >> 1, r = qr + g + 8 * h, t = q0 + r;
+          const int u = k0 + j * 8 + 2 * tq + (e & 1);
+          float ds = 0.f;
+          if (t < T && u < T) {
+            const int off = u - t;
+            const bool in_band = win && off >= -window && off <= window;
+            float x = s[j][e], gv = gt[j][e];
+            if (in_band) {
+              x += srl[r * win + off + window];
+              gv += sgr[r * win + off + window];
+            }
+            if ((causal && off > 0) || masked[j][e & 1]) x = NEG;
+            const float p = expf(x - l_r[h]);
+            if (p != 1.f) ds = p * (gv * dmr[j][e] - d_r[h]);  // p = 1: the row's one key, ds = 0
+            if (in_band) {  // each (row, diagonal) has one owner
+              sdsb[r * win + off + window] = ds;
+              sptb[r * win + off + window] = p * dmr[j][e];
+            }
+          }
+          gt[j][e] = ds;
+        }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) c_tile_times_rows<NN>(acc, gt[j], sk + (j * 8 + 2 * tq) * LD + g, LD);
+    }
+    __syncthreads();  // this stage is read: it may be refilled
+  }
+
+  // dq = ds . k + band(ds) . rel_k; thread holds rows qr + g + 8 (e >> 1),
+  // columns 8n + 2tq + (e & 1)
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = qr + g + 8 * (e >> 1), t = q0 + r;
+      const int c = n * 8 + 2 * tq + (e & 1);
+      if (t >= T || c >= D) continue;
+      float o = acc[n][e];
+      for (int ow = 0; ow < win; ++ow) o = fmaf(sdsb[r * win + ow], srk[ow * D + c], o);
+      dq[base + (size_t)t * D + c] = o;
+    }
+  if (win) {
+    float* part = drel_part + ((size_t)bh * gridDim.x + blockIdx.x) * 2 * win * D;
+    for (int i = tid; i < win * D; i += NTH) {
+      const int o = i / D, c = i - o * D;
+      float a = 0.f, b = 0.f;
+      for (int r = 0; r < Q_ROWS; ++r) {  // rows past T hold zeros
+        a = fmaf(sdsb[r * win + o], sq[r * LD + c], a);
+        b = fmaf(sptb[r * win + o], sdo[r * LD + c], b);
+      }
+      part[i] = a;
+      part[win * D + i] = b;
+    }
+  }
+}
+
+template <int DP>
+int launch_q_tf32(const float* q, const float* k, const float* v, const float* rel_k, const float* rel_v,
+                  const float* kmask, const float* dmask, const float* out, const float* dout, const float* lse,
+                  float* dq, float* dvec, float* band, float* drel_part, int bh, int t, int d, int window,
+                  int causal, int skip_upper, cudaStream_t s) {
+  const size_t smem = QTile<DP>::bytes(window >= 0 ? 2 * window + 1 : 0, d);
+  cudaError_t e = cudaFuncSetAttribute(bwd_q_tf32<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int vec = d % 4 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout) % 16 == 0;
+  bwd_q_tf32<DP><<<dim3((t + Q_ROWS - 1) / Q_ROWS, bh), 32 * Q_WARPS, smem, s>>>(
+      q, k, v, rel_k, rel_v, kmask, dmask, out, dout, lse, dq, dvec, band, drel_part, t, d, window, causal,
+      skip_upper, vec);
+  return (int)cudaGetLastError();
+}
+
+// shared-memory bytes of the FMA passes (a) and (b)
+size_t smem_fma_q(int d, int win) {
+  const size_t ld = d + 1, ldp = BK + 1;
+  return sizeof(float) * (2 * BQ * ld + 2 * BK * ld + BQ * ldp + 2 * (size_t)win * d + 4 * (size_t)BQ * win + 2 * BQ);
+}
+size_t smem_fma_kv(int d, int win) {
+  const size_t ld = d + 1, ldp = BK + 1;
+  return sizeof(float) * (2 * BK * ld + 2 * BQ * ld + 2 * BQ * ldp + 2 * (size_t)BQ * win + 2 * BQ);
+}
+
+template <typename T_>
+int launch_fma_q(const void* q, const void* k, const void* v, const void* rel_k, const void* rel_v,
+                 const float* kmask, const float* dmask, const void* dout, const float* lse, void* dq,
+                 float* dvec, float* band, float* drel_part, int bh, int t, int d, int window, int causal,
+                 int skip_upper, size_t smem, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(rel_attn_bwd_q<T_>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  rel_attn_bwd_q<T_><<<dim3((t + BQ - 1) / BQ, bh), NT, smem, s>>>(
+      (const T_*)q, (const T_*)k, (const T_*)v, (const T_*)rel_k, (const T_*)rel_v, kmask, dmask,
+      (const T_*)dout, lse, (T_*)dq, dvec, band, drel_part, t, d, window, causal, skip_upper);
+  return (int)cudaGetLastError();
+}
+
+template <typename T_>
+int launch_fma_kv(const void* q, const void* k, const void* v, const float* kmask, const float* dmask,
+                  const void* dout, const float* lse, const float* dvec, const float* band, void* dk, void* dv,
+                  int bh, int t, int d, int window, int causal, int skip_upper, size_t smem, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(rel_attn_bwd_kv<T_>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  rel_attn_bwd_kv<T_><<<dim3((t + BK - 1) / BK, bh), NT, smem, s>>>(
+      (const T_*)q, (const T_*)k, (const T_*)v, kmask, dmask, (const T_*)dout, lse, dvec, band, (T_*)dk,
+      (T_*)dv, t, d, window, causal, skip_upper);
+  return (int)cudaGetLastError();
+}
+
+// D zero-padded to the next of 32, 64, 96, 128, as in rel_attention.cu
+template <template <int> class F, typename... A>
+int by_dp(int d, A... a) {
+  if (d <= 32) return F<32>::run(a...);
+  if (d <= 64) return F<64>::run(a...);
+  if (d <= 96) return F<96>::run(a...);
+  return F<MAXD>::run(a...);
+}
+template <int DP>
+struct Smem {  // fp32: (pass (a), pass (b)) bytes
+  static int run(int win, int d, size_t* kv) {
+    *kv = KvTile<DP>::BYTES;
+    return (int)QTile<DP>::bytes(win, d);
+  }
+};
+template <int DP>
+struct LaunchFp32 {
+  static int run(const float* q, const float* k, const float* v, const float* rel_k, const float* rel_v,
+                 const float* kmask, const float* dmask, const float* out, const float* dout, const float* lse,
+                 float* dq, float* dk, float* dv, float* dvec, float* band, float* drel_part, int bh, int t,
+                 int d, int window, int causal, int skip_upper, cudaStream_t s) {
+    const int e = launch_q_tf32<DP>(q, k, v, rel_k, rel_v, kmask, dmask, out, dout, lse, dq, dvec, band,
+                                    drel_part, bh, t, d, window, causal, skip_upper, s);
+    if (e) return e;
+    return launch_kv_tf32<DP>(q, k, v, kmask, dmask, dout, lse, dvec, band, dk, dv, bh, t, d, window, causal,
+                              skip_upper, s);
+  }
+};
 
 }  // namespace
 
 // bf16 = 0: q, k, v, rel_k, rel_v, out, dout, dq, dk and dv are float; 1:
 // __nv_bfloat16 (out is then not read: D comes from the key sweep). Scratch
 // from the caller: dvec [bh * t], band [bh * t * 2 (2w+1)] and drel_part
-// [ceil(t / 32) * bh * 2 * (2w+1) * d] (both null without a window), fp32.
+// [q_blocks * bh * 2 * (2w+1) * d] (both null without a window), fp32. The
+// tiling is the caller's plan (ops/attention.py::bwd_plan): pass (a)'s
+// blocks along T (one rel-table partial each), pass (b)'s, and the shared
+// memory of each; a plan that is not this kernel's is refused.
 extern "C" int sovits_rel_attention_bwd(
     const void* q, const void* k, const void* v, const void* rel_k, const void* rel_v,
-    const float* kmask, const float* dmask, const void* out, const void* dout,
-    const float* lse, void* dq, void* dk, void* dv, float* dvec, float* band,
-    float* drel_part, int bh, int t, int d, int window, int causal, int bf16, void* stream) {
+    const float* kmask, const float* dmask, const void* out, const void* dout, const float* lse, void* dq,
+    void* dk, void* dv, float* dvec, float* band, float* drel_part, int bh, int t, int d, int window,
+    int causal, int bf16, int q_blocks, int kv_blocks, int smem_q, int smem_kv, void* stream) {
   if (d < 1 || d > MAXD || t < 1 || bh < 1) return (int)cudaErrorInvalidValue;
   if (window >= 0 && (!rel_k || !rel_v || !band || !drel_part)) return (int)cudaErrorInvalidValue;
+  const int win = window >= 0 ? 2 * window + 1 : 0;
+  const int skip_upper = causal && kmask == nullptr;
+  size_t want_q = smem_fma_q(d, win), want_kv = smem_fma_kv(d, win);
+  const int q_rows = bf16 ? BQ : Q_ROWS, kv_keys = bf16 ? BK : KV_KEYS;
+  if (!bf16) want_q = by_dp<Smem>(d, win, d, &want_kv);
+  if (q_blocks != (t + q_rows - 1) / q_rows || kv_blocks != (t + kv_keys - 1) / kv_keys ||
+      (size_t)smem_q != want_q || (size_t)smem_kv != want_kv)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    return launch<__nv_bfloat16>(q, k, v, rel_k, rel_v, kmask, dmask, out, dout, lse, dq, dk, dv,
-                                 dvec, band, drel_part, bh, t, d, window, causal, s);
-  return launch<float>(q, k, v, rel_k, rel_v, kmask, dmask, out, dout, lse, dq, dk, dv, dvec,
-                       band, drel_part, bh, t, d, window, causal, s);
+  if (bf16) {
+    const int e = launch_fma_q<__nv_bfloat16>(q, k, v, rel_k, rel_v, kmask, dmask, dout, lse, dq, dvec, band,
+                                              drel_part, bh, t, d, window, causal, skip_upper, smem_q, s);
+    if (e) return e;
+    return launch_fma_kv<__nv_bfloat16>(q, k, v, kmask, dmask, dout, lse, dvec, band, dk, dv, bh, t, d,
+                                        window, causal, skip_upper, smem_kv, s);
+  }
+  return by_dp<LaunchFp32>(d, (const float*)q, (const float*)k, (const float*)v, (const float*)rel_k,
+                           (const float*)rel_v, kmask, dmask, (const float*)out, (const float*)dout, lse,
+                           (float*)dq, (float*)dk, (float*)dv, dvec, band, drel_part, bh, t, d, window,
+                           causal, skip_upper, s);
 }

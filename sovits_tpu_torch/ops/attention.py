@@ -26,13 +26,19 @@ a gradient is needed, ``csrc/rel_attention_bwd.cu`` (backward), or raise.
 
 from __future__ import annotations
 
-import math
+from dataclasses import dataclass
 
 import torch
 
 from . import build
 
 NEG = -1e4  # the reference's masking constant
+SMEM_LIMIT = 232_448  # bytes of shared memory one block may opt in to on an H100
+# the fp32 backward kernel's tiling (csrc/rel_attention_bwd.cu): query rows per
+# pass-(a) block and keys per tile it streams (two in flight); keys per
+# pass-(b) block and query rows per tile it streams (two in flight)
+_Q_ROWS, _BKT = 32, 16
+_KV_KEYS, _QT = 32, 32
 
 
 def _diag_rows(off: int, t: int) -> slice:
@@ -130,6 +136,62 @@ def fused_attention_bwd_plain(q, k, v, rel_k, rel_v, key_mask, drop_mask, dout, 
     return dq.to(lo), dk.to(lo), dv.to(lo), drel_k, drel_v
 
 
+@dataclass(frozen=True)
+class BwdPlan:
+    """How the backward kernel tiles one call: pass (a) (dq, D, the rel-table
+    partials) in blocks of ``q_rows`` query rows, one partial each; pass (b)
+    (dk, dv) in blocks of ``kv_keys`` keys; ``smem_q``/``smem_kv`` bytes of
+    shared memory a block."""
+
+    q_rows: int
+    kv_keys: int
+    smem_q: int
+    smem_kv: int
+
+    def blocks(self, t: int) -> tuple[int, int]:
+        """Blocks along T of pass (a) and of pass (b), each covering T."""
+        return -(-t // self.q_rows), -(-t // self.kv_keys)
+
+
+def bwd_plan(d: int, window: int | None, dtype: torch.dtype) -> BwdPlan:
+    """The tiling of ``csrc/rel_attention_bwd.cu`` for head width ``d``, which
+    its entry point checks again. bf16 runs FMA passes on fp32 tiles of d + 1
+    words a row: (a) 32 query rows against 64-key tiles, (b) 64 keys against
+    32-row query tiles. fp32 runs on the tensor cores, rows of d zero-padded
+    to 32, 64, 96 or 128: (a) 32 query rows (q and dout resident, rows + 8
+    words) against double-buffered 16-key K and V tiles; (b) 32 keys (K and V
+    resident, rows + 4 words) against double-buffered 32-row q and dout
+    tiles. Both add fp32 band tables of 2w+1 entries a row."""
+    if dtype not in (torch.float32, torch.bfloat16) or not 1 <= d <= 128:
+        raise ValueError(f"bwd_plan: float32 or bfloat16 and 1 <= D <= 128, got {dtype}, {d}")
+    win = 0 if window is None else 2 * window + 1
+    if dtype == torch.bfloat16:  # q, dout, K, V tiles of d + 1 words a row, the ds (and pt) tiles of 65
+        ld = d + 1
+        plan = BwdPlan(32, 64, 4 * (2 * 32 * ld + 2 * 64 * ld + 32 * 65 + 2 * win * d + 4 * 32 * win + 2 * 32),
+                       4 * (2 * 64 * ld + 2 * 32 * ld + 2 * 32 * 65 + 2 * 32 * win + 2 * 32))
+    else:
+        dp = -(-d // 32) * 32
+        plan = BwdPlan(_Q_ROWS, _KV_KEYS,
+                       4 * ((2 * _Q_ROWS + 4 * _BKT) * (dp + 8) + 2 * win * d + 4 * _Q_ROWS * win),
+                       4 * (2 * _KV_KEYS + 4 * _QT) * (dp + 4))
+    if max(plan.smem_q, plan.smem_kv) > SMEM_LIMIT:
+        raise ValueError(f"bwd_plan: window {window} needs more shared memory than a block has")
+    return plan
+
+
+def bwd_scratch(plan: BwdPlan, bh: int, t: int, d: int, window: int | None, device):
+    """The backward kernel's fp32 scratch: D per row [BH, T]; without a
+    window None, None, else the per-row band products [BH, T, 2 (2w+1)] and
+    the rel-table partials [pass (a)'s blocks x BH, 2, 2w+1, D]."""
+    dvec = torch.empty(bh, t, device=device, dtype=torch.float32)
+    if window is None:
+        return dvec, None, None
+    win = 2 * window + 1
+    band = torch.empty(bh, t, 2 * win, device=device, dtype=torch.float32)
+    part = torch.empty(plan.blocks(t)[0] * bh, 2, win, d, device=device, dtype=torch.float32)
+    return dvec, band, part
+
+
 def _check(q, k, v, rel_k, rel_v, key_mask, drop_mask, window, what: str) -> None:
     """Raise on what the kernels do not take: q, k, v and the rel tables of
     one type, fp32 or bf16; float32 masks (the dropout mask's values are
@@ -203,18 +265,15 @@ def fused_attention_bwd(q, k, v, rel_k, rel_v, key_mask, drop_mask, out, lse, do
     if lse is None or lse.shape != (bh, t) or lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"fused_attention_bwd: lse must be float32 [{bh}, {t}] on {q.device}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
-    dvec = torch.empty(bh, t, device=q.device, dtype=torch.float32)
-    band = part = None
-    if window is not None:
-        win = 2 * window + 1
-        band = torch.empty(bh, t, 2 * win, device=q.device, dtype=torch.float32)
-        part = torch.empty(math.ceil(t / 32) * bh, 2, win, d, device=q.device, dtype=torch.float32)
+    plan = bwd_plan(d, window, q.dtype)
+    q_blocks, kv_blocks = plan.blocks(t)
+    dvec, band, part = bwd_scratch(plan, bh, t, d, window, q.device)
     rc = build.load("rel_attention_bwd").lib.sovits_rel_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rel_k), _ptr(rel_v), _ptr(key_mask),
         _ptr(drop_mask), out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), dvec.data_ptr(), _ptr(band), _ptr(part), bh, t, d,
-        -1 if window is None else window, int(causal), int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        -1 if window is None else window, int(causal), int(q.dtype == torch.bfloat16), q_blocks, kv_blocks,
+        plan.smem_q, plan.smem_kv, torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(rc, "rel_attention_bwd launch")
     fused_attention_bwd.launches += 1

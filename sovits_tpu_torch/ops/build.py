@@ -40,7 +40,7 @@ SIGNATURES = {
         "sovits_rel_attention_fwd": [_P] * 9 + [_I] * 6 + [_P],
     },
     "rel_attention_bwd": {
-        "sovits_rel_attention_bwd": [_P] * 16 + [_I] * 6 + [_P],
+        "sovits_rel_attention_bwd": [_P] * 16 + [_I] * 10 + [_P],
     },
     "resblock_trio": {
         "sovits_resblock_trio": [_P] * 5 + [_I] * 4 + [_IP] * 4 + [_I] * 5 + [_P],

@@ -172,14 +172,13 @@ def test_full_width_synthesizer_cuda_matches_cpu(cuda):
     torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-4)
 
 
-def _train_attention_case(bh, t, window, masked, seed, device, dtype=torch.float32):
-    """The training shapes' inputs in ``dtype``: dropout 0.1 as the
-    attention modules draw it (keep/(1-rate), with the values of ``dtype``),
-    stored float32."""
+def _train_attention_case(bh, t, window, masked, seed, device, dtype=torch.float32, d=96):
+    """The training shapes' inputs in ``dtype``, head width ``d``: dropout
+    0.1 as the attention modules draw it (keep/(1-rate), with the values of
+    ``dtype``), stored float32."""
     from sovits_tpu_torch.nn.dropout import keep_mask
 
     g = _g(seed)
-    d = 96
     q = torch.randn(bh, t, d, generator=g) * d**-0.5
     k, v, dout = torch.randn(3, bh, t, d, generator=g)
     rel = [torch.randn(2 * window + 1, d, generator=g) * d**-0.5 for _ in range(2)] if window else [None, None]
@@ -193,23 +192,25 @@ def _train_attention_case(bh, t, window, masked, seed, device, dtype=torch.float
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("d", [96, 64, 33, 128])  # 33: rows off every 16-byte chunk; 128: the widest
 @pytest.mark.parametrize("bh,t,window,masked", [
     (12, 800, 4, True),     # ContentEncoder, training batch of 6
     (12, 800, None, False),  # F0Decoder (causal)
     (3, 100, 4, True),      # off the tile grid
     (3, 100, None, True),   # causal with a key mask: no tile skipped
     (12, 512, 4, True),     # ContentEncoder at bench.py's bf16 step (512 frames)
-    (3, 9, 4, True),        # lengths off every tile (32 query rows, 64 keys)
+    (3, 9, 4, True),        # lengths off every tile
     (3, 33, 4, True),
     (3, 65, None, False),
     (2, 1000, 4, True),
+    (3, 16, None, False),   # a single tile
 ])
-def test_attention_backward_kernel_matches_plain(cuda, bh, t, window, masked, dtype):
+def test_attention_backward_kernel_matches_plain(cuda, bh, t, window, masked, d, dtype):
     """K2 against the plain backward on the same inputs: fp32 to TOL (the
     rel-table gradients sum over every row, atol 1e-4); bf16 within 2e-2 x
     max|plain| in all five outputs. Causal: row 0 has one key, so its dq
     must cancel to 0 up to rounding in both."""
-    args, dout = _train_attention_case(bh, t, window, masked, t + bh, cuda, dtype)
+    args, dout = _train_attention_case(bh, t, window, masked, t + bh + d - 96, cuda, dtype, d)
     causal = window is None
     from sovits_tpu_torch.ops.attention import _forward
 
