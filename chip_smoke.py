@@ -619,8 +619,11 @@ def times_training_attention() -> dict:
         bwd = lambda: fused_attention_bwd(*args, o, lse, dout, **kw)  # noqa: E731
         bwd_k = _time(bwd)
         bwd_p = _time(lambda: fused_attention_bwd_plain(*args, dout, **kw))
-        # device time and launch of each of K2's two passes (fp32: bwd_q_tf32, bwd_kv_tf32)
-        passes = _device_ms_each(bwd, ("bwd_q_tf32", "bwd_kv_tf32"))
+        # device time and launch of each of K2's two passes; the keys match the
+        # fp32 tensor-core passes (bwd_q_tf32, bwd_kv_tf32) and the FMA ones
+        # (rel_attn_bwd_q, rel_attn_bwd_kv), so tools/time_attention_bwd.py
+        # times an older tree of the port by this function too
+        passes = _device_ms_each(bwd, ("bwd_q", "bwd_kv"))
         launch = {f"{name}_{k}": v for name, (_, attrs) in passes.items() for k, v in attrs.items()}
         extra = {"bwd_kernel_device_ms": f"{sum(ms for ms, _ in passes.values()):.4f}",
                  **{f"{name}_device_ms": f"{ms:.4f}" for name, (ms, _) in passes.items()}, **launch}

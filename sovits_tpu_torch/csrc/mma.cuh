@@ -55,25 +55,36 @@ __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-// x = hi + lo (+ a remainder below 2^-22 |x|), both exact tf32 values
+// x = hi + lo (+ a remainder below 2^-22 |x|), both exact tf32 values: each
+// rounded to nearest, ties away from zero, as cvt.rna.tf32.f32 rounds, but by
+// integer arithmetic, at the integer rate (the conversions were what fp32
+// K2's 3xTF32 products waited on: 0.87 -> 0.74 ms at its training shape on an
+// H100). A NaN x may lose its NaN in hi (the payload can carry into the sign
+// bit), but x - hi is then the canonical NaN 0x7fffffff, which the signed min
+// keeps from carrying: lo stays a NaN, so the product does, at one integer op
+// (an isnan select on hi cost 25% of fp32 K2's first pass and spilled).
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  const int r = (int)__float_as_uint(x - __uint_as_float(hi));
+  lo = ((uint32_t)min(r, 0x7fffefff) + 0x1000u) & 0xffffe000u;
 }
-// 3xTF32: c += a . b to about fp32 accuracy
-__device__ __forceinline__ void mma_3xtf32(float c[4], const uint32_t ah[4], const uint32_t al[4],
-                                           float b0, float b1) {
+// acc += a . b over one 8-deep step by 3xTF32 (lo.hi + hi.lo + hi.hi), the
+// step's products summed from zero and added to acc in fp32, rounded to
+// nearest (the tensor cores' own sums are not). K1's S and fp32 K2's replay
+// of it (rel_attention_bwd.cu, pass (a)) both take it, in the same operand
+// order and step order: K2's S is then K1's to the bit, so on a row with one
+// key K2's p = exp(s - lse) is exactly 1.
+__device__ __forceinline__ void mma_3xtf32_step(float acc[4], const uint32_t ah[4], const uint32_t al[4],
+                                                float b0, float b1) {
   uint32_t bh0, bl0, bh1, bl1;
   split(b0, bh0, bl0);
   split(b1, bh1, bl1);
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
   mma_tf32(c, al, bh0, bh1);
   mma_tf32(c, ah, bl0, bl1);
   mma_tf32(c, ah, bh0, bh1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += c[e];
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -291,10 +291,7 @@ __global__ void __launch_bounds__(NT) rel_attn_fwd(
 #pragma unroll
         for (int j = 0; j < NS; ++j) {
           const float2 kb = *reinterpret_cast<const float2*>(sk + (j * 8 + g) * LDK + kk * 8 + 2 * tq);
-          float c[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_3xtf32(c, ah, al, kb.x, kb.y);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][e] += c[e];  // rounded to nearest, step by step
+          mma_3xtf32_step(s[j], ah, al, kb.x, kb.y);  // rounded to nearest, step by step
         }
       }
     }

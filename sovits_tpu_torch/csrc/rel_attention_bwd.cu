@@ -59,13 +59,16 @@
 // number as sum_u g p: out[t] = sum_u pt[t, u] v[u] + the value band) with
 // fp32 FMA, which is not the 3xTF32 g to the last bit, so g - D would not
 // cancel there. Instead pass (a) replays S with K1's arithmetic to the bit
-// (the same operand order, splits and sums), so on such a row p = exp(s -
-// lse) is exactly 1, and ds is set to 0 wherever p == 1. That is exact
-// where it matters: p rounds to 1 only if the row's other keys hold under
-// 3e-8 of its mass, where the true ds is below 3e-8 |g|. The route costs no
-// product; a sweep over the keys for D = rowsum(g p), which bf16 takes
-// (below), would cost two more T^2 D products and a third pass over the
-// dropout mask.
+// (mma.cuh's split and mma_3xtf32_step, in K1's operand and step order), so
+// on such a row p = exp(s - lse) is exactly 1, and ds is set to 0 wherever
+// p == 1. That makes dq exact where it matters: p rounds to 1 only if the
+// row's other keys hold under 3e-8 of its mass, where the true ds is below
+// 3e-8 |g|. Pass (b) zeroes ds where its own p == 1 too, but its S^T = K .
+// q^T sums in another order, so there p may miss 1 by an ulp and dk and dv
+// keep g - D's rounding noise (about 1e-6 |g|, far inside the fp32 bar): the
+// route is exact for dq only. It costs no product; a sweep over the keys
+// for D = rowsum(g p), which bf16 takes (below), would cost two more T^2 D
+// products and a third pass over the dropout mask.
 //
 // bf16 (rel_attn_bwd_q, rel_attn_bwd_kv): fp32 FMA loops from shared memory,
 // every value widened to fp32 where it is staged, so products of two bf16
@@ -83,9 +86,10 @@
 // in both passes) on the tensor cores, bf16 9 in FMA (also its D sweep),
 // against about 0.1 GB of traffic (the 30.7 MB dropout mask read once per
 // pass or sweep): operation-bound, 0.045 ms at the 3xTF32 rate. What holds
-// fp32 back is latency: 600 warps in all (16 rows or keys each) leave 4-5
-// warps an SM, each issuing dependent mma chains. Splitting the streamed
-// side among more warps, wgmma and an in-kernel Philox mask are later work.
+// fp32 back is latency: pass (a)'s 600 warps (16 rows each) leave 4-5
+// warps an SM, each issuing dependent mma chains (pass (b) splits each 16
+// keys' query tiles over two warps: 1200). Pre-split tiles in shared memory,
+// wgmma and an in-kernel Philox mask are later work.
 //
 // Plain C interface, bound with ctypes; returns cudaGetLastError().
 
@@ -98,8 +102,9 @@
 
 namespace {
 
-// ---- bf16: fp32 FMA from shared memory (templates on the input type, taken
-// for __nv_bfloat16 only) ----
+// ---- bf16: fp32 FMA from shared memory ----
+
+using bf16 = __nv_bfloat16;
 
 constexpr int BQ = 32;   // query rows per tile
 constexpr int BK = 64;   // keys per tile
@@ -109,11 +114,11 @@ constexpr int DJ = MAXD / 16;  // feature columns per thread at most
 constexpr float NEG = -1e4f;   // the reference's masking constant
 
 // Scores s and dout . v^T for rows (ty, ty + 16) of the query tile and keys
-// (tx + 16 j) of the key tile, then per entry p (rounded to T_), pt = p dm
+// (tx + 16 j) of the key tile, then per entry p (rounded to bf16), pt = p dm
 // and ds. kRowSum: only D's row sums, dsum[i] += g p (bf16's D sweep); s and
-// g are left as they are. Otherwise in place, rounded to T_ as the products
+// g are left as they are. Otherwise in place, rounded to bf16 as the products
 // that take them want: s[i][j] <- pt, g[i][j] <- ds (0 outside the sequence).
-template <typename T_, bool kRowSum>
+template <bool kRowSum>
 __device__ __forceinline__ void tile_ds(
     const float* sq, const float* sdo, const float* sk, const float* sv, const float* srl,
     const float* sgr, const float* s_lse, const float* s_D, const float* km, const float* dm,
@@ -153,13 +158,13 @@ __device__ __forceinline__ void tile_ds(
         }
         if (causal && off > 0) x = NEG;
         if (km && !(km[u] > 0.f)) x = NEG;
-        const float p = round_to<T_>(expf(x - s_lse[r]));  // the TPU kernel's p_lo
+        const float p = round_to<bf16>(expf(x - s_lse[r]));  // the TPU kernel's p_lo
         const float dmv = dm ? dm[(size_t)t * T + u] : 1.f;
         if constexpr (kRowSum) {
           dsum[i] = fmaf(gg * dmv, p, dsum[i]);
         } else {
-          pt = round_to<T_>(p * dmv);
-          ds = round_to<T_>(p * (gg * dmv - s_D[r]));
+          pt = round_to<bf16>(p * dmv);
+          ds = round_to<bf16>(p * (gg * dmv - s_D[r]));
         }
       }
       if constexpr (!kRowSum) {
@@ -170,8 +175,7 @@ __device__ __forceinline__ void tile_ds(
   }
 }
 
-template <typename T_>
-__device__ __forceinline__ void load_rows(float* dst, const T_* src, int row0, int rows, int T,
+__device__ __forceinline__ void load_rows(float* dst, const bf16* src, int row0, int rows, int T,
                                           int D, int ld, int tid) {
   for (int i = tid; i < rows * D; i += NT) {
     const int r = i / D, c = i - r * D;
@@ -180,12 +184,11 @@ __device__ __forceinline__ void load_rows(float* dst, const T_* src, int row0, i
   }
 }
 
-template <typename T_>
 __global__ void __launch_bounds__(NT) rel_attn_bwd_q(
-    const T_* __restrict__ q, const T_* __restrict__ k, const T_* __restrict__ v,
-    const T_* __restrict__ rel_k, const T_* __restrict__ rel_v,
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ rel_k, const bf16* __restrict__ rel_v,
     const float* __restrict__ kmask, const float* __restrict__ dmask,
-    const T_* __restrict__ dout, const float* __restrict__ lse, T_* __restrict__ dq, float* __restrict__ dvec,
+    const bf16* __restrict__ dout, const float* __restrict__ lse, bf16* __restrict__ dq, float* __restrict__ dvec,
     float* __restrict__ band, float* __restrict__ drel_part, int T, int D, int window,
     int causal, int skip_upper) {
   extern __shared__ float sm[];
@@ -250,7 +253,7 @@ __global__ void __launch_bounds__(NT) rel_attn_bwd_q(
       load_rows(sk, k + base, k0, BK, T, D, ld, tid);
       load_rows(sv, v + base, k0, BK, T, D, ld, tid);
       __syncthreads();
-      tile_ds<T_, true>(sq, sdo, sk, sv, srl, sgr, s_lse, s_D, km, dm, q0, k0, T, D, ld, window,
+      tile_ds<true>(sq, sdo, sk, sv, srl, sgr, s_lse, s_D, km, dm, q0, k0, T, D, ld, window,
                         win, causal, tx, ty, s, g, dsum);
     }
 #pragma unroll
@@ -276,7 +279,7 @@ __global__ void __launch_bounds__(NT) rel_attn_bwd_q(
     load_rows(sk, k + base, k0, BK, T, D, ld, tid);
     load_rows(sv, v + base, k0, BK, T, D, ld, tid);
     __syncthreads();
-    tile_ds<T_, false>(sq, sdo, sk, sv, srl, sgr, s_lse, s_D, km, dm, q0, k0, T, D, ld, window,
+    tile_ds<false>(sq, sdo, sk, sv, srl, sgr, s_lse, s_D, km, dm, q0, k0, T, D, ld, window,
                        win, causal, tx, ty, s, g, nullptr);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -320,7 +323,7 @@ __global__ void __launch_bounds__(NT) rel_attn_bwd_q(
       if (c >= D) continue;
       float o = acc[i][j];
       for (int ow = 0; ow < win; ++ow) o = fmaf(sdsb[r * win + ow], srk[ow * D + c], o);
-      dq[base + (size_t)t * D + c] = from_f<T_>(o);
+      dq[base + (size_t)t * D + c] = from_f<bf16>(o);
     }
   }
   if (win) {
@@ -338,13 +341,12 @@ __global__ void __launch_bounds__(NT) rel_attn_bwd_q(
   }
 }
 
-template <typename T_>
 __global__ void __launch_bounds__(NT) rel_attn_bwd_kv(
-    const T_* __restrict__ q, const T_* __restrict__ k, const T_* __restrict__ v,
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const float* __restrict__ kmask, const float* __restrict__ dmask,
-    const T_* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ dvec, const float* __restrict__ band, T_* __restrict__ dk,
-    T_* __restrict__ dv, int T, int D, int window, int causal, int skip_upper) {
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ dvec, const float* __restrict__ band, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int T, int D, int window, int causal, int skip_upper) {
   extern __shared__ float sm[];
   const int win = window >= 0 ? 2 * window + 1 : 0;
   const int ld = D + 1;
@@ -396,7 +398,7 @@ __global__ void __launch_bounds__(NT) rel_attn_bwd_kv(
     }
     __syncthreads();
     float s[2][4], g[2][4];
-    tile_ds<T_, false>(sq, sdo, sk, sv, srl, sgr, s_lse, s_D, km, dm, q0, k0, T, D, ld, window,
+    tile_ds<false>(sq, sdo, sk, sv, srl, sgr, s_lse, s_D, km, dm, q0, k0, T, D, ld, window,
                        win, causal, tx, ty, s, g, nullptr);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -437,8 +439,8 @@ __global__ void __launch_bounds__(NT) rel_attn_bwd_kv(
     for (int j = 0; j < DJ; ++j) {
       const int c = tx + 16 * j;
       if (c >= D) continue;
-      dk[base + (size_t)u * D + c] = from_f<T_>(adk[i][j]);
-      dv[base + (size_t)u * D + c] = from_f<T_>(adv[i][j]);
+      dk[base + (size_t)u * D + c] = from_f<bf16>(adk[i][j]);
+      dv[base + (size_t)u * D + c] = from_f<bf16>(adv[i][j]);
     }
   }
 }
@@ -494,32 +496,6 @@ __device__ __forceinline__ float* next_stage(float* stages, int stage, int it, i
   return stages + (it & 1) * stage;
 }
 
-// x = hi + lo (+ a remainder below 2^-22 |x|), both tf32, as mma.cuh's split
-// but rounded by integer arithmetic: to nearest, ties away from zero, as
-// cvt.rna.tf32.f32 rounds (so S stays K1's to the bit), at the integer
-// rate; the conversions were what the 3xTF32 products waited on
-// (0.87 -> 0.74 ms at the training shape on an H100)
-__device__ __forceinline__ void split_rna(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
-}
-
-// acc += a . b by 3xTF32 (lo.hi + hi.lo + hi.hi, K1's order), this 8-deep
-// step's products summed from zero and added in fp32 (rounded to nearest;
-// the tensor cores' own sums are not)
-__device__ __forceinline__ void mma_step(float acc[4], const uint32_t ah[4], const uint32_t al[4], float b0,
-                                         float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split_rna(b0, bh0, bl0);
-  split_rna(b1, bh1, bl1);
-  float c[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(c, al, bh0, bh1);
-  mma_tf32(c, ah, bl0, bl1);
-  mma_tf32(c, ah, bh0, bh1);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) acc[e] += c[e];
-}
-
 // The tf32 A fragment (hi, lo) of 16 rows x 8 columns at a, row stride ld.
 // K1 order (rel_attention.cu's S): tf32 column t <-> column 2t, t + 4 <->
 // 2t + 1, by 8-byte loads; otherwise the columns in order, by 4-byte loads.
@@ -528,16 +504,16 @@ __device__ __forceinline__ void a_frag(const float* a, int ld, int g, int tq, ui
   if constexpr (K1_ORDER) {
     const float2 x = *reinterpret_cast<const float2*>(a + g * ld + 2 * tq);
     const float2 y = *reinterpret_cast<const float2*>(a + (g + 8) * ld + 2 * tq);
-    split_rna(x.x, hi[0], lo[0]);
-    split_rna(y.x, hi[1], lo[1]);
-    split_rna(x.y, hi[2], lo[2]);
-    split_rna(y.y, hi[3], lo[3]);
+    split(x.x, hi[0], lo[0]);
+    split(y.x, hi[1], lo[1]);
+    split(x.y, hi[2], lo[2]);
+    split(y.y, hi[3], lo[3]);
   } else {
     const float* p = a + g * ld + tq;
-    split_rna(p[0], hi[0], lo[0]);
-    split_rna(p[8 * ld], hi[1], lo[1]);
-    split_rna(p[4], hi[2], lo[2]);
-    split_rna(p[8 * ld + 4], hi[3], lo[3]);
+    split(p[0], hi[0], lo[0]);
+    split(p[8 * ld], hi[1], lo[1]);
+    split(p[4], hi[2], lo[2]);
+    split(p[8 * ld + 4], hi[3], lo[3]);
   }
 }
 
@@ -563,8 +539,8 @@ __device__ __forceinline__ void sg_products(const float* a1, const float* b1, co
     for (int j = 0; j < 2; ++j) {
       const float2 x = b_pair<K1_ORDER>(b1 + j * 8 * ld + kk * 8, ld, g, tq);
       const float2 y = b_pair<K1_ORDER>(b2 + j * 8 * ld + kk * 8, ld, g, tq);
-      mma_step(s[j], h1, l1, x.x, x.y);
-      mma_step(gt[j], h2, l2, y.x, y.y);
+      mma_3xtf32_step(s[j], h1, l1, x.x, x.y);
+      mma_3xtf32_step(gt[j], h2, l2, y.x, y.y);
     }
   }
 }
@@ -575,12 +551,12 @@ __device__ __forceinline__ void sg_products(const float* a1, const float* b1, co
 template <int NN>
 __device__ __forceinline__ void c_tile_times_rows(float acc[NN][4], const float c[4], const float* b, int ld) {
   uint32_t ah[4], al[4];
-  split_rna(c[0], ah[0], al[0]);
-  split_rna(c[2], ah[1], al[1]);
-  split_rna(c[1], ah[2], al[2]);
-  split_rna(c[3], ah[3], al[3]);
+  split(c[0], ah[0], al[0]);
+  split(c[2], ah[1], al[1]);
+  split(c[1], ah[2], al[2]);
+  split(c[3], ah[3], al[3]);
 #pragma unroll
-  for (int n = 0; n < NN; ++n) mma_step(acc[n], ah, al, b[n * 8], b[ld + n * 8]);
+  for (int n = 0; n < NN; ++n) mma_3xtf32_step(acc[n], ah, al, b[n * 8], b[ld + n * 8]);
 }
 
 // Pass (b)'s shared memory, in floats. Rows padded by 4 words: every
@@ -699,7 +675,10 @@ __global__ void __launch_bounds__(32 * KvTile<DP>::WARPS, 1) bwd_kv_tf32(
             if ((causal && off > 0) || key_masked[r]) x = NEG;
             const float p = expf(x - l_q[j][h]);
             pt = p * dmr[j][e];
-            if (p != 1.f) ds = p * (gv * dmr[j][e] - d_q[j][h]);  // as pass (a)
+            // as pass (a); but S^T here is not K1's arithmetic (K is the A
+            // operand), so a one-key row's p may miss 1 by an ulp and keep
+            // g - D's rounding noise: exact zeroing holds for dq only
+            if (p != 1.f) ds = p * (gv * dmr[j][e] - d_q[j][h]);
           }
           s[j][e] = pt;
           gt[j][e] = ds;
@@ -978,28 +957,26 @@ size_t smem_fma_kv(int d, int win) {
   return sizeof(float) * (2 * BK * ld + 2 * BQ * ld + 2 * BQ * ldp + 2 * (size_t)BQ * win + 2 * BQ);
 }
 
-template <typename T_>
 int launch_fma_q(const void* q, const void* k, const void* v, const void* rel_k, const void* rel_v,
                  const float* kmask, const float* dmask, const void* dout, const float* lse, void* dq,
                  float* dvec, float* band, float* drel_part, int bh, int t, int d, int window, int causal,
                  int skip_upper, size_t smem, cudaStream_t s) {
-  cudaError_t e = cudaFuncSetAttribute(rel_attn_bwd_q<T_>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = cudaFuncSetAttribute(rel_attn_bwd_q, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  rel_attn_bwd_q<T_><<<dim3((t + BQ - 1) / BQ, bh), NT, smem, s>>>(
-      (const T_*)q, (const T_*)k, (const T_*)v, (const T_*)rel_k, (const T_*)rel_v, kmask, dmask,
-      (const T_*)dout, lse, (T_*)dq, dvec, band, drel_part, t, d, window, causal, skip_upper);
+  rel_attn_bwd_q<<<dim3((t + BQ - 1) / BQ, bh), NT, smem, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)rel_k, (const bf16*)rel_v, kmask, dmask,
+      (const bf16*)dout, lse, (bf16*)dq, dvec, band, drel_part, t, d, window, causal, skip_upper);
   return (int)cudaGetLastError();
 }
 
-template <typename T_>
 int launch_fma_kv(const void* q, const void* k, const void* v, const float* kmask, const float* dmask,
                   const void* dout, const float* lse, const float* dvec, const float* band, void* dk, void* dv,
                   int bh, int t, int d, int window, int causal, int skip_upper, size_t smem, cudaStream_t s) {
-  cudaError_t e = cudaFuncSetAttribute(rel_attn_bwd_kv<T_>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = cudaFuncSetAttribute(rel_attn_bwd_kv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  rel_attn_bwd_kv<T_><<<dim3((t + BK - 1) / BK, bh), NT, smem, s>>>(
-      (const T_*)q, (const T_*)k, (const T_*)v, kmask, dmask, (const T_*)dout, lse, dvec, band, (T_*)dk,
-      (T_*)dv, t, d, window, causal, skip_upper);
+  rel_attn_bwd_kv<<<dim3((t + BK - 1) / BK, bh), NT, smem, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, kmask, dmask, (const bf16*)dout, lse, dvec, band, (bf16*)dk,
+      (bf16*)dv, t, d, window, causal, skip_upper);
   return (int)cudaGetLastError();
 }
 
@@ -1034,7 +1011,7 @@ struct LaunchFp32 {
 
 }  // namespace
 
-// bf16 = 0: q, k, v, rel_k, rel_v, out, dout, dq, dk and dv are float; 1:
+// is_bf16 = 0: q, k, v, rel_k, rel_v, out, dout, dq, dk and dv are float; 1:
 // __nv_bfloat16 (out is then not read: D comes from the key sweep). Scratch
 // from the caller: dvec [bh * t], band [bh * t * 2 (2w+1)] and drel_part
 // [q_blocks * bh * 2 * (2w+1) * d] (both null without a window), fp32. The
@@ -1045,24 +1022,24 @@ extern "C" int sovits_rel_attention_bwd(
     const void* q, const void* k, const void* v, const void* rel_k, const void* rel_v,
     const float* kmask, const float* dmask, const void* out, const void* dout, const float* lse, void* dq,
     void* dk, void* dv, float* dvec, float* band, float* drel_part, int bh, int t, int d, int window,
-    int causal, int bf16, int q_blocks, int kv_blocks, int smem_q, int smem_kv, void* stream) {
+    int causal, int is_bf16, int q_blocks, int kv_blocks, int smem_q, int smem_kv, void* stream) {
   if (d < 1 || d > MAXD || t < 1 || bh < 1) return (int)cudaErrorInvalidValue;
   if (window >= 0 && (!rel_k || !rel_v || !band || !drel_part)) return (int)cudaErrorInvalidValue;
   const int win = window >= 0 ? 2 * window + 1 : 0;
   const int skip_upper = causal && kmask == nullptr;
   size_t want_q = smem_fma_q(d, win), want_kv = smem_fma_kv(d, win);
-  const int q_rows = bf16 ? BQ : Q_ROWS, kv_keys = bf16 ? BK : KV_KEYS;
-  if (!bf16) want_q = by_dp<Smem>(d, win, d, &want_kv);
+  const int q_rows = is_bf16 ? BQ : Q_ROWS, kv_keys = is_bf16 ? BK : KV_KEYS;
+  if (!is_bf16) want_q = by_dp<Smem>(d, win, d, &want_kv);
   if (q_blocks != (t + q_rows - 1) / q_rows || kv_blocks != (t + kv_keys - 1) / kv_keys ||
       (size_t)smem_q != want_q || (size_t)smem_kv != want_kv)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16) {
-    const int e = launch_fma_q<__nv_bfloat16>(q, k, v, rel_k, rel_v, kmask, dmask, dout, lse, dq, dvec, band,
-                                              drel_part, bh, t, d, window, causal, skip_upper, smem_q, s);
+  if (is_bf16) {
+    const int e = launch_fma_q(q, k, v, rel_k, rel_v, kmask, dmask, dout, lse, dq, dvec, band, drel_part, bh, t,
+                               d, window, causal, skip_upper, smem_q, s);
     if (e) return e;
-    return launch_fma_kv<__nv_bfloat16>(q, k, v, kmask, dmask, dout, lse, dvec, band, dk, dv, bh, t, d,
-                                        window, causal, skip_upper, smem_kv, s);
+    return launch_fma_kv(q, k, v, kmask, dmask, dout, lse, dvec, band, dk, dv, bh, t, d, window, causal, skip_upper,
+                         smem_kv, s);
   }
   return by_dp<LaunchFp32>(d, (const float*)q, (const float*)k, (const float*)v, (const float*)rel_k,
                            (const float*)rel_v, kmask, dmask, (const float*)out, (const float*)dout, lse,

@@ -1,102 +1,44 @@
-"""Time the attention backward kernel (K2, ``csrc/rel_attention_bwd.cu``) on
-the card, at the fp32 training step's shapes.
+"""Time the attention backward kernel (K2, ``csrc/rel_attention_bwd.cu``) at
+the fp32 training step's shapes, with ``chip_smoke.py``'s own harness
+(``times_training_attention``: CUDA events and the profiler's device time of
+each of K2's two passes, beside the plain version's events), so that another
+tree of the port (a parent, unpacked anywhere) is timed exactly as this one:
 
-Two cases at BH 12 (batch 6 x 2 heads), T 800 (``pad_to_frames``), D 96,
-dropout 0.1 as keep/(1-rate) values: the ContentEncoder's (window 4, a key
-mask with two shorter clips) and the causal F0Decoder's (no key mask). For
-each, in turns (kernel, plain, plain, kernel), CUDA events over ``iters``
-calls of ``fused_attention_bwd`` and of its plain version, and the
-profiler's device time of the kernel's launches (the events also time the
-wrapper's host work). Prints one JSON line per case and type after the
-card's name and power limit. It imports only ``sovits_tpu_torch``, so it
-times whichever tree is first on ``PYTHONPATH``:
+    python sovits_tpu_torch/tools/time_attention_bwd.py [TREE]
 
-    python -m sovits_tpu_torch.tools.time_attention_bwd [--dtype fp32|bf16] [--iters N]
+TREE (default: this repository) is the directory whose ``sovits_tpu_torch``
+is timed. Run it as a script, not with ``-m``: ``-m`` would import this
+repository's package first. Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
 
-import argparse
-import json
 import subprocess
+import sys
+from pathlib import Path
 
-import torch
-
-from sovits_tpu_torch.ops.attention import _forward, fused_attention_bwd, fused_attention_bwd_plain
-
-BH, T, D, WINDOW = 12, 800, 96, 4
+REPO = Path(__file__).resolve().parents[2]
 
 
-def inputs(causal: bool, dtype: torch.dtype, seed: int):
-    """(args, dout) on the card: q, k, v, rel_k, rel_v, key mask, dropout mask."""
-    g = torch.Generator().manual_seed(seed)
-    w = None if causal else WINDOW
-    q = torch.randn(BH, T, D, generator=g) * D**-0.5
-    k, v, dout = torch.randn(3, BH, T, D, generator=g)
-    rel = [torch.randn(2 * w + 1, D, generator=g) * D**-0.5 for _ in range(2)] if w else [None, None]
-    km = None
-    if not causal:
-        km = torch.ones(BH, T)
-        km[-4:, T - T // 3:] = 0.0  # two shorter clips of the six
-    dm = (torch.rand(BH, T, T, generator=g) >= 0.1).float() / 0.9
-    args = [x.contiguous().cuda().to(dtype) if x is not None else None for x in (q, k, v, *rel)]
-    return args + [x.cuda() if x is not None else None for x in (km, dm)], dout.contiguous().cuda().to(dtype)
+def main(argv: list[str] | None = None) -> dict:
+    argv = sys.argv[1:] if argv is None else argv
+    tree = Path(argv[0]).resolve() if argv else REPO
+    sys.path.insert(0, str(REPO))
+    import chip_smoke  # puts REPO first on sys.path; imports no sovits_tpu_torch at module level
 
+    import torch
 
-def events_ms(fn, iters: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_ms(fn, iters: int) -> tuple[float, dict[str, float]]:
-    """The profiler's device time per call of the backward kernel's launches
-    (names holding "bwd"), in all and per kernel (its two passes)."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    per = {e.key[:60]: e.self_device_time_total / iters / 1e3 for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA and "bwd" in e.key}
-    if sum(per.values()) <= 0:
-        raise RuntimeError("the profiler saw no device time of the backward kernel")
-    return sum(per.values()), per
-
-
-def main(argv=None) -> list[dict]:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--dtype", choices=("fp32", "bf16"), default="fp32")
-    ap.add_argument("--iters", type=int, default=20)
-    a = ap.parse_args(argv)
+    if "sovits_tpu_torch" in sys.modules:
+        raise SystemExit("sovits_tpu_torch was imported before the tree was chosen: run this as a script")
+    sys.path.insert(0, str(tree))
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this tool times the kernel on a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    dtype = torch.float32 if a.dtype == "fp32" else torch.bfloat16
-    rows = []
-    for i, causal in enumerate((False, True)):
-        args, dout = inputs(causal, dtype, 20 + i)
-        w = None if causal else WINDOW
-        out, lse = _forward(*args, w, causal, want_lse=True)
-        kernel = lambda: fused_attention_bwd(*args, out, lse, dout, window=w, causal=causal)  # noqa: E731
-        plain = lambda: fused_attention_bwd_plain(*args, dout, window=w, causal=causal)  # noqa: E731
-        k1, p1, p2, k2 = (events_ms(f, a.iters) for f in (kernel, plain, plain, kernel))
-        dev, per_kernel = device_ms(kernel, a.iters)
-        row = dict(dtype=a.dtype, shape=f"BH={BH},T={T},D={D}", window=w, causal=causal, dropout=0.1,
-                   key_mask=not causal, kernel_ms=[k1, k2], kernel_device_ms=dev, plain_ms=[p1, p2],
-                   device_ms_per_kernel=per_kernel)
-        print(json.dumps(row), flush=True)
-        rows.append(row)
-    return rows
+    print(f"tree: {tree}", flush=True)
+    return chip_smoke.times_training_attention()
 
 
 if __name__ == "__main__":
