@@ -21,13 +21,13 @@
 //
 // Blocks run in no order, so nothing is carried across the grid and no
 // atomics are used; two passes, each deterministic:
-//   (a) one block per (bh, 32 query rows) streams the key tiles and computes
-//       dq, D, and the per-block partials of drel_k and drel_v (sums over
-//       query rows), into a scratch array [n_blocks, 2, 2w+1, D] that the
-//       caller sums, as the JAX package sums its per-program partials. It
-//       also stores D, and q . rel_k and dout . rel_v per row ([BH, T,
-//       2 (2w+1)]), for pass (b).
-//   (b) one block per (bh, 32 keys in fp32, 64 in bf16) streams the query
+//   (a) one block per (bh, 32 query rows in fp32, 16 in bf16) streams the
+//       key tiles and computes dq, D, and the per-block partials of drel_k
+//       and drel_v (sums over query rows), into a scratch array [n_blocks,
+//       2, 2w+1, D] that the caller sums, as the JAX package sums its
+//       per-program partials. It also stores D, and q . rel_k and dout .
+//       rel_v per row ([BH, T, 2 (2w+1)]), for pass (b).
+//   (b) one block per (bh, 32 keys in fp32, 16 in bf16) streams the query
 //       tiles and computes dk and dv.
 // The tiling is ops/attention.py::bwd_plan's, which the entry point checks.
 // Causal without a key mask (the F0Decoder), every row has a valid key at
@@ -70,26 +70,42 @@
 // for D = rowsum(g p), which bf16 takes (below), would cost two more T^2 D
 // products and a third pass over the dropout mask.
 //
-// bf16 (rel_attn_bwd_q, rel_attn_bwd_kv): fp32 FMA loops from shared memory,
-// every value widened to fp32 where it is staged, so products of two bf16
-// values are exact and every sum is fp32. The kernel rounds where the TPU
-// kernel does (_bwd_kernel in q's type): p to bf16 (its stored p_lo) before
-// anything uses it; pt = p dm, and ds, to bf16 before they enter a product
-// (dv, dq, dk and both band terms); g, D and ds themselves stay fp32. dq, dk
-// and dv are rounded once, at the store. D comes from a sweep over the keys
-// in pass (a), recomputing p (rounded) and g and summing g p per row in fp32,
-// as the TPU kernel does: bf16 out is rounded after its sum, so dout . out
-// would leave a one-key row's dq at rounding noise. out is not read.
+// bf16 (bwd_q_bf16, bwd_kv_bf16): the same layout on mma.sync.m16n8k16 bf16
+// with fp32 sums (a product of two bf16 values is exact in fp32), one
+// instruction a product; two m16n8 C tiles of p, pt or ds pack into one
+// m16n8k16 A fragment (as K1 packs P), and the B operands come by ldmatrix
+// (.trans for dq += ds . K, dv += pt^T . dout and dk += ds^T . q). To fill
+// the card at bench.py's T 512, a block owns 16 rows (query rows in (a),
+// keys in (b)) and its 4 warps split the other side's tiles, adding their
+// sums in shared memory in a fixed order. Rows of bf16 padded to DP + 8
+// elements keep ldmatrix free of bank conflicts. The kernel rounds where the
+// TPU kernel does (_bwd_kernel in q's type): p to bf16 (its stored p_lo)
+// before anything uses it; pt = p dm, and ds, to bf16 where they enter a
+// product (dv, dq, dk and both band terms); g, D and ds themselves stay
+// fp32; dq, dk and dv are rounded once, at the store. out is not read: bf16
+// out is rounded after its sum, so dout . out would leave a one-key row's
+// dq at rounding noise. Pass (a) sweeps the keys twice in one loop body:
+// the first sweep sums D = sum_u g dm p per row, the second takes ds = p (g
+// dm - D) and dq; S, G, p and g dm are the same instructions in both (g dm
+// rounded before the subtraction, never fused into it). On a row with one
+// key, exp(s - lse) is within 2^-9 of 1 and p rounds to exactly 1, every
+// other p is 0, so D is that key's g dm to the bit and ds, and the row's dq,
+// are exactly 0, as the plain version's. Pass (b) takes S^T = K . q^T, which
+// sums in another order, so its ds on that row keeps fp32 rounding noise
+// (about 1e-7 |g|), in dk only.
 //
-// What bounds it on an H100, at the training shape (BH 12, T 800, D 96):
-// 5 products of 2 T^2 D are needed (1.47 GFLOP each); fp32 takes 7 (S and G
-// in both passes) on the tensor cores, bf16 9 in FMA (also its D sweep),
-// against about 0.1 GB of traffic (the 30.7 MB dropout mask read once per
-// pass or sweep): operation-bound, 0.045 ms at the 3xTF32 rate. What holds
-// fp32 back is latency: pass (a)'s 600 warps (16 rows each) leave 4-5
-// warps an SM, each issuing dependent mma chains (pass (b) splits each 16
-// keys' query tiles over two warps: 1200). Pre-split tiles in shared memory,
-// wgmma and an in-kernel Philox mask are later work.
+// What bounds it on an H100: at the fp32 training shape (BH 12, T 800, D
+// 96) 5 products of 2 T^2 D are needed (1.47 GFLOP each); fp32 takes 7 (S
+// and G in both passes) on the tensor cores, against about 0.1 GB of traffic
+// (the 30.7 MB dropout mask read once per pass): operation-bound, 0.045 ms
+// at the 3xTF32 rate. bf16 (bench.py's step, T 512) takes 9 products (the D
+// sweep's S and G too) at the bf16 rate, 5.4 GFLOP, about 5 us, under its
+// bytes (0.0062 ms): bytes-bound. What holds both back is latency: pass (a)'s
+// fp32 600 warps (16 rows each) leave 4-5 warps an SM, each issuing
+// dependent mma chains (pass (b) splits each 16 keys' query tiles over two
+// warps: 1200); bf16 runs 4 warps per 16 rows in both passes (1536 each at
+// T 512). Pre-split tiles in shared memory, wgmma and an in-kernel Philox
+// mask are later work.
 //
 // Plain C interface, bound with ctypes; returns cudaGetLastError().
 
@@ -102,348 +118,10 @@
 
 namespace {
 
-// ---- bf16: fp32 FMA from shared memory ----
-
 using bf16 = __nv_bfloat16;
 
-constexpr int BQ = 32;   // query rows per tile
-constexpr int BK = 64;   // keys per tile
-constexpr int NT = 256;  // threads per block: 16 x 16
 constexpr int MAXD = 128;
-constexpr int DJ = MAXD / 16;  // feature columns per thread at most
-constexpr float NEG = -1e4f;   // the reference's masking constant
-
-// Scores s and dout . v^T for rows (ty, ty + 16) of the query tile and keys
-// (tx + 16 j) of the key tile, then per entry p (rounded to bf16), pt = p dm
-// and ds. kRowSum: only D's row sums, dsum[i] += g p (bf16's D sweep); s and
-// g are left as they are. Otherwise in place, rounded to bf16 as the products
-// that take them want: s[i][j] <- pt, g[i][j] <- ds (0 outside the sequence).
-template <bool kRowSum>
-__device__ __forceinline__ void tile_ds(
-    const float* sq, const float* sdo, const float* sk, const float* sv, const float* srl,
-    const float* sgr, const float* s_lse, const float* s_D, const float* km, const float* dm,
-    int q0, int k0, int T, int D, int ld, int window, int win, int causal, int tx, int ty,
-    float s[2][4], float g[2][4], float dsum[2]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = g[i][j] = 0.f;
-  for (int c = 0; c < D; ++c) {
-    const float a0 = sq[ty * ld + c], a1 = sq[(ty + 16) * ld + c];
-    const float d0 = sdo[ty * ld + c], d1 = sdo[(ty + 16) * ld + c];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float kk = sk[(tx + 16 * j) * ld + c];
-      const float vv = sv[(tx + 16 * j) * ld + c];
-      s[0][j] = fmaf(a0, kk, s[0][j]);
-      s[1][j] = fmaf(a1, kk, s[1][j]);
-      g[0][j] = fmaf(d0, vv, g[0][j]);
-      g[1][j] = fmaf(d1, vv, g[1][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = ty + 16 * i;
-    const int t = q0 + r;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int u = k0 + tx + 16 * j;
-      float pt = 0.f, ds = 0.f;
-      if (t < T && u < T) {
-        const int off = u - t;
-        float x = s[i][j], gg = g[i][j];
-        if (win && off >= -window && off <= window) {
-          x += srl[r * win + off + window];
-          gg += sgr[r * win + off + window];
-        }
-        if (causal && off > 0) x = NEG;
-        if (km && !(km[u] > 0.f)) x = NEG;
-        const float p = round_to<bf16>(expf(x - s_lse[r]));  // the TPU kernel's p_lo
-        const float dmv = dm ? dm[(size_t)t * T + u] : 1.f;
-        if constexpr (kRowSum) {
-          dsum[i] = fmaf(gg * dmv, p, dsum[i]);
-        } else {
-          pt = round_to<bf16>(p * dmv);
-          ds = round_to<bf16>(p * (gg * dmv - s_D[r]));
-        }
-      }
-      if constexpr (!kRowSum) {
-        s[i][j] = pt;
-        g[i][j] = ds;
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void load_rows(float* dst, const bf16* src, int row0, int rows, int T,
-                                          int D, int ld, int tid) {
-  for (int i = tid; i < rows * D; i += NT) {
-    const int r = i / D, c = i - r * D;
-    const int t = row0 + r;
-    dst[r * ld + c] = t < T ? to_f(src[(size_t)t * D + c]) : 0.f;
-  }
-}
-
-__global__ void __launch_bounds__(NT) rel_attn_bwd_q(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ rel_k, const bf16* __restrict__ rel_v,
-    const float* __restrict__ kmask, const float* __restrict__ dmask,
-    const bf16* __restrict__ dout, const float* __restrict__ lse, bf16* __restrict__ dq, float* __restrict__ dvec,
-    float* __restrict__ band, float* __restrict__ drel_part, int T, int D, int window,
-    int causal, int skip_upper) {
-  extern __shared__ float sm[];
-  const int win = window >= 0 ? 2 * window + 1 : 0;
-  const int ld = D + 1;
-  const int ldp = BK + 1;
-  float* sq = sm;                  // [BQ][ld]
-  float* sdo = sq + BQ * ld;       // [BQ][ld]
-  float* sk = sdo + BQ * ld;       // [BK][ld]
-  float* sv = sk + BK * ld;        // [BK][ld]
-  float* sds = sv + BK * ld;       // [BQ][ldp]
-  float* srk = sds + BQ * ldp;     // [win][D]
-  float* srv = srk + win * D;      // [win][D]
-  float* srl = srv + win * D;      // [BQ][win] q . rel_k
-  float* sgr = srl + BQ * win;     // [BQ][win] dout . rel_v
-  float* sdsb = sgr + BQ * win;    // [BQ][win] band of ds
-  float* sptb = sdsb + BQ * win;   // [BQ][win] band of pt
-  float* s_lse = sptb + BQ * win;  // [BQ]
-  float* s_D = s_lse + BQ;         // [BQ]
-
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const size_t base = (size_t)bh * T * D;
-  const float* km = kmask ? kmask + (size_t)bh * T : nullptr;
-  const float* dm = dmask ? dmask + (size_t)bh * T * T : nullptr;
-
-  load_rows(sq, q + base, q0, BQ, T, D, ld, tid);
-  load_rows(sdo, dout + base, q0, BQ, T, D, ld, tid);
-  for (int i = tid; i < win * D; i += NT) {
-    srk[i] = to_f(rel_k[i]);
-    srv[i] = to_f(rel_v[i]);
-  }
-  for (int i = tid; i < BQ * win; i += NT) sdsb[i] = sptb[i] = 0.f;
-  if (tid < BQ) s_lse[tid] = q0 + tid < T ? lse[(size_t)bh * T + q0 + tid] : 0.f;
-  __syncthreads();
-  for (int i = tid; i < BQ * win; i += NT) {
-    const int r = i / win, o = i - r * win;
-    float a = 0.f, b = 0.f;
-    for (int c = 0; c < D; ++c) {
-      a = fmaf(sq[r * ld + c], srk[o * D + c], a);
-      b = fmaf(sdo[r * ld + c], srv[o * D + c], b);
-    }
-    srl[i] = a;
-    sgr[i] = b;
-    const int t = q0 + r;
-    if (t < T) {
-      float* row = band + ((size_t)bh * T + t) * 2 * win;
-      row[o] = a;
-      row[win + o] = b;
-    }
-  }
-
-  const int k_end = skip_upper ? min(T, q0 + BQ) : T;
-  float s[2][4], g[2][4];
-  {  // D = sum_u g p per row, before any ds
-    float dsum[2] = {0.f, 0.f};
-    for (int k0 = 0; k0 < k_end; k0 += BK) {
-      __syncthreads();  // the previous tile is no longer read (first: srl and sgr are written)
-      load_rows(sk, k + base, k0, BK, T, D, ld, tid);
-      load_rows(sv, v + base, k0, BK, T, D, ld, tid);
-      __syncthreads();
-      tile_ds<true>(sq, sdo, sk, sv, srl, sgr, s_lse, s_D, km, dm, q0, k0, T, D, ld, window,
-                        win, causal, tx, ty, s, g, dsum);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // over the 16 threads of a row (one half-warp)
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) dsum[i] += __shfl_xor_sync(0xffffffffu, dsum[i], o);
-      const int r = ty + 16 * i, t = q0 + r;
-      if (tx == 0) {
-        s_D[r] = dsum[i];
-        if (t < T) dvec[(size_t)bh * T + t] = dsum[i];
-      }
-    }
-  }
-
-  float acc[2][DJ];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile's K, V and ds are no longer read
-    load_rows(sk, k + base, k0, BK, T, D, ld, tid);
-    load_rows(sv, v + base, k0, BK, T, D, ld, tid);
-    __syncthreads();
-    tile_ds<false>(sq, sdo, sk, sv, srl, sgr, s_lse, s_D, km, dm, q0, k0, T, D, ld, window,
-                       win, causal, tx, ty, s, g, nullptr);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + 16 * j;
-        sds[r * ldp + col] = g[i][j];
-        const int off = k0 + col - (q0 + r);
-        if (win && off >= -window && off <= window) {  // each (row, diagonal) once
-          sdsb[r * win + off + window] = g[i][j];
-          sptb[r * win + off + window] = s[i][j];
-        }
-      }
-    }
-    __syncthreads();
-    for (int col = 0; col < BK; ++col) {
-      const float d0 = sds[ty * ldp + col];
-      const float d1 = sds[(ty + 16) * ldp + col];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const int c = tx + 16 * j;
-        if (c < D) {
-          const float kk = sk[col * ld + c];
-          acc[0][j] = fmaf(d0, kk, acc[0][j]);
-          acc[1][j] = fmaf(d1, kk, acc[1][j]);
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = ty + 16 * i;
-    const int t = q0 + r;
-    if (t >= T) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c >= D) continue;
-      float o = acc[i][j];
-      for (int ow = 0; ow < win; ++ow) o = fmaf(sdsb[r * win + ow], srk[ow * D + c], o);
-      dq[base + (size_t)t * D + c] = from_f<bf16>(o);
-    }
-  }
-  if (win) {
-    float* part = drel_part + ((size_t)bh * gridDim.x + blockIdx.x) * 2 * win * D;
-    for (int i = tid; i < win * D; i += NT) {
-      const int o = i / D, c = i - o * D;
-      float a = 0.f, b = 0.f;
-      for (int r = 0; r < BQ; ++r) {  // rows past T hold zeros
-        a = fmaf(sdsb[r * win + o], sq[r * ld + c], a);
-        b = fmaf(sptb[r * win + o], sdo[r * ld + c], b);
-      }
-      part[i] = a;
-      part[win * D + i] = b;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(NT) rel_attn_bwd_kv(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const float* __restrict__ kmask, const float* __restrict__ dmask,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ dvec, const float* __restrict__ band, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, int T, int D, int window, int causal, int skip_upper) {
-  extern __shared__ float sm[];
-  const int win = window >= 0 ? 2 * window + 1 : 0;
-  const int ld = D + 1;
-  const int ldp = BK + 1;
-  float* sk = sm;                  // [BK][ld]
-  float* sv = sk + BK * ld;        // [BK][ld]
-  float* sq = sv + BK * ld;        // [BQ][ld]
-  float* sdo = sq + BQ * ld;       // [BQ][ld]
-  float* spt = sdo + BQ * ld;      // [BQ][ldp]
-  float* sds = spt + BQ * ldp;     // [BQ][ldp]
-  float* srl = sds + BQ * ldp;     // [BQ][win]
-  float* sgr = srl + BQ * win;     // [BQ][win]
-  float* s_lse = sgr + BQ * win;   // [BQ]
-  float* s_D = s_lse + BQ;         // [BQ]
-
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * BK;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const size_t base = (size_t)bh * T * D;
-  const float* km = kmask ? kmask + (size_t)bh * T : nullptr;
-  const float* dm = dmask ? dmask + (size_t)bh * T * T : nullptr;
-
-  load_rows(sk, k + base, k0, BK, T, D, ld, tid);
-  load_rows(sv, v + base, k0, BK, T, D, ld, tid);
-  float adk[4][DJ], adv[4][DJ];  // key rows ty + 16 i, feature columns tx + 16 j
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) adk[i][j] = adv[i][j] = 0.f;
-
-  const int q_begin = skip_upper ? (k0 / BQ) * BQ : 0;
-  for (int q0 = q_begin; q0 < T; q0 += BQ) {
-    __syncthreads();  // the previous tile is no longer read
-    load_rows(sq, q + base, q0, BQ, T, D, ld, tid);
-    load_rows(sdo, dout + base, q0, BQ, T, D, ld, tid);
-    if (tid < BQ) {
-      const int t = q0 + tid;
-      s_lse[tid] = t < T ? lse[(size_t)bh * T + t] : 0.f;
-      s_D[tid] = t < T ? dvec[(size_t)bh * T + t] : 0.f;
-    }
-    for (int i = tid; i < BQ * win; i += NT) {
-      const int r = i / win, o = i - r * win;
-      const int t = q0 + r;
-      const float* row = band + ((size_t)bh * T + (t < T ? t : 0)) * 2 * win;
-      srl[i] = t < T ? row[o] : 0.f;
-      sgr[i] = t < T ? row[win + o] : 0.f;
-    }
-    __syncthreads();
-    float s[2][4], g[2][4];
-    tile_ds<false>(sq, sdo, sk, sv, srl, sgr, s_lse, s_D, km, dm, q0, k0, T, D, ld, window,
-                       win, causal, tx, ty, s, g, nullptr);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        spt[(ty + 16 * i) * ldp + tx + 16 * j] = s[i][j];
-        sds[(ty + 16 * i) * ldp + tx + 16 * j] = g[i][j];
-      }
-    __syncthreads();
-    for (int r = 0; r < BQ; ++r) {
-      float pv[4], dsv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = spt[r * ldp + ty + 16 * i];
-        dsv[i] = sds[r * ldp + ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const int c = tx + 16 * j;
-        if (c < D) {
-          const float dov = sdo[r * ld + c];
-          const float qv = sq[r * ld + c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            adv[i][j] = fmaf(pv[i], dov, adv[i][j]);
-            adk[i][j] = fmaf(dsv[i], qv, adk[i][j]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int u = k0 + ty + 16 * i;
-    if (u >= T) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c >= D) continue;
-      dk[base + (size_t)u * D + c] = from_f<bf16>(adk[i][j]);
-      dv[base + (size_t)u * D + c] = from_f<bf16>(adv[i][j]);
-    }
-  }
-}
+constexpr float NEG = -1e4f;  // the reference's masking constant
 
 // ---- fp32 on the tensor cores: 3xTF32 on mma.sync.m16n8k8.tf32 ----
 
@@ -462,16 +140,18 @@ constexpr int BKT = 16;               // keys per streamed tile of pass (a)
 template <int DP>
 constexpr int KV_CSPLIT = DP == MAXD ? 2 : 1;
 
-// Rows [row0, row0 + rows) of a [T, D] fp32 tensor into a tile of row stride
-// ld, zero past T. Columns D.. are not written (zeroed once at the start).
-// vec: 16-byte cp.async (D a multiple of 4, 16-byte aligned tensors);
-// otherwise element by element.
-__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src, int row0, int rows,
-                                           int T, int D, int ld, bool vec, int tid, int nt) {
+// Rows [row0, row0 + rows) of a [T, D] fp32 or bf16 tensor into a tile of
+// row stride ld, zero past T. Columns D.. are not written (zeroed once at the
+// start). vec: 16-byte cp.async (rows of whole 16-byte chunks, 16-byte
+// aligned tensors); otherwise element by element.
+template <typename T_>
+__device__ __forceinline__ void stage_rows(T_* dst, const T_* __restrict__ src, int row0, int rows, int T,
+                                           int D, int ld, bool vec, int tid, int nt) {
   if (vec) {
-    const int cpr = D / 4;
+    constexpr int EPC = 16 / sizeof(T_);  // elements per 16-byte chunk
+    const int cpr = D / EPC;
     for (int i = tid; i < rows * cpr; i += nt) {
-      const int r = i / cpr, c = (i - r * cpr) * 4;
+      const int r = i / cpr, c = (i - r * cpr) * EPC;
       const int t = row0 + r;
       cp_async16(dst + r * ld + c, src + (size_t)(t < T ? t : 0) * D + c, t < T);
     }
@@ -479,16 +159,16 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__
     for (int i = tid; i < rows * D; i += nt) {
       const int r = i / D, c = i - r * D;
       const int t = row0 + r;
-      dst[r * ld + c] = t < T ? src[(size_t)t * D + c] : 0.f;
+      dst[r * ld + c] = t < T ? src[(size_t)t * D + c] : from_f<T_>(0.f);
     }
   }
 }
 
-// Tile `it` of a stream double buffered in stages of `stage` floats: tile it
-// + 1 is loaded (`load(tile, dst)`) while tile it is computed. Returns tile
-// it's stage, complete for every thread.
-template <typename F>
-__device__ __forceinline__ float* next_stage(float* stages, int stage, int it, int ntiles, F load) {
+// Tile `it` of a stream double buffered in stages of `stage` elements: tile
+// it + 1 is loaded (`load(tile, dst)`) while tile it is computed. Returns
+// tile it's stage, complete for every thread.
+template <typename T_, typename F>
+__device__ __forceinline__ T_* next_stage(T_* stages, int stage, int it, int ntiles, F load) {
   if (it + 1 < ntiles) load(it + 1, stages + ((it + 1) & 1) * stage);
   cp_async_commit();
   cp_async_wait<1>();
@@ -947,36 +627,505 @@ int launch_q_tf32(const float* q, const float* k, const float* v, const float* r
   return (int)cudaGetLastError();
 }
 
-// shared-memory bytes of the FMA passes (a) and (b)
-size_t smem_fma_q(int d, int win) {
-  const size_t ld = d + 1, ldp = BK + 1;
-  return sizeof(float) * (2 * BQ * ld + 2 * BK * ld + BQ * ldp + 2 * (size_t)win * d + 4 * (size_t)BQ * win + 2 * BQ);
+// ---- bf16 on the tensor cores: mma.sync.m16n8k16 bf16, fp32 sums ----
+
+// A block of either pass owns 16 rows (pass (a): query rows; pass (b):
+// keys) and streams the other side in tiles of BF_TILE rows, double
+// buffered; each of its BF_WARPS warps (times the column split in pass (b))
+// takes 16 rows of every tile.
+constexpr int BF_WARPS = 4;
+constexpr int BF_TILE = 16 * BF_WARPS;
+
+// Shared memory of both passes, bf16 rows of DP + 8 elements: 16-byte
+// aligned for cp.async and ldmatrix, and an odd number of 16-byte chunks, so
+// that the 8 rows an ldmatrix phase reads hit 8 different bank groups.
+template <int DP>
+struct Bf16Tile {
+  static constexpr int LD = DP + 8;
+  static constexpr int ROWS = 16 * LD;            // the 16 resident rows of one tensor
+  static constexpr int STAGE = 2 * BF_TILE * LD;  // one streamed tile of two tensors
+  static constexpr size_t BYTES = sizeof(bf16) * (2 * (size_t)ROWS + 2 * (size_t)STAGE);
+  // pass (a) adds the fp32 band tables and each warp's part of D
+  static size_t bytes_q(int win, int d) {
+    return BYTES + sizeof(float) * (2 * (size_t)win * d + 4 * 16 * (size_t)win + BF_WARPS * 16);
+  }
+  // the stages hold pass (a)'s dq and pass (b)'s dk and dv partial sums at the end
+  static_assert(2 * STAGE * sizeof(bf16) >= BF_WARPS * 16 * DP * sizeof(float), "dq partials fit");
+  static_assert(2 * STAGE * sizeof(bf16) >= (BF_WARPS - 1) * 2 * DP * 16 * sizeof(float), "dk, dv partials fit");
+};
+
+// The ldmatrix address of lane `lane` for 16 rows x 16 columns (16 c..) of a
+// tile of row stride ld. By ldsm_x4, the A fragment of those rows; by
+// ldsm_x4_t, the B fragments of two n8 tiles (columns 16 c.. and 16 c + 8..)
+// with the rows as k.
+__device__ __forceinline__ const bf16* frag_a(const bf16* tile, int ld, int c, int lane) {
+  return tile + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + c * 16 + (lane >> 4) * 8;
 }
-size_t smem_fma_kv(int d, int win) {
-  const size_t ld = d + 1, ldp = BK + 1;
-  return sizeof(float) * (2 * BK * ld + 2 * BQ * ld + 2 * BQ * ldp + 2 * (size_t)BQ * win + 2 * BQ);
+// By ldsm_x4, the B fragments of two n8 tiles whose columns are rows 0-7 and
+// 8-15 of the tile, with its columns 16 c.. as k
+__device__ __forceinline__ const bf16* frag_b(const bf16* tile, int ld, int c, int lane) {
+  return tile + ((lane & 7) + (lane >> 4) * 8) * ld + c * 16 + ((lane >> 3) & 1) * 8;
 }
 
-int launch_fma_q(const void* q, const void* k, const void* v, const void* rel_k, const void* rel_v,
-                 const float* kmask, const float* dmask, const void* dout, const float* lse, void* dq,
-                 float* dvec, float* band, float* drel_part, int bh, int t, int d, int window, int causal,
-                 int skip_upper, size_t smem, cudaStream_t s) {
-  cudaError_t e = cudaFuncSetAttribute(rel_attn_bwd_q, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// S and G of one 16 x 16 tile as independent chains over DP: s += a1 . b1^T
+// and g += a2 . b2^T, afrag(kk, a1, a2) giving the A fragments of step kk,
+// b1 and b2 tiles whose 16 rows are the columns
+template <int DP, typename FA>
+__device__ __forceinline__ void sg_bf16(FA afrag, const bf16* b1, const bf16* b2, int ld, int lane,
+                                        float s[2][4], float g[2][4]) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    uint32_t a1[4], a2[4], x[4], y[4];
+    afrag(kk, a1, a2);
+    ldsm_x4(x, frag_b(b1, ld, kk, lane));
+    ldsm_x4(y, frag_b(b2, ld, kk, lane));
+    mma_bf16(s[0], a1, x[0], x[1]);
+    mma_bf16(s[1], a1, x[2], x[3]);
+    mma_bf16(g[0], a2, y[0], y[1]);
+    mma_bf16(g[1], a2, y[2], y[3]);
+  }
+}
+
+// Two adjacent m16n8 C tiles as one m16n8k16 A fragment, rounded to bf16
+// (rel_attention.cu packs P so)
+__device__ __forceinline__ void pack_a(uint32_t a[4], const float c[2][4]) {
+  a[0] = pack_bf16(c[0][0], c[0][1]);
+  a[1] = pack_bf16(c[0][2], c[0][3]);
+  a[2] = pack_bf16(c[1][0], c[1][1]);
+  a[3] = pack_bf16(c[1][2], c[1][3]);
+}
+
+// acc[2m], acc[2m + 1] += a . b over m = 0 .. NM - 1: a the A fragment whose
+// k are the 16 rows of tile b, b's columns 16 (c0 + m).. the n, by
+// ldmatrix.trans
+template <int NM>
+__device__ __forceinline__ void a_times_rows(float acc[][4], const uint32_t a[4], const bf16* b, int ld, int c0,
+                                             int lane) {
+#pragma unroll
+  for (int m = 0; m < NM; ++m) {
+    uint32_t x[4];
+    ldsm_x4_t(x, frag_a(b, ld, c0 + m, lane));
+    mma_bf16(acc[2 * m], a, x[0], x[1]);
+    mma_bf16(acc[2 * m + 1], a, x[2], x[3]);
+  }
+}
+
+// Pass (a), bf16: dq, D, the band tables for pass (b) and the rel-table
+// partials. The block's 16 query rows are shared by its BF_WARPS warps, each
+// taking 16 keys of every streamed K and V tile. Two sweeps over the keys
+// run the same instructions (one loop body): the first sums D = sum_u g p per
+// row (each warp its part, added in a fixed order), the second takes ds = p
+// (g - D) and dq += ds . K; the warps' dq are added in a fixed order at the
+// end. S = q . K^T and G = dout . V^T take q and dout as A fragments (held in
+// registers up to DP = 96), K and V as B fragments by ldmatrix; two C tiles
+// of ds are one A fragment of dq += ds . K, K through ldmatrix.trans.
+template <int DP>
+__global__ void __launch_bounds__(32 * BF_WARPS) bwd_q_bf16(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ rel_k, const bf16* __restrict__ rel_v, const float* __restrict__ kmask,
+    const float* __restrict__ dmask, const bf16* __restrict__ dout, const float* __restrict__ lse,
+    bf16* __restrict__ dq, float* __restrict__ dvec, float* __restrict__ band, float* __restrict__ drel_part,
+    int T, int D, int window, int causal, int skip_upper, int vec) {
+  using L = Bf16Tile<DP>;
+  constexpr int LD = L::LD, KS = DP / 16, NN = DP / 8, NTH = 32 * BF_WARPS;
+  constexpr bool HOLD = DP <= 96;  // q's and dout's A fragments in registers (64 more at DP 128)
+  extern __shared__ __align__(16) unsigned char smb[];
+  const int win = window >= 0 ? 2 * window + 1 : 0;
+  bf16* sq = reinterpret_cast<bf16*>(smb);  // [16][LD]
+  bf16* sdo = sq + L::ROWS;                  // [16][LD]
+  bf16* stages = sdo + L::ROWS;              // 2 x (K [BF_TILE][LD], V [BF_TILE][LD])
+  float* srk = reinterpret_cast<float*>(smb + L::BYTES);  // [win][D]
+  float* srv = srk + win * D;                              // [win][D]
+  float* srl = srv + win * D;                              // [16][win] q . rel_k
+  float* sgr = srl + 16 * win;                             // [16][win] dout . rel_v
+  float* sdsb = sgr + 16 * win;                            // [16][win] band of ds (bf16 values)
+  float* sptb = sdsb + 16 * win;                           // [16][win] band of pt (bf16 values)
+  float* s_d = sptb + 16 * win;                            // [BF_WARPS][16] each warp's part of D
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int bh = blockIdx.y, q0 = blockIdx.x * 16;
+  const size_t base = (size_t)bh * T * D;
+  const float* km = kmask ? kmask + (size_t)bh * T : nullptr;
+  const float* dm = dmask ? dmask + (size_t)bh * T * T : nullptr;
+
+  for (int i = tid; i < (int)(L::BYTES / 16); i += NTH) reinterpret_cast<uint4*>(smb)[i] = make_uint4(0, 0, 0, 0);
+  for (int i = tid; i < 16 * win; i += NTH) sdsb[i] = sptb[i] = 0.f;
+  for (int i = tid; i < win * D; i += NTH) {
+    srk[i] = to_f(rel_k[i]);
+    srv[i] = to_f(rel_v[i]);
+  }
+  __syncthreads();
+  stage_rows(sq, q + base, q0, 16, T, D, LD, vec, tid, NTH);
+  stage_rows(sdo, dout + base, q0, 16, T, D, LD, vec, tid, NTH);
+  cp_async_commit();
+  const int k_end = skip_upper ? min(T, q0 + 16) : T;  // causal: no key past the block's last row
+  const int ntiles = (k_end + BF_TILE - 1) / BF_TILE;
+  auto load = [&](int tile, bf16* dst) {
+    stage_rows(dst, k + base, tile * BF_TILE, BF_TILE, T, D, LD, vec, tid, NTH);
+    stage_rows(dst + BF_TILE * LD, v + base, tile * BF_TILE, BF_TILE, T, D, LD, vec, tid, NTH);
+  };
+  load(0, stages);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();  // q and dout are in
+  for (int i = tid; i < 16 * win; i += NTH) {  // the band products, fp32 FMA as K1 takes q . rel_k
+    const int r = i / win, o = i - r * win;
+    float a = 0.f, b = 0.f;
+    for (int c = 0; c < D; ++c) {
+      a = fmaf(to_f(sq[r * LD + c]), srk[o * D + c], a);
+      b = fmaf(to_f(sdo[r * LD + c]), srv[o * D + c], b);
+    }
+    srl[i] = a;
+    sgr[i] = b;
+    const int t = q0 + r;
+    if (t < T) {
+      float* row = band + ((size_t)bh * T + t) * 2 * win;
+      row[o] = a;
+      row[win + o] = b;
+    }
+  }
+  float l_r[2];  // rows g and g + 8: the LSE
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l_r[h] = q0 + g + 8 * h < T ? lse[(size_t)bh * T + q0 + g + 8 * h] : 0.f;
+  uint32_t qf[HOLD ? KS : 1][4], df[HOLD ? KS : 1][4];
+  if constexpr (HOLD) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      ldsm_x4(qf[kk], frag_a(sq, LD, kk, lane));
+      ldsm_x4(df[kk], frag_a(sdo, LD, kk, lane));
+    }
+  }
+  auto afrag = [&](int kk, uint32_t* a1, uint32_t* a2) {
+    if constexpr (HOLD) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a1[i] = qf[kk][i];
+        a2[i] = df[kk][i];
+      }
+    } else {
+      ldsm_x4(a1, frag_a(sq, LD, kk, lane));
+      ldsm_x4(a2, frag_a(sdo, LD, kk, lane));
+    }
+  };
+  __syncthreads();  // srl and sgr are in
+
+  float acc[NN][4];
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float dsum[2] = {0.f, 0.f}, d_r[2] = {0.f, 0.f};
+
+  // sweep 0 sums D, sweep 1 takes ds and dq: one loop body, so that S, G, p
+  // and g dm are the same instructions in both, and g dm - D is exactly 0
+  // where p = 1 is a row's only weight
+#pragma unroll 1
+  for (int sweep = 0; sweep < 2; ++sweep) {
+    for (int it = 0; it < ntiles; ++it) {
+      const bf16* sk = next_stage(stages, L::STAGE, it, ntiles, load) + 16 * warp * LD;
+      const bf16* sv = sk + BF_TILE * LD;
+      const int k0 = it * BF_TILE + 16 * warp;  // this warp's first key
+      if (!skip_upper || k0 <= q0 + 15) {       // else every p of this warp's keys is 0
+        // thread holds rows g (e = 0, 1) and g + 8 (e = 2, 3), keys k0 + 8j
+        // + 2tq + (e & 1); the dropout and key mask first, under the products
+        float dmr[2][4];
+        bool masked[2][2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int t = q0 + g + 8 * (e >> 1), u = k0 + j * 8 + 2 * tq + (e & 1);
+            dmr[j][e] = dm && t < T && u < T ? dm[(size_t)t * T + u] : 1.f;
+            if (e < 2) masked[j][e] = km && u < T && !(km[u] > 0.f);
+          }
+        float s[2][4], gt[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = gt[j][e] = 0.f;
+        sg_bf16<DP>(afrag, sk, sv, LD, lane, s, gt);  // S, G
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {  // s <- p (bf16), gt <- g dm (0 outside the sequence)
+            const int h = e >> 1, r = g + 8 * h, t = q0 + r;
+            const int u = k0 + j * 8 + 2 * tq + (e & 1), off = u - t;
+            float p = 0.f, gd = 0.f;
+            if (t < T && u < T) {
+              float x = s[j][e], gv = gt[j][e];
+              if (win && off >= -window && off <= window) {
+                x += srl[r * win + off + window];
+                gv += sgr[r * win + off + window];
+              }
+              if ((causal && off > 0) || masked[j][e & 1]) x = NEG;
+              p = round_to<bf16>(expf(x - l_r[h]));  // the TPU kernel's p_lo
+              gd = __fmul_rn(gv, dmr[j][e]);         // never fused into g dm - D below
+            }
+            s[j][e] = p;
+            gt[j][e] = gd;
+          }
+        if (sweep == 0) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dsum[e >> 1] = fmaf(gt[j][e], s[j][e], dsum[e >> 1]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {  // gt <- ds; the bands of ds and pt, rounded as products take them
+              const int h = e >> 1, r = g + 8 * h;
+              const int off = k0 + j * 8 + 2 * tq + (e & 1) - (q0 + r);
+              const float ds = s[j][e] * (gt[j][e] - d_r[h]);
+              if (win && off >= -window && off <= window && q0 + r < T) {  // each (row, diagonal) has one owner
+                sdsb[r * win + off + window] = round_to<bf16>(ds);
+                sptb[r * win + off + window] = round_to<bf16>(s[j][e] * dmr[j][e]);
+              }
+              gt[j][e] = ds;
+            }
+          uint32_t a[4];
+          pack_a(a, gt);
+          a_times_rows<KS>(acc, a, sk, LD, 0, lane);  // dq += ds . K
+        }
+      }
+      __syncthreads();  // this stage is read: it may be refilled
+    }
+    if (sweep == 0) {  // D: the warps' parts in a fixed order; then the keys again from tile 0
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        dsum[h] += __shfl_xor_sync(0xffffffffu, dsum[h], 1);
+        dsum[h] += __shfl_xor_sync(0xffffffffu, dsum[h], 2);
+        if (tq == 0) s_d[warp * 16 + g + 8 * h] = dsum[h];
+      }
+      load(0, stages);
+      cp_async_commit();
+      __syncthreads();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = q0 + g + 8 * h;
+        for (int w = 0; w < BF_WARPS; ++w) d_r[h] += s_d[w * 16 + g + 8 * h];
+        if (warp == 0 && tq == 0 && t < T) dvec[(size_t)bh * T + t] = d_r[h];
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // dq = ds . k + band(ds) . rel_k: the warps' sums parked in the stages,
+  // added in a fixed order
+  float* park = reinterpret_cast<float*>(stages);  // [BF_WARPS][16][DP]
+#pragma unroll
+  for (int n = 0; n < NN; ++n) {
+    float* w = park + warp * 16 * DP + n * 8 + 2 * tq;
+    *reinterpret_cast<float2*>(w + g * DP) = make_float2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<float2*>(w + (g + 8) * DP) = make_float2(acc[n][2], acc[n][3]);
+  }
+  __syncthreads();
+  for (int i = tid; i < 16 * D; i += NTH) {
+    const int r = i / D, c = i - r * D, t = q0 + r;
+    if (t >= T) continue;
+    float o = 0.f;
+    for (int w = 0; w < BF_WARPS; ++w) o += park[(w * 16 + r) * DP + c];
+    for (int ow = 0; ow < win; ++ow) o = fmaf(sdsb[r * win + ow], srk[ow * D + c], o);
+    dq[base + (size_t)t * D + c] = from_f<bf16>(o);
+  }
+  if (win) {
+    float* part = drel_part + ((size_t)bh * gridDim.x + blockIdx.x) * 2 * win * D;
+    for (int i = tid; i < win * D; i += NTH) {
+      const int o = i / D, c = i - o * D;
+      float a = 0.f, b = 0.f;
+      for (int r = 0; r < 16; ++r) {  // rows past T hold zeros
+        a = fmaf(sdsb[r * win + o], to_f(sq[r * LD + c]), a);
+        b = fmaf(sptb[r * win + o], to_f(sdo[r * LD + c]), b);
+      }
+      part[i] = a;
+      part[win * D + i] = b;
+    }
+  }
+}
+
+// Pass (b), bf16: dk and dv. The block's 16 keys are shared by its warps,
+// each taking 16 rows of every streamed q and dout tile (at DP = 128 twice
+// as many warps, each summing half the columns of dk and dv). Per tile: S^T
+// = K . q^T and G^T = V . dout^T (K and V the A operands, by ldmatrix from
+// shared memory), then p, pt and ds in registers, whose C tiles (rows keys,
+// columns queries) pack into the A fragments of dv += pt^T . dout and dk +=
+// ds^T . q, dout and q through ldmatrix.trans. The warps' sums are added in
+// shared memory at the end, in a fixed order.
+template <int DP>
+__global__ void __launch_bounds__(32 * BF_WARPS * KV_CSPLIT<DP>, 1) bwd_kv_bf16(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ kmask, const float* __restrict__ dmask, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dvec, const float* __restrict__ band,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int D, int window, int causal, int skip_upper,
+    int vec) {
+  using L = Bf16Tile<DP>;
+  constexpr int LD = L::LD, CS = KV_CSPLIT<DP>, NN = DP / 8 / CS, NTH = 32 * BF_WARPS * CS;
+  extern __shared__ __align__(16) unsigned char smb[];
+  bf16* sk = reinterpret_cast<bf16*>(smb);  // [16][LD]
+  bf16* sv = sk + L::ROWS;                   // [16][LD]
+  bf16* stages = sv + L::ROWS;               // 2 x (q [BF_TILE][LD], dout [BF_TILE][LD])
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int cs = warp % CS, qs = warp / CS;
+  const int c0 = cs * (DP / CS);  // this warp's first column of dk and dv
+  const int bh = blockIdx.y, k0 = blockIdx.x * 16;
+  const int win = window >= 0 ? 2 * window + 1 : 0;
+  const size_t base = (size_t)bh * T * D;
+  const float* dm = dmask ? dmask + (size_t)bh * T * T : nullptr;
+  bool key_in[2], key_masked[2];  // keys k0 + g and + 8
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int u = k0 + g + 8 * r;
+    key_in[r] = u < T;
+    key_masked[r] = kmask && u < T && !(kmask[(size_t)bh * T + u] > 0.f);
+  }
+
+  for (int i = tid; i < (int)(L::BYTES / 16); i += NTH) reinterpret_cast<uint4*>(smb)[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  stage_rows(sk, k + base, k0, 16, T, D, LD, vec, tid, NTH);
+  stage_rows(sv, v + base, k0, 16, T, D, LD, vec, tid, NTH);
+  const int q_begin = skip_upper ? (k0 / BF_TILE) * BF_TILE : 0;  // causal: no query above the first key sees it
+  const int ntiles = (T - q_begin + BF_TILE - 1) / BF_TILE;
+  auto load = [&](int tile, bf16* dst) {
+    stage_rows(dst, q + base, q_begin + tile * BF_TILE, BF_TILE, T, D, LD, vec, tid, NTH);
+    stage_rows(dst + BF_TILE * LD, dout + base, q_begin + tile * BF_TILE, BF_TILE, T, D, LD, vec, tid, NTH);
+  };
+  load(0, stages);
+  cp_async_commit();
+  auto afrag = [&](int kk, uint32_t* a1, uint32_t* a2) {
+    ldsm_x4(a1, frag_a(sk, LD, kk, lane));
+    ldsm_x4(a2, frag_a(sv, LD, kk, lane));
+  };
+
+  float adk[NN][4], adv[NN][4];
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const bf16* sq = next_stage(stages, L::STAGE, it, ntiles, load) + 16 * qs * LD;
+    const bf16* sdo = sq + BF_TILE * LD;
+    const int q0 = q_begin + it * BF_TILE + 16 * qs;  // this warp's first query
+    if (!skip_upper || k0 <= q0 + 15) {                // else every p of this warp's tile is 0
+      // thread holds keys k0 + g (e = 0, 1) and + 8 (e = 2, 3), queries q0 +
+      // 8j + 2tq + (e & 1); the per-query values and the dropout mask first,
+      // so that their loads pass under the products
+      float l_q[2][2], d_q[2][2], dmr[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int t = q0 + j * 8 + 2 * tq + h;
+          const bool tin = t < T;
+          l_q[j][h] = tin ? lse[(size_t)bh * T + t] : 0.f;
+          d_q[j][h] = tin ? dvec[(size_t)bh * T + t] : 0.f;
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            dmr[j][2 * r + h] = dm && tin && key_in[r] ? dm[(size_t)t * T + k0 + g + 8 * r] : 1.f;
+        }
+      float s[2][4], gt[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = gt[j][e] = 0.f;
+      sg_bf16<DP>(afrag, sq, sdo, LD, lane, s, gt);  // S^T, G^T
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // s <- pt, gt <- ds (0 outside the sequence); bf16 when packed
+          const int h = e & 1, r = e >> 1;
+          const int t = q0 + j * 8 + 2 * tq + h, u = k0 + g + 8 * r;
+          float pt = 0.f, ds = 0.f;
+          if (t < T && key_in[r]) {
+            const int off = u - t;
+            float x = s[j][e], gv = gt[j][e];
+            if (win && off >= -window && off <= window) {
+              const float* row = band + ((size_t)bh * T + t) * 2 * win;
+              x += row[off + window];
+              gv += row[win + off + window];
+            }
+            if ((causal && off > 0) || key_masked[r]) x = NEG;
+            const float p = round_to<bf16>(expf(x - l_q[j][h]));
+            pt = p * dmr[j][e];
+            ds = p * (__fmul_rn(gv, dmr[j][e]) - d_q[j][h]);
+          }
+          s[j][e] = pt;
+          gt[j][e] = ds;
+        }
+      uint32_t a[4];
+      pack_a(a, s);
+      a_times_rows<NN / 2>(adv, a, sdo, LD, c0 / 16, lane);  // dv += pt^T . dout
+      pack_a(a, gt);
+      a_times_rows<NN / 2>(adk, a, sq, LD, c0 / 16, lane);  // dk += ds^T . q
+    }
+    __syncthreads();  // this stage is read: it may be refilled
+  }
+  cp_async_wait<0>();
+
+  // the warps with qs > 0 park their sums in the stages (lane-major, no bank
+  // conflicts), the warp with qs = 0 adds them and stores
+  constexpr int PARK = 2 * NN * 4 * 32;  // floats a warp parks
+  float* park = reinterpret_cast<float*>(stages) + (size_t)cs * (BF_WARPS - 1) * PARK;
+  if (qs > 0)
+#pragma unroll
+    for (int n = 0; n < NN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        park[(qs - 1) * PARK + (n * 4 + e) * 32 + lane] = adk[n][e];
+        park[(qs - 1) * PARK + ((NN + n) * 4 + e) * 32 + lane] = adv[n][e];
+      }
+  __syncthreads();
+  if (qs > 0) return;
+  for (int o = 1; o < BF_WARPS; ++o) {
+    const float* other = park + (o - 1) * PARK;
+#pragma unroll
+    for (int n = 0; n < NN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        adk[n][e] += other[(n * 4 + e) * 32 + lane];
+        adv[n][e] += other[((NN + n) * 4 + e) * 32 + lane];
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int u = k0 + g + 8 * r;
+    if (u >= T) continue;
+#pragma unroll
+    for (int n = 0; n < NN; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = c0 + n * 8 + 2 * tq + h;
+        if (c >= D) continue;
+        dk[base + (size_t)u * D + c] = from_f<bf16>(adk[n][2 * r + h]);
+        dv[base + (size_t)u * D + c] = from_f<bf16>(adv[n][2 * r + h]);
+      }
+  }
+}
+
+template <int DP>
+int launch_q_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* rel_k, const bf16* rel_v,
+                  const float* kmask, const float* dmask, const bf16* dout, const float* lse, bf16* dq,
+                  float* dvec, float* band, float* drel_part, int bh, int t, int d, int window, int causal,
+                  int skip_upper, int vec, cudaStream_t s) {
+  const size_t smem = Bf16Tile<DP>::bytes_q(window >= 0 ? 2 * window + 1 : 0, d);
+  cudaError_t e = cudaFuncSetAttribute(bwd_q_bf16<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  rel_attn_bwd_q<<<dim3((t + BQ - 1) / BQ, bh), NT, smem, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)rel_k, (const bf16*)rel_v, kmask, dmask,
-      (const bf16*)dout, lse, (bf16*)dq, dvec, band, drel_part, t, d, window, causal, skip_upper);
+  bwd_q_bf16<DP><<<dim3((t + 15) / 16, bh), 32 * BF_WARPS, smem, s>>>(
+      q, k, v, rel_k, rel_v, kmask, dmask, dout, lse, dq, dvec, band, drel_part, t, d, window, causal, skip_upper,
+      vec);
   return (int)cudaGetLastError();
 }
 
-int launch_fma_kv(const void* q, const void* k, const void* v, const float* kmask, const float* dmask,
-                  const void* dout, const float* lse, const float* dvec, const float* band, void* dk, void* dv,
-                  int bh, int t, int d, int window, int causal, int skip_upper, size_t smem, cudaStream_t s) {
-  cudaError_t e = cudaFuncSetAttribute(rel_attn_bwd_kv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int DP>
+int launch_kv_bf16(const bf16* q, const bf16* k, const bf16* v, const float* kmask, const float* dmask,
+                   const bf16* dout, const float* lse, const float* dvec, const float* band, bf16* dk, bf16* dv,
+                   int bh, int t, int d, int window, int causal, int skip_upper, int vec, cudaStream_t s) {
+  constexpr size_t smem = Bf16Tile<DP>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(bwd_kv_bf16<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  rel_attn_bwd_kv<<<dim3((t + BK - 1) / BK, bh), NT, smem, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, kmask, dmask, (const bf16*)dout, lse, dvec, band, (bf16*)dk,
-      (bf16*)dv, t, d, window, causal, skip_upper);
+  bwd_kv_bf16<DP><<<dim3((t + 15) / 16, bh), 32 * BF_WARPS * KV_CSPLIT<DP>, smem, s>>>(
+      q, k, v, kmask, dmask, dout, lse, dvec, band, dk, dv, t, d, window, causal, skip_upper, vec);
   return (int)cudaGetLastError();
 }
 
@@ -989,10 +1138,10 @@ int by_dp(int d, A... a) {
   return F<MAXD>::run(a...);
 }
 template <int DP>
-struct Smem {  // fp32: (pass (a), pass (b)) bytes
-  static int run(int win, int d, size_t* kv) {
-    *kv = KvTile<DP>::BYTES;
-    return (int)QTile<DP>::bytes(win, d);
+struct Smem {  // (pass (a), pass (b)) bytes of each type
+  static int run(int is_bf16, int win, int d, size_t* kv) {
+    *kv = is_bf16 ? Bf16Tile<DP>::BYTES : KvTile<DP>::BYTES;
+    return (int)(is_bf16 ? Bf16Tile<DP>::bytes_q(win, d) : QTile<DP>::bytes(win, d));
   }
 };
 template <int DP>
@@ -1006,6 +1155,21 @@ struct LaunchFp32 {
     if (e) return e;
     return launch_kv_tf32<DP>(q, k, v, kmask, dmask, dout, lse, dvec, band, dk, dv, bh, t, d, window, causal,
                               skip_upper, s);
+  }
+};
+template <int DP>
+struct LaunchBf16 {
+  static int run(const bf16* q, const bf16* k, const bf16* v, const bf16* rel_k, const bf16* rel_v,
+                 const float* kmask, const float* dmask, const bf16* dout, const float* lse, bf16* dq, bf16* dk,
+                 bf16* dv, float* dvec, float* band, float* drel_part, int bh, int t, int d, int window,
+                 int causal, int skip_upper, cudaStream_t s) {
+    // 16-byte cp.async needs rows of whole 16-byte chunks and aligned tensors
+    const int vec = d % 8 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout) % 16 == 0;
+    const int e = launch_q_bf16<DP>(q, k, v, rel_k, rel_v, kmask, dmask, dout, lse, dq, dvec, band, drel_part,
+                                    bh, t, d, window, causal, skip_upper, vec, s);
+    if (e) return e;
+    return launch_kv_bf16<DP>(q, k, v, kmask, dmask, dout, lse, dvec, band, dk, dv, bh, t, d, window, causal,
+                              skip_upper, vec, s);
   }
 };
 
@@ -1027,20 +1191,17 @@ extern "C" int sovits_rel_attention_bwd(
   if (window >= 0 && (!rel_k || !rel_v || !band || !drel_part)) return (int)cudaErrorInvalidValue;
   const int win = window >= 0 ? 2 * window + 1 : 0;
   const int skip_upper = causal && kmask == nullptr;
-  size_t want_q = smem_fma_q(d, win), want_kv = smem_fma_kv(d, win);
-  const int q_rows = is_bf16 ? BQ : Q_ROWS, kv_keys = is_bf16 ? BK : KV_KEYS;
-  if (!is_bf16) want_q = by_dp<Smem>(d, win, d, &want_kv);
+  size_t want_kv = 0;
+  const size_t want_q = by_dp<Smem>(d, is_bf16, win, d, &want_kv);
+  const int q_rows = is_bf16 ? 16 : Q_ROWS, kv_keys = is_bf16 ? 16 : KV_KEYS;
   if (q_blocks != (t + q_rows - 1) / q_rows || kv_blocks != (t + kv_keys - 1) / kv_keys ||
       (size_t)smem_q != want_q || (size_t)smem_kv != want_kv)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16) {
-    const int e = launch_fma_q(q, k, v, rel_k, rel_v, kmask, dmask, dout, lse, dq, dvec, band, drel_part, bh, t,
-                               d, window, causal, skip_upper, smem_q, s);
-    if (e) return e;
-    return launch_fma_kv(q, k, v, kmask, dmask, dout, lse, dvec, band, dk, dv, bh, t, d, window, causal, skip_upper,
-                         smem_kv, s);
-  }
+  if (is_bf16)
+    return by_dp<LaunchBf16>(d, (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)rel_k,
+                             (const bf16*)rel_v, kmask, dmask, (const bf16*)dout, lse, (bf16*)dq, (bf16*)dk,
+                             (bf16*)dv, dvec, band, drel_part, bh, t, d, window, causal, skip_upper, s);
   return by_dp<LaunchFp32>(d, (const float*)q, (const float*)k, (const float*)v, (const float*)rel_k,
                            (const float*)rel_v, kmask, dmask, (const float*)out, (const float*)dout, lse,
                            (float*)dq, (float*)dk, (float*)dv, dvec, band, drel_part, bh, t, d, window,

@@ -34,11 +34,13 @@ from . import build
 
 NEG = -1e4  # the reference's masking constant
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may opt in to on an H100
-# the fp32 backward kernel's tiling (csrc/rel_attention_bwd.cu): query rows per
-# pass-(a) block and keys per tile it streams (two in flight); keys per
-# pass-(b) block and query rows per tile it streams (two in flight)
+# the backward kernel's tiling (csrc/rel_attention_bwd.cu). fp32: query rows
+# per pass-(a) block and keys per tile it streams (two in flight); keys per
+# pass-(b) block and query rows per tile it streams (two in flight). bf16:
+# rows a block of either pass owns, and rows per tile it streams
 _Q_ROWS, _BKT = 32, 16
 _KV_KEYS, _QT = 32, 32
+_BF_ROWS, _BF_TILE = 16, 64
 
 
 def _diag_rows(off: int, t: int) -> slice:
@@ -141,12 +143,14 @@ class BwdPlan:
     """How the backward kernel tiles one call: pass (a) (dq, D, the rel-table
     partials) in blocks of ``q_rows`` query rows, one partial each; pass (b)
     (dk, dv) in blocks of ``kv_keys`` keys; ``smem_q``/``smem_kv`` bytes of
-    shared memory a block."""
+    shared memory a block; ``row_bytes`` the row stride of the streamed
+    tiles of pass (a) and of pass (b), in bytes."""
 
     q_rows: int
     kv_keys: int
     smem_q: int
     smem_kv: int
+    row_bytes: tuple[int, int]
 
     def blocks(self, t: int) -> tuple[int, int]:
         """Blocks along T of pass (a) and of pass (b), each covering T."""
@@ -155,25 +159,29 @@ class BwdPlan:
 
 def bwd_plan(d: int, window: int | None, dtype: torch.dtype) -> BwdPlan:
     """The tiling of ``csrc/rel_attention_bwd.cu`` for head width ``d``, which
-    its entry point checks again. bf16 runs FMA passes on fp32 tiles of d + 1
-    words a row: (a) 32 query rows against 64-key tiles, (b) 64 keys against
-    32-row query tiles. fp32 runs on the tensor cores, rows of d zero-padded
-    to 32, 64, 96 or 128: (a) 32 query rows (q and dout resident, rows + 8
-    words) against double-buffered 16-key K and V tiles; (b) 32 keys (K and V
-    resident, rows + 4 words) against double-buffered 32-row q and dout
-    tiles. Both add fp32 band tables of 2w+1 entries a row."""
+    its entry point checks again. Both types run on the tensor cores, rows of
+    d zero-padded to dp = 32, 64, 96 or 128. fp32: (a) 32 query rows (q and
+    dout resident, rows of dp + 8 words) against double-buffered 16-key K
+    and V tiles, then fp32 band tables of 2w+1 entries a row; (b) 32 keys (K
+    and V resident, rows of dp + 4 words) against double-buffered 32-row q
+    and dout tiles. bf16: a block of either pass owns 16 rows ((a) query
+    rows, (b) keys; two tensors resident) against double-buffered 64-row
+    tiles of the other two, rows of dp + 8 elements (16-byte aligned, an
+    odd number of 16-byte chunks: ldmatrix without bank conflicts); (a)
+    adds the band tables and 4 warps' parts of D."""
     if dtype not in (torch.float32, torch.bfloat16) or not 1 <= d <= 128:
         raise ValueError(f"bwd_plan: float32 or bfloat16 and 1 <= D <= 128, got {dtype}, {d}")
     win = 0 if window is None else 2 * window + 1
-    if dtype == torch.bfloat16:  # q, dout, K, V tiles of d + 1 words a row, the ds (and pt) tiles of 65
-        ld = d + 1
-        plan = BwdPlan(32, 64, 4 * (2 * 32 * ld + 2 * 64 * ld + 32 * 65 + 2 * win * d + 4 * 32 * win + 2 * 32),
-                       4 * (2 * 64 * ld + 2 * 32 * ld + 2 * 32 * 65 + 2 * 32 * win + 2 * 32))
+    dp = -(-d // 32) * 32
+    if dtype == torch.bfloat16:
+        row, warps = 2 * (dp + 8), _BF_TILE // 16
+        tiles = row * (2 * _BF_ROWS + 4 * _BF_TILE)
+        plan = BwdPlan(_BF_ROWS, _BF_ROWS, tiles + 4 * (2 * win * d + 4 * _BF_ROWS * win + warps * _BF_ROWS),
+                       tiles, (row, row))
     else:
-        dp = -(-d // 32) * 32
         plan = BwdPlan(_Q_ROWS, _KV_KEYS,
                        4 * ((2 * _Q_ROWS + 4 * _BKT) * (dp + 8) + 2 * win * d + 4 * _Q_ROWS * win),
-                       4 * (2 * _KV_KEYS + 4 * _QT) * (dp + 4))
+                       4 * (2 * _KV_KEYS + 4 * _QT) * (dp + 4), (4 * (dp + 8), 4 * (dp + 4)))
     if max(plan.smem_q, plan.smem_kv) > SMEM_LIMIT:
         raise ValueError(f"bwd_plan: window {window} needs more shared memory than a block has")
     return plan

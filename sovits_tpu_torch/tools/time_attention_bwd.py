@@ -1,7 +1,8 @@
 """Time the attention backward kernel (K2, ``csrc/rel_attention_bwd.cu``) at
-the fp32 training step's shapes, with ``chip_smoke.py``'s own harness
-(``times_training_attention``: CUDA events and the profiler's device time of
-each of K2's two passes, beside the plain version's events), so that another
+the fp32 training step's shapes, then in bf16 at bench.py's bf16 step's, with
+``chip_smoke.py``'s own harness (``times_training_attention``, then
+``times_bf16_backward``: CUDA events and the profiler's device time of each
+of K2's two passes, beside the plain version's events), so that another
 tree of the port (a parent, unpacked anywhere) is timed exactly as this one:
 
     python sovits_tpu_torch/tools/time_attention_bwd.py [TREE]
@@ -38,7 +39,7 @@ def main(argv: list[str] | None = None) -> dict:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     print(f"tree: {tree}", flush=True)
-    return chip_smoke.times_training_attention()
+    return {**chip_smoke.times_training_attention(), **chip_smoke.times_bf16_backward()}
 
 
 if __name__ == "__main__":

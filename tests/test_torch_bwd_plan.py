@@ -22,6 +22,21 @@ def test_both_passes_fit_shared_memory_at_every_width(dtype, window):
         assert 0 < plan.smem_q <= SMEM_LIMIT and 0 < plan.smem_kv <= SMEM_LIMIT, (d, plan)
 
 
+@pytest.mark.parametrize("window", [4, None], ids=["w4", "causal"])
+def test_bf16_rows_suit_ldmatrix_and_cp_async(window):
+    """bf16 tiles: every row starts on a 16-byte boundary (cp.async and
+    ldmatrix need it) and spans an odd number of 16-byte chunks, so the 8
+    rows an ldmatrix phase reads hit 8 different bank groups; both passes
+    within a block's shared memory at every width."""
+    for d in range(1, 129):
+        plan = bwd_plan(d, window, torch.bfloat16)
+        for row in plan.row_bytes:
+            assert row % 16 == 0 and (row // 16) % 2 == 1, (d, row)
+            assert row >= 2 * d
+        assert 0 < plan.smem_q <= SMEM_LIMIT and 0 < plan.smem_kv <= SMEM_LIMIT, (d, plan)
+        assert plan.smem_kv % 16 == 0 and plan.smem_q >= plan.smem_kv
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=_id)
 def test_blocks_cover_t(dtype):
     for d in (1, 33, 96, 128):
