@@ -104,8 +104,8 @@
 // fp32 600 warps (16 rows each) leave 4-5 warps an SM, each issuing
 // dependent mma chains (pass (b) splits each 16 keys' query tiles over two
 // warps: 1200); bf16 runs 4 warps per 16 rows in both passes (1536 each at
-// T 512). Pre-split tiles in shared memory, wgmma and an in-kernel Philox
-// mask are later work.
+// T 512), three blocks an SM. Pre-split tiles in shared memory, wgmma and an
+// in-kernel Philox mask are later work.
 //
 // Plain C interface, bound with ctypes; returns cudaGetLastError().
 
@@ -635,6 +635,11 @@ int launch_q_tf32(const float* q, const float* k, const float* v, const float* r
 // takes 16 rows of every tile.
 constexpr int BF_WARPS = 4;
 constexpr int BF_TILE = 16 * BF_WARPS;
+// Blocks of 128 threads an SM holds (pass (b) at DP = 128: half as many of
+// 256), which caps a thread at 168 registers: at DP = 96 and T 512 each
+// pass's 384 blocks then run in one wave on 132 SMs, not 1.45 (0.131 ms
+// against 0.210 on an H100; the cap costs no spill)
+constexpr int BF_BLOCKS_PER_SM = 3;
 
 // Shared memory of both passes, bf16 rows of DP + 8 elements: 16-byte
 // aligned for cp.async and ldmatrix, and an odd number of 16-byte chunks, so
@@ -720,7 +725,7 @@ __device__ __forceinline__ void a_times_rows(float acc[][4], const uint32_t a[4]
 // registers up to DP = 96), K and V as B fragments by ldmatrix; two C tiles
 // of ds are one A fragment of dq += ds . K, K through ldmatrix.trans.
 template <int DP>
-__global__ void __launch_bounds__(32 * BF_WARPS) bwd_q_bf16(
+__global__ void __launch_bounds__(32 * BF_WARPS, BF_BLOCKS_PER_SM) bwd_q_bf16(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ rel_k, const bf16* __restrict__ rel_v, const float* __restrict__ kmask,
     const float* __restrict__ dmask, const bf16* __restrict__ dout, const float* __restrict__ lse,
@@ -952,7 +957,7 @@ __global__ void __launch_bounds__(32 * BF_WARPS) bwd_q_bf16(
 // ds^T . q, dout and q through ldmatrix.trans. The warps' sums are added in
 // shared memory at the end, in a fixed order.
 template <int DP>
-__global__ void __launch_bounds__(32 * BF_WARPS * KV_CSPLIT<DP>, 1) bwd_kv_bf16(
+__global__ void __launch_bounds__(32 * BF_WARPS * KV_CSPLIT<DP>, BF_BLOCKS_PER_SM / KV_CSPLIT<DP>) bwd_kv_bf16(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const float* __restrict__ kmask, const float* __restrict__ dmask, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ dvec, const float* __restrict__ band,
