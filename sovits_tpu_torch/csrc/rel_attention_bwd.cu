@@ -637,8 +637,8 @@ constexpr int BF_WARPS = 4;
 constexpr int BF_TILE = 16 * BF_WARPS;
 // Blocks of 128 threads an SM holds (pass (b) at DP = 128: half as many of
 // 256), which caps a thread at 168 registers: at DP = 96 and T 512 each
-// pass's 384 blocks then run in one wave on 132 SMs, not 1.45 (0.131 ms
-// against 0.210 on an H100; the cap costs no spill)
+// pass's 384 blocks then run in one wave on 132 SMs, not 1.45 (0.133 ms of
+// device time against 0.210 on an H100; the cap costs no spill)
 constexpr int BF_BLOCKS_PER_SM = 3;
 
 // Shared memory of both passes, bf16 rows of DP + 8 elements: 16-byte
