@@ -46,7 +46,7 @@ SIGNATURES = {
         "sovits_resblock_trio": [_P] * 5 + [_I] * 4 + [_IP] * 4 + [_I] * 5 + [_P],
     },
     "trio_shift": {
-        "sovits_trio_shift": [_P] * 3 + [_I] * 3 + [_P],
+        "sovits_trio_shift": [_P] * 3 + [_I] * 7 + [_P],
     },
 }
 

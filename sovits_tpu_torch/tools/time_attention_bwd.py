@@ -21,7 +21,10 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[2]
 
 
-def main(argv: list[str] | None = None) -> dict:
+def use_tree(argv: list[str] | None = None):
+    """Put TREE (argv[0], default this repository) first for
+    ``sovits_tpu_torch``, switch TF32 off, print the card and the tree;
+    returns ``chip_smoke``, whose timing functions then time that tree."""
     argv = sys.argv[1:] if argv is None else argv
     tree = Path(argv[0]).resolve() if argv else REPO
     sys.path.insert(0, str(REPO))
@@ -39,6 +42,11 @@ def main(argv: list[str] | None = None) -> dict:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     print(f"tree: {tree}", flush=True)
+    return chip_smoke
+
+
+def main(argv: list[str] | None = None) -> dict:
+    chip_smoke = use_tree(argv)
     return {**chip_smoke.times_training_attention(), **chip_smoke.times_bf16_backward()}
 
 
