@@ -53,7 +53,10 @@
 // mid + lo (24 bits of its 24-bit mantissa), and every 16-deep step sums
 // lo.M + mid.M + hi.M from zero and then adds that to its fp32 total: the
 // tensor cores do not round their own sums to nearest. The last round
-// stores the fp32 sums; they are rounded to bf16 once, on the way out.
+// stores the fp32 sums; they are rounded to bf16 once, on the way out. The
+// same structure as 2xTF32 (hi + lo in tf32, two m16n8k8 products per
+// 8-deep step: 4 MMA issue slots per 16 deep against 3) was 1.1x slower on
+// an H100 and took 254 registers against 208 (PERF.md, PR 11).
 //
 // Plain C interface, bound with ctypes; returns cudaGetLastError().
 
@@ -191,52 +194,6 @@ __device__ __forceinline__ void tap(float (&acc)[MI][NN][4], const float* win, c
   }
 }
 
-// The fp32 variant as 2xTF32 (x = hi + lo, tf32 parts; the bf16 matrices
-// are exact in tf32), m16n8k8, each 8-deep step's two products summed from
-// zero: built beside the three-bf16 scheme to compare the two.
-__device__ __forceinline__ void mma_tf32_from_zero(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%10,%10,%10,%10};\n"
-      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
-}
-__device__ __forceinline__ void tap_2xtf32(float (&acc)[MI][NN][4], const float* win, const bf16* wb, int shift,
-                                    int lo, int wm, int n0, int n_act, int cap) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
-#pragma unroll 1
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t b[NN][2];
-    load_b(b, wb, kk, n0);
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi) {
-      if (mi >= n_act) break;
-      const int r0 = lo + (wm + mi * WM) * 16 + shift;
-      const float* pa = win + min(r0 + g, cap - 1) * LD + kk * 16 + 2 * tq;
-      const float* pb = win + min(r0 + g + 8, cap - 1) * LD + kk * 16 + 2 * tq;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float2 va = *reinterpret_cast<const float2*>(pa + 8 * h);
-        const float2 vb = *reinterpret_cast<const float2*>(pb + 8 * h);
-        uint32_t ah[4], al[4];
-        split(va.x, ah[0], al[0]);
-        split(vb.x, ah[1], al[1]);
-        split(va.y, ah[2], al[2]);
-        split(vb.y, ah[3], al[3]);
-#pragma unroll
-        for (int n = 0; n < NN; ++n) {
-          const uint32_t b0 = b[n][h] << 16, b1 = b[n][h] & 0xffff0000u;
-          float t[4];
-          mma_tf32_from_zero(t, al, b0, b1);
-          mma_tf32(t, ah, b0, b1);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mi][n][e] += t[e];
-        }
-      }
-    }
-  }
-}
-
 // The round's result for window row r, columns c and c + 1: the next
 // round's A (lrelu, in the window's type), or on the last round the sum
 // (bf16 rounded to bf16 here; fp32 on the way out).
@@ -255,7 +212,7 @@ __device__ __forceinline__ void store_pair(float* p, float y0, float y1, bool la
 // Round ci over window rows [lo, hi): three taps, then, once every warp has
 // read the window, the epilogue in place. On entry matrix 3 ci is in flight
 // into wsm[buf].
-template <typename S, bool TF32>
+template <typename S>
 __device__ __forceinline__ void conv_round(S* win, bf16* wsm, int& buf, const bf16* __restrict__ mats, int ci,
                                            int lo, int hi, int cap) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
@@ -280,11 +237,7 @@ __device__ __forceinline__ void conv_round(S* win, bf16* wsm, int& buf, const bf
     cp_async_commit();
     const bf16* wb = wsm + buf * WBUF;
     buf ^= 1;
-    if constexpr (TF32) {
-      if (n_act > 0) tap_2xtf32(acc, win, wb, j - 1, lo, wm, n0, n_act, cap);
-    } else {
-      if (n_act > 0) tap(acc, win, wb, j - 1, lo, wm, n0, n_act, cap);
-    }
+    if (n_act > 0) tap(acc, win, wb, j - 1, lo, wm, n0, n_act, cap);
   }
   __syncthreads();  // every warp has read the window
   const bool last = ci + 1 == N_CONV;
@@ -324,9 +277,10 @@ __device__ __forceinline__ uint4 load8(const float* p) {
   return make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
 }
 
-template <typename S, bool TF32>
-__device__ __forceinline__ void body(const bf16* __restrict__ xp, const bf16* __restrict__ mats,
-                                     bf16* __restrict__ out, int rows, int tt) {
+template <typename S>
+__global__ void __launch_bounds__(NT, 1)
+    trio_shift_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ mats, bf16* __restrict__ out,
+                      int rows, int tt) {
   extern __shared__ __align__(16) unsigned char smraw[];
   bf16* wsm = reinterpret_cast<bf16*>(smraw);  // two staged taps
   S* win = reinterpret_cast<S*>(wsm + 2 * WBUF);  // the window [tt + 24][LD]
@@ -352,7 +306,7 @@ __device__ __forceinline__ void body(const bf16* __restrict__ xp, const bf16* __
     }
     store8(win + r * LD + c, v);
   }
-  for (int ci = 0; ci < N_CONV; ++ci) conv_round<S, TF32>(win, wsm, buf, mats, ci, ci + 1, w_rows - ci - 1, cap);
+  for (int ci = 0; ci < N_CONV; ++ci) conv_round<S>(win, wsm, buf, mats, ci, ci + 1, w_rows - ci - 1, cap);
   __syncthreads();
   bf16* dst = out + (size_t)t0 * D;
   for (int i = threadIdx.x; i < n * (D / 8); i += NT) {
@@ -363,25 +317,14 @@ __device__ __forceinline__ void body(const bf16* __restrict__ xp, const bf16* __
 }
 
 template <typename S>
-__global__ void __launch_bounds__(NT, 1)
-    trio_shift_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ mats, bf16* __restrict__ out,
-                      int rows, int tt) {
-  body<S, false>(xp, mats, out, rows, tt);
-}
-
-__global__ void __launch_bounds__(NT, 1)
-    trio_shift_2xtf32_kernel(const bf16* __restrict__ xp, const bf16* __restrict__ mats, bf16* __restrict__ out,
-                             int rows, int tt) {
-  body<float, true>(xp, mats, out, rows, tt);
-}
-
-template <typename S, typename Kernel>
-int launch(Kernel kernel, const void* xp, const void* mats, void* out, int rows, int tt, int window, int smem,
-           int blocks, cudaStream_t stream) {
+int launch(const void* xp, const void* mats, void* out, int rows, int tt, int window, int smem, int blocks,
+           cudaStream_t stream) {
   if (window != tt + 2 * N_CONV || window > PASS || (size_t)smem != smem_bytes<S>(window) || smem > SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
-  if (cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) return (int)e;
-  kernel<<<blocks, NT, smem, stream>>>((const bf16*)xp, (const bf16*)mats, (bf16*)out, rows, tt);
+  if (cudaError_t e = cudaFuncSetAttribute(trio_shift_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           smem))
+    return (int)e;
+  trio_shift_kernel<S><<<blocks, NT, smem, stream>>>((const bf16*)xp, (const bf16*)mats, (bf16*)out, rows, tt);
   return (int)cudaGetLastError();
 }
 
@@ -389,7 +332,7 @@ int launch(Kernel kernel, const void* xp, const void* mats, void* out, int rows,
 
 // xp [rows + 32, D] bf16 (at least; 16-byte aligned), mats [36, D, D] bf16,
 // out [rows, D] bf16. fp32_stage = 0: the bf16 variant ('concat', 'roll',
-// 'scratch'); 1: 'fp32in' (three bf16 products); 2: 'fp32in' as 2xTF32. The plan (profile_trio_shift.py::
+// 'scratch'); 1: 'fp32in'. The plan (profile_trio_shift.py::
 // trio_shift_plan): tt output rows per block, window = tt + 24 rows, smem
 // bytes as the variant lays out that window, blocks = ceil(rows / tt).
 // Checked here, then trusted.
@@ -397,8 +340,6 @@ extern "C" int sovits_trio_shift(const void* xp, const void* mats, void* out, in
                                  int tt, int window, int smem, int blocks, void* stream) {
   if (rows < 1 || d != D || tt < 1 || blocks != (rows + tt - 1) / tt) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (fp32_stage == 2)
-    return launch<float>(trio_shift_2xtf32_kernel, xp, mats, out, rows, tt, window, smem, blocks, s);
-  if (fp32_stage) return launch<float>(trio_shift_kernel<float>, xp, mats, out, rows, tt, window, smem, blocks, s);
-  return launch<bf16>(trio_shift_kernel<bf16>, xp, mats, out, rows, tt, window, smem, blocks, s);
+  if (fp32_stage) return launch<float>(xp, mats, out, rows, tt, window, smem, blocks, s);
+  return launch<bf16>(xp, mats, out, rows, tt, window, smem, blocks, s);
 }

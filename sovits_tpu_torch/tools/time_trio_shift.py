@@ -7,57 +7,18 @@ tree of the port (a parent, unpacked anywhere) is timed exactly as this one:
     python sovits_tpu_torch/tools/time_trio_shift.py [TREE]
 
 TREE (default: this repository) is the directory whose ``sovits_tpu_torch``
-is timed. Run it as a script, not with ``-m``. On this repository's tree it
-also checks and times the fp32 variant as 2xTF32 (the kernel's mode 2),
-beside the three-bf16 scheme, in turns. Prints the card's name and power
-limit first.
+is timed. Run it as a script, not with ``-m``. Prints the card's name and
+power limit first.
 """
 
 from __future__ import annotations
 
 
-def time_2xtf32(chip_smoke, results) -> None:
-    import torch
-
-    from sovits_tpu_torch.ops import build
-    from sovits_tpu_torch.tools import profile_trio_shift as k4
-
-    xp, mats = k4.make_inputs(128, 55104, 0, "cuda")
-    rows = k4.out_rows(xp)
-    plan = k4.trio_shift_plan(rows, "fp32", torch.cuda.get_device_properties(0).multi_processor_count)
-    lib = build.load("trio_shift").lib
-    out = torch.empty(1, rows, 128, device="cuda", dtype=torch.bfloat16)
-
-    def call(mode):
-        return lambda: build.check(lib.sovits_trio_shift(
-            xp.data_ptr(), mats.data_ptr(), out.data_ptr(), rows, 128, mode, plan.tt, plan.window, plan.smem,
-            plan.blocks, torch.cuda.current_stream().cuda_stream), "trio_shift")
-
-    want = k4.trio_shift_plain(xp, mats, "fp32")
-    work = k4.flops(rows, 128)
-    for mode, name, key in ((2, "2xtf32", "trio_shift_2xtf32"), (1, "3xbf16", "trio_shift_kernel"),
-                            (1, "3xbf16", "trio_shift_kernel"), (2, "2xtf32", "trio_shift_2xtf32")):
-        call(mode)()
-        torch.cuda.synchronize()
-        err = (out.float() - want.float()).abs().max().item()
-        ms = k4._time(call(mode), 20)
-        ms_d, launch = chip_smoke._device_ms(call(mode), key)
-        chip_smoke.log("trio-shift-fp32", scheme=name, kernel_ms=f"{ms:.4f}", kernel_device_ms=f"{ms_d:.4f}",
-                       device_tflops=f"{work / ms_d / 1e9:.3f}", max_abs_err=f"{err:.3e}",
-                       not_bit_equal=f"{k4.mismatch(out, want):.5f}", **launch)
-
-
 def main(argv: list[str] | None = None) -> list[dict]:
     from time_attention_bwd import use_tree  # beside this script, which runs as a script
 
-    chip_smoke = use_tree(argv)
-    results = chip_smoke.phase_trio_shift()
-    if not argv:
-        time_2xtf32(chip_smoke, results)
-    return results
+    return use_tree(argv).phase_trio_shift()
 
 
 if __name__ == "__main__":
-    import sys
-
-    main(sys.argv[1:])
+    main()
