@@ -127,7 +127,9 @@ __device__ __forceinline__ void load_b(uint32_t (&b)[NN][2], const bf16* wb, int
 }
 
 // One tap of a round, bf16: acc[r] += A[r + shift] . W over this warp's row
-// tiles (first row r0 of each: lo + (wm + mi WM) 16) and columns.
+// tiles (first row of each: lo + (wm + mi WM) 16) and columns. A rows past
+// the window's cap are clamped into it; tiles past the round's rows are
+// loaded and not multiplied.
 __device__ __forceinline__ void tap(float (&acc)[MI][NN][4], const bf16* win, const bf16* wb, int shift,
                                     int lo, int wm, int n0, int n_act, int cap) {
   const int lane = threadIdx.x & 31;
@@ -135,14 +137,17 @@ __device__ __forceinline__ void tap(float (&acc)[MI][NN][4], const bf16* win, co
   for (int kk = 0; kk < D / 16; ++kk) {
     uint32_t b[NN][2];
     load_b(b, wb, kk, n0);
+    uint32_t a[MI][4];  // every tile's A before the MMAs: faster on an H100 than one tile at a time
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+      const int r = min(lo + (wm + mi * WM) * 16 + shift + (lane & 7) + ((lane >> 3) & 1) * 8, cap - 1);
+      ldsm_x4(a[mi], win + r * LD + kk * 16 + (lane >> 4) * 8);
+    }
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi) {
       if (mi >= n_act) break;
-      const int r = min(lo + (wm + mi * WM) * 16 + shift + (lane & 7) + ((lane >> 3) & 1) * 8, cap - 1);
-      uint32_t a[4];
-      ldsm_x4(a, win + r * LD + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
-      for (int n = 0; n < NN; ++n) mma_bf16(acc[mi][n], a, b[n][0], b[n][1]);
+      for (int n = 0; n < NN; ++n) mma_bf16(acc[mi][n], a[mi], b[n][0], b[n][1]);
     }
   }
 }
