@@ -528,11 +528,17 @@ def _device_ms_each(fn, keys: tuple[str, ...], iters: int = 20) -> dict[str, tup
     """Device time per call of fn, from one torch.profiler window over `iters`
     calls after a warm-up, of the kernels whose name holds each key, and the
     launch attributes (grid, block, shared memory, ...) the profiler recorded
-    for the first such kernel. CUDA events around a kernel of a few tens of
+    for the first such kernel, with the kernel records it saw against the
+    calls (`device_records`). CUDA events around a kernel of a few tens of
     microseconds time the wrapper's host work as well: this is the card's own
-    time, printed beside the events' and used nowhere else. CUPTI has once
-    returned a window without a kernel's records on an H100, so a window that
-    misses one is taken once more before this fails."""
+    time, printed beside the events' and used nowhere else. After many
+    windows in one process CUPTI loses kernel records on an H100: whole
+    windows (such a window is taken once more before this fails) or part of
+    one (K4's smoke window kept 14 of 20 launches, PERF.md, PR 11). So the
+    time is the mean of the records seen times the launches per call, the
+    records over the calls rounded up: exact for a key of one kernel
+    launched once a call (every kernel key here); for "" (all of a call's
+    kernels) a lost record can still lower it."""
     fn()
     torch.cuda.synchronize()
     for _ in range(2):
@@ -540,8 +546,9 @@ def _device_ms_each(fn, keys: tuple[str, ...], iters: int = 20) -> dict[str, tup
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = {key: sum(e.self_device_time_total for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key) for key in keys}
+        seen = {key: [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key] for key in keys}
+        us = {key: sum(e.self_device_time_total for e in evs) for key, evs in seen.items()}
         if all(v > 0 for v in us.values()):
             break
     missing = [key for key, v in us.items() if v <= 0]
@@ -554,7 +561,9 @@ def _device_ms_each(fn, keys: tuple[str, ...], iters: int = 20) -> dict[str, tup
     for key in keys:
         args = next((e.get("args", {}) for e in events if e.get("cat") == "kernel" and key in e.get("name", "")), {})
         launch = {ours: str(args[theirs]).replace(" ", "") for theirs, ours in LAUNCH_ARGS.items() if theirs in args}
-        out[key] = (us[key] / iters / 1e3, launch)
+        records = sum(e.count for e in seen[key])
+        launch["device_records"] = f"{records}/{iters}"
+        out[key] = (us[key] / records * -(-records // iters) / 1e3, launch)
     return out
 
 
