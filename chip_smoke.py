@@ -534,7 +534,7 @@ def _device_ms_each(fn, keys: tuple[str, ...], iters: int = 20) -> dict[str, tup
     time, printed beside the events' and used nowhere else. After many
     windows in one process CUPTI loses kernel records on an H100: whole
     windows (such a window is taken once more before this fails) or part of
-    one (K4's smoke window kept 14 of 20 launches, PERF.md, PR 11). So the
+    one (K4's window late in the smoke kept 14 of 20 launches, PERF.md). So the
     time is the mean of the records seen times the launches per call, the
     records over the calls rounded up: exact for a key of one kernel
     launched once a call (every kernel key here); for "" (all of a call's

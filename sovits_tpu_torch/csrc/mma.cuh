@@ -1,7 +1,7 @@
 // The warp-level tensor-core, ldmatrix and cp.async helpers shared by the
 // kernels that run on the H100's tensor cores (rel_attention.cu, K1;
-// rel_attention_bwd.cu, K2; resblock_trio.cu, K3): one copy, so they cannot
-// drift.
+// rel_attention_bwd.cu, K2; resblock_trio.cu, K3; trio_shift.cu, K4): one
+// copy, so they cannot drift.
 
 #pragma once
 

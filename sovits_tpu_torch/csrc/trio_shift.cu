@@ -44,8 +44,9 @@
 // [C + 8] (272-byte rows, 17 chunks of 16 bytes: ldmatrix conflict-free),
 // A by ldmatrix. A round's epilogue stores bf16(lrelu(bf16(sum))), the
 // plain version's next A exactly; the last round stores bf16(sum). Per warp
-// and 16-deep step, 4 ldmatrix.x4 for B and up to 4 for A feed 32 MMAs: 128
-// bytes of shared memory per MMA.
+// and 16-deep step, 4 ldmatrix.x4 for B and 4 for A feed up to 32 MMAs: 128
+// bytes of shared memory per MMA (fp32: 4 ldmatrix.x4 and 16 8-byte A reads
+// per 96 MMAs, 64 bytes).
 //
 // fp32: the window is fp32 [window][C + 8] (8-byte reads conflict-free).
 // The matrices are bf16, so only A needs splitting: each A value read
@@ -56,7 +57,7 @@
 // stores the fp32 sums; they are rounded to bf16 once, on the way out. The
 // same structure as 2xTF32 (hi + lo in tf32, two m16n8k8 products per
 // 8-deep step: 4 MMA issue slots per 16 deep against 3) was 1.1x slower on
-// an H100 and took 254 registers against 208 (PERF.md, PR 11).
+// an H100 and took 254 registers against 208 (PERF.md).
 //
 // Plain C interface, bound with ctypes; returns cudaGetLastError().
 
