@@ -9,13 +9,17 @@ forwards, the attention backward, the fused trio's autograd Function, the
 trio staging microbench's two variants), 4 main path (full-width fp32 Svc
 with seeded random weights answering real requests), 5 card vs CPU on the
 same weights, 6 the bf16 main path (the same requests through a bf16 Svc and
-a bf16 encoder; bf16 against fp32 audio), 7 training (a feature dataset made
+a bf16 encoder; bf16 against fp32 audio), 7 ``slice_inference`` (a 59.5 s
+song of six pieces in fp32 and bf16, each same-bucket group one batched
+dispatch; forced clips, the loudness envelope, a speaker mix, harvest and
+yin, RealTimeVC, one batched dispatch on the card against the CPU, and the
+infer CLI), 8 training (a feature dataset made
 by the port itself, six full-width GAN steps through ``train``, a resume, a
-profiled step), 8 three GAN steps with the fused tail against the same steps
-without it, 9 the bf16 GAN step at bench.py's training configuration (batch
+profiled step), 9 three GAN steps with the fused tail against the same steps
+without it, 10 the bf16 GAN step at bench.py's training configuration (batch
 6 x 512 frames, bf16 synthesizer and discriminator; its first step against
-the same step through fp32 nets), 10 the trio staging microbench at its
-defaults, 11 kernel times beside their bounds. Any failure raises, so the script exits non-zero; the
+the same step through fp32 nets), 11 the trio staging microbench at its
+defaults, 12 kernel times beside their bounds. Any failure raises, so the script exits non-zero; the
 last line is the JSON result the caller reads. Needs a CUDA card; without
 one (or without the repository around it) it fails before printing a result.
 """
@@ -1030,7 +1034,207 @@ def phase_main_bf16(tmp: Path, svc32) -> dict:
         wave_rel_max_abs=f"{rel:.3e}", limits=f"loud-bin L1<{MEL_L1_BF16}, wave<={E2E_REL}", ok=ok)
     if not ok:
         raise AssertionError(f"bf16 and fp32 requests disagree: loud-bin log-mel L1 {l1_loud}, wave {rel}")
-    return total
+    return total, svc
+
+
+SONG_SEGMENTS = (5.5, 8.0, 12.0, 6.0, 9.0, 14.0)  # seconds, 1 s of zeros between
+
+
+def song(sr: int, segments=SONG_SEGMENTS, seed: int = 40) -> np.ndarray:
+    """bench_signal segments separated by 1 s of zeros, each at its own pitch."""
+    parts = []
+    for i, seconds in enumerate(segments):
+        if i:
+            parts.append(np.zeros(sr, np.float32))
+        parts.append(bench_signal(seconds, sr, seed=seed + i, base_hz=150.0 + 12.0 * i))
+    return np.concatenate(parts)
+
+
+def _dispatches(items: list, hop: int) -> list[tuple[int, int]]:
+    """(bucket, padded batch) of each synthesizer launch that Svc's batched
+    pass makes for ``items``, from their buckets as _run_synth_batch groups them."""
+    from sovits_tpu_torch.infer.svc import BUCKETS
+
+    groups: dict = {}
+    for it in items:
+        bucket = next((b for b in BUCKETS if b >= it["n_frames"]), it["n_frames"])
+        groups.setdefault((bucket, it["spk"][0]), []).append(it)
+    out = []
+    for (bucket, _kind), its in sorted(groups.items()):
+        for start in range(0, len(its), 8):
+            n = len(its[start : start + 8])
+            out.append((bucket, 1 << (n - 1).bit_length()))
+    return out
+
+
+def _slice_run(svc, wav: np.ndarray, what: str, bf16: bool = False, **kw) -> tuple[np.ndarray, list]:
+    """One slice_inference call with its front-end and synthesizer time taken
+    apart; checks the output and, per dispatch, 6 K1 and 4 K3 launches of
+    the Svc's type (bf16 or fp32) and no others. Returns (audio, dispatches)."""
+    sr, hop = svc.target_sample, svc.hop_size
+    k1, k3 = ("rel_attention_bf16", "resblock_trio_bf16") if bf16 else ("rel_attention", "resblock_trio")
+    spent = {"front_end_s": 0.0, "synthesizer_s": 0.0}
+    batches: list = []
+
+    def timed(key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            if key == "synthesizer_s":
+                batches.append(a[0])
+            return out
+        return run
+
+    svc._prepare_chunk = timed("front_end_s", svc._prepare_chunk)
+    svc._run_synth_batch = timed("synthesizer_s", svc._run_synth_batch)
+    before = _counts()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        audio = svc.slice_inference(wav, sr, kw.pop("spk", 0), 0, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del svc._prepare_chunk, svc._run_synth_batch
+    got = {k: v - before[k] for k, v in _counts().items()}
+    (items,) = batches
+    dispatches = _dispatches(items, hop)
+    seconds = len(wav) / sr
+    ok = (abs(len(audio) - len(wav)) <= hop * len(items) and audio.dtype == np.float32
+          and np.isfinite(audio).all() and float(np.abs(audio).max()) > 1e-4
+          and got[k1] == 6 * len(dispatches) and got[k3] == 4 * len(dispatches)
+          and sum(got.values()) == got[k1] + got[k3])
+    log("slice", what=repr(what), seconds=f"{seconds:.2f}", chunks=len(items),
+        frames=[it["n_frames"] for it in items], dispatches=dispatches, out_len=len(audio),
+        in_len=len(wav), wall_s=f"{wall:.4f}", rtf=f"{wall / seconds:.5f}",
+        front_end_s=f"{spent['front_end_s']:.4f}", synthesizer_s=f"{spent['synthesizer_s']:.4f}",
+        other_s=f"{wall - spent['front_end_s'] - spent['synthesizer_s']:.4f}",
+        **{k1: got[k1], k3: got[k3]}, peak=f"{np.abs(audio).max():.4f}", ok=ok)
+    if not ok:
+        raise AssertionError(f"slice_inference {what}: bad output or launches {got} "
+                             f"for dispatches {dispatches}")
+    return audio, dispatches
+
+
+def phase_slice(tmp: Path, svc32, svc16) -> tuple[dict, dict]:
+    """Svc.slice_inference at the full width: a 59.5 s song of six pieces in
+    fp32 and in bf16 (slicer, per-chunk front end, one batched synthesizer
+    pass), forced clips with both crossfades, the loudness envelope, a
+    speaker mix, harvest and yin, RealTimeVC, one batched dispatch on the
+    card against the CPU, and the infer CLI on the card. Returns the K1/K3
+    launches of the fp32 runs and of the bf16 song."""
+    from sovits_tpu_torch.infer.spkmix import EXAMPLE_SPK_MIX_MAP
+    from sovits_tpu_torch.infer.svc import RealTimeVC
+
+    t_phase = time.perf_counter()
+    sr = svc32.target_sample
+    wav = song(sr)
+    _reset_counts()
+    _slice_run(svc32, wav, "song fp32 (first run)", f0_predictor="dio")
+    _, dispatches = _slice_run(svc32, wav, "song fp32", f0_predictor="dio")
+    if max(b for _, b in dispatches) < 2:
+        raise AssertionError(f"no dispatch ran a batch: {dispatches}")
+    piece = bench_signal(SONG_SEGMENTS[-1], sr, seed=40 + len(SONG_SEGMENTS) - 1)
+    _slice_run(svc32, piece, "14 s, forced clips lgr 0.75", f0_predictor="dio", clip_seconds=5,
+               lg_num=1, lgr_num=0.75)
+    _slice_run(svc32, piece, "14 s, forced clips lgr 1", f0_predictor="dio", clip_seconds=5,
+               lg_num=1, lgr_num=1)
+    two = song(sr, (5.5, 5.5))
+    _slice_run(svc32, two, "12 s, loudness 0.5", f0_predictor="dio", loudness_envelope_adjustment=0.5)
+    _slice_run(svc32, two, "12 s, speaker mix", f0_predictor="dio", use_spk_mix=True,
+               spk=EXAMPLE_SPK_MIX_MAP)
+    clip = bench_signal(6.0, sr, seed=50)
+    for name in ("harvest", "yin"):
+        _slice_run(svc32, clip, f"6 s, {name}", f0_predictor=name)
+        t0 = time.perf_counter()
+        f0, uv = svc32.f0_predictor_object.compute_f0_uv(clip)
+        host = time.perf_counter() - t0
+        log("slice", f0_predictor=name, clip_s=6.0, host_s=f"{host:.4f}",
+            voiced=f"{uv.mean():.3f}", median_f0=f"{np.median(f0[uv > 0]):.2f}")
+    rt, stream = RealTimeVC(), bench_signal(3.0, 16000, seed=51)
+    for i in range(3):  # a 16 kHz stream, one second a chunk
+        out = rt.process(svc32, 0, 0, stream[i * 16000 : (i + 1) * 16000], 16000, f0_predictor="dio")
+        ok = out.shape == (rt.chunk_len,) and np.isfinite(out).all()
+        log("slice", realtime_chunk=i, out_len=len(out), ok=ok)
+        if not ok:
+            raise AssertionError(f"RealTimeVC chunk {i}: {out.shape}")
+    phase_cli(tmp, sr, svc32.hop_size)
+    slice32 = _counts()
+    _reset_counts()
+    _slice_run(svc16, wav, "song bf16 (first run)", bf16=True, f0_predictor="dio")
+    _slice_run(svc16, wav, "song bf16", bf16=True, f0_predictor="dio")
+    slice16 = _counts()
+    phase_card_vs_cpu_batch(tmp, svc32, wav)
+    log("slice", phase_s=f"{time.perf_counter() - t_phase:.1f}", launches=slice32, launches_bf16=slice16)
+    return slice32, slice16
+
+
+def phase_card_vs_cpu_batch(tmp: Path, svc, wav: np.ndarray) -> None:
+    """One batched dispatch of two slicer chunks of one bucket, on the card
+    and on a CPU Svc with the same weights: log-mel L1 per chunk < 1e-3."""
+    from sovits_tpu_torch.dsp.stft import mel_spectrogram
+    from sovits_tpu_torch.infer import slicer
+
+    sr = svc.target_sample
+    pieces = [d for tag, d in slicer.chunks2audio(wav, slicer.cut(wav, sr, db_thresh=-40)) if not tag]
+    pad = np.zeros(sr // 2, np.float32)
+    items = [svc._prepare_chunk(0, 0, np.concatenate([pad, d, pad]), sr, 0.0, False, "dio", 0.05)
+             for d in pieces[:4:3]]  # the 5.5 s and 6 s pieces: one bucket
+    dispatches = _dispatches(items, svc.hop_size)
+    if dispatches != [(1024, 2)]:
+        raise AssertionError(f"expected one batch of two in bucket 1024, got {dispatches}")
+    cpu_svc = build_svc(tmp, "cpu", encoder=svc.encoder)
+    t0 = time.perf_counter()
+    card = svc._run_synth_batch(items, 0.0, False, 52468, sample_noise=False)
+    host = cpu_svc._run_synth_batch(items, 0.0, False, 52468, sample_noise=False)
+    cpu_s = time.perf_counter() - t0
+    for i, (a, b) in enumerate(zip(card, host)):
+        mels = [mel_spectrogram(torch.from_numpy(x)[None]) for x in (a, b)]
+        l1 = (mels[0] - mels[1]).abs().mean().item()
+        log("card_vs_cpu", batch=dispatches, chunk=i, frames=items[i]["n_frames"],
+            max_abs=f"{np.abs(a - b).max():.3e}", mel_l1=f"{l1:.3e}", limit=1e-3, ok=l1 < 1e-3)
+        if not l1 < 1e-3:
+            raise AssertionError(f"card and CPU disagree on batched chunk {i}: log-mel L1 {l1}")
+    log("card_vs_cpu", card_and_cpu_dispatch_s=f"{cpu_s:.2f}")
+
+
+def phase_cli(tmp: Path, sr: int, hop: int) -> None:
+    """``python -m sovits_tpu_torch.cli.infer`` as a user runs it, on the card:
+    G_0.pth, its config and a seeded full-width encoder checkpoint where the
+    CLI looks for it, a 12 s song; the written wav must have the song's length."""
+    import os
+
+    from scipy.io import wavfile
+
+    from sovits_tpu_torch.cli import infer as cli
+    from sovits_tpu_torch.encoders.factory import CONFIGS
+    from sovits_tpu_torch.encoders.wav2vec2 import Wav2Vec2Encoder
+    from sovits_tpu_torch.models import factory
+
+    work = tmp / "cli"
+    (work / "pretrain").mkdir(parents=True)
+    net = factory.init_random_(Wav2Vec2Encoder(CONFIGS["vec768l12"]), torch.Generator().manual_seed(1))
+    torch.save({"model": net.state_dict()}, work / "pretrain" / "checkpoint_best_legacy_500.pt")
+    wav = song(sr, (5.5, 5.5), seed=60)
+    wavfile.write(work / "song.wav", sr, (wav * 32767).astype(np.int16))
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        cli.main(["-m", str(tmp / "G_0.pth"), "-c", str(tmp / "config.json"), "-n", "song.wav",
+                  "-f0p", "dio"])
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    out = work / "results" / "song_0key_0_sovits_dio.wav"
+    out_sr, audio = wavfile.read(out)
+    ok = out_sr == sr and abs(len(audio) - len(wav)) <= 2 * hop and np.abs(audio).max() > 0  # two chunks
+    log("cli", wrote=out.name, samples=len(audio), song_samples=len(wav), wall_s=f"{wall:.2f}", ok=ok)
+    if not ok:
+        raise AssertionError(f"the CLI wrote {len(audio)} samples at {out_sr} Hz for {len(wav)}")
 
 
 def make_feature_dataset(root: Path, hps, encoder) -> Path:
@@ -1445,7 +1649,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         svc, infer = phase_main_path(Path(tmp))
         phase_card_vs_cpu(Path(tmp), svc)
-        infer_bf16 = phase_main_bf16(Path(tmp), svc)
+        infer_bf16, svc16 = phase_main_bf16(Path(tmp), svc)
+        slice32, slice16 = phase_slice(Path(tmp), svc, svc16)
+        del svc16
         train, hps = phase_train(Path(tmp), svc.encoder)
         fused_tail = phase_train_fused_tail(hps)
     train_bf16 = phase_train_bf16()
@@ -1454,14 +1660,18 @@ def main() -> None:
     for key, r in k4.items():
         times[key] = [r["ms"], r["plain_ms"]]
     paths = {
-        "rel_attention": {"infer": infer["rel_attention"], "train": train["rel_attention"],
+        "rel_attention": {"infer": infer["rel_attention"], "slice": slice32["rel_attention"],
+                          "train": train["rel_attention"],
                           "train_fused_tail": fused_tail["rel_attention"]},
         "rel_attention_bf16": {"infer_bf16": infer_bf16["rel_attention_bf16"],
+                               "slice_bf16": slice16["rel_attention_bf16"],
                                "train_bf16": train_bf16["rel_attention_bf16"]},
         "rel_attention_bwd": {"train": train["rel_attention_bwd"]},
         "rel_attention_bwd_bf16": {"train_bf16": train_bf16["rel_attention_bwd_bf16"]},
-        "resblock_trio": {"infer": infer["resblock_trio"], "train_fused_tail": fused_tail["resblock_trio"]},
-        "resblock_trio_bf16": {"infer_bf16": infer_bf16["resblock_trio_bf16"]},
+        "resblock_trio": {"infer": infer["resblock_trio"], "slice": slice32["resblock_trio"],
+                          "train_fused_tail": fused_tail["resblock_trio"]},
+        "resblock_trio_bf16": {"infer_bf16": infer_bf16["resblock_trio_bf16"],
+                               "slice_bf16": slice16["resblock_trio_bf16"]},
         **{key: {"microbench": r["launches"]} for key, r in k4.items()},
     }
     bound = bounds()

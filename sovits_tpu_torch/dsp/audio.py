@@ -1,4 +1,5 @@
-"""Feature interpolation and resampling (counterpart of ``sovits_tpu/dsp/audio.py``)."""
+"""Feature interpolation, resampling and loudness-envelope mixing
+(counterpart of ``sovits_tpu/dsp/audio.py``)."""
 
 from __future__ import annotations
 
@@ -40,3 +41,36 @@ def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     up, down = target_sr // g, orig_sr // g
     out = sps.resample_poly(np.asarray(audio, dtype=np.float64), up, down, axis=-1)
     return out.astype(np.float32)
+
+
+def rms_envelope(y: np.ndarray, frame_length: int, hop_length: int) -> np.ndarray:
+    """librosa.feature.rms-compatible RMS track (center=True, constant pad)."""
+    y = np.asarray(y, dtype=np.float32)
+    pad = frame_length // 2
+    yp = np.pad(y, (pad, pad), mode="constant")
+    n_frames = 1 + (len(yp) - frame_length) // hop_length
+    idx = np.arange(n_frames)[:, None] * hop_length + np.arange(frame_length)[None, :]
+    return np.sqrt(np.mean(yp[idx] ** 2, axis=-1))
+
+
+def _interp_linear_1d(x: np.ndarray, target_len: int) -> np.ndarray:
+    """F.interpolate(mode='linear', align_corners=False) on 1-D, in numpy."""
+    src_len = len(x)
+    pos = np.clip((np.arange(target_len) + 0.5) * (src_len / target_len) - 0.5, 0, src_len - 1)
+    lo = np.floor(pos).astype(np.int64)
+    hi = np.minimum(lo + 1, src_len - 1)
+    w = pos - lo
+    return x[lo] * (1 - w) + x[hi] * w
+
+
+def change_rms(source: np.ndarray, source_sr: int, output: np.ndarray, output_sr: int,
+               rate: float) -> np.ndarray:
+    """Blend the output's loudness envelope toward the source's: rate 1 keeps
+    the output's, rate 0 imposes the source's. Half-second RMS frames,
+    linearly interpolated to the output's samples, then
+    output * rms_source^(1 - rate) * rms_output^(rate - 1)."""
+    rms1 = rms_envelope(source, source_sr // 2 * 2, source_sr // 2)
+    rms2 = rms_envelope(output, output_sr // 2 * 2, output_sr // 2)
+    rms1 = _interp_linear_1d(rms1, len(output))
+    rms2 = np.maximum(_interp_linear_1d(rms2, len(output)), 1e-6)
+    return output * (rms1 ** (1 - rate)) * (rms2 ** (rate - 1))

@@ -43,11 +43,14 @@ class F0Predictor:
 
 
 def get_f0_predictor(name: str, hop_length: int, sampling_rate: int, **kwargs) -> F0Predictor:
-    """DIO and pm are ported; every other predictor raises."""
-    from .dio import DioF0Predictor
+    """dio, harvest, pm and yin are ported; the f0 nets (crepe, rmvpe, fcpe)
+    and unknown names raise."""
+    from .dio import DioF0Predictor, HarvestF0Predictor
     from .praat import ParselmouthF0Predictor
+    from .yin import YinF0Predictor
 
-    registry = {"dio": DioF0Predictor, "pm": ParselmouthF0Predictor}
+    registry = {"dio": DioF0Predictor, "harvest": HarvestF0Predictor,
+                "pm": ParselmouthF0Predictor, "yin": YinF0Predictor}
     if name not in registry:
         raise NotImplementedError(f"f0 predictor {name!r} is not supported by the port "
                                   f"(use one of {sorted(registry)})")

@@ -1,4 +1,4 @@
-"""DIO + StoneMask f0 through the port's native WORLD library
+"""DIO + StoneMask, and Harvest, f0 through the port's native WORLD library
 (counterpart of ``sovits_tpu/f0/dio.py``), with so-vits-svc's settings.
 
 The default is the JAX package's default, the fast hybrid: two-stage
@@ -18,6 +18,7 @@ import numpy as np
 from .. import native
 from .base import F0Predictor
 from .world_dio import dio
+from .world_harvest import harvest
 
 
 class DioF0Predictor(F0Predictor):
@@ -47,3 +48,19 @@ class DioF0Predictor(F0Predictor):
         y_band = native.fir_decimate(y_sm, r2)  # the band analysis', about 3.7 kHz
         tpos, f0 = dio(len(wav), fs, y_band, fs / (r1 * r2), **kwargs)
         return native.world_stonemask(y_sm, fs / r1, tpos, f0)
+
+
+class HarvestF0Predictor(F0Predictor):
+    """WORLD Harvest (``world_harvest.py``). The default is the JAX package's
+    default: float32 band filtering with candidates, refinement and the
+    reliability gate in the native library. ``exact = True`` runs the float64
+    numpy path, the JAX package's oracle."""
+
+    name = "harvest"
+    exact = False
+
+    def raw_f0(self, wav: np.ndarray, p_len: int) -> np.ndarray:
+        fs = float(self.sampling_rate)
+        _tpos, f0 = harvest(wav, fs, f0_floor=max(self.f0_min, 40.0), f0_ceil=self.f0_max,
+                            frame_period=1000.0 * self.hop_length / fs, use_native=not self.exact)
+        return f0

@@ -1,15 +1,22 @@
-"""Svc -- one voice conversion (counterpart of ``sovits_tpu/infer/svc.py``).
+"""Svc -- voice conversion (counterpart of ``sovits_tpu/infer/svc.py``).
 
 Per clip: resample to the model rate -> launch the speech encoder on the
 16 kHz copy -> f0 on the host while the card works (``f0_predictor``: pm, the
-JAX package's default, or dio) -> units stretched to the f0 frames -> synthesizer (prior, flow, NSF-HiFiGAN) -> audio.
-Inputs are padded to the same length buckets as the JAX package's, and
-same-bucket chunks run as one batch padded to a power of two, so the two
-packages see identical tensors.
+JAX package's default, dio, harvest or yin) -> units stretched to the f0
+frames -> synthesizer (prior, flow, NSF-HiFiGAN) -> audio -> optional
+loudness-envelope mix. Inputs are padded to the same length buckets as the
+JAX package's, and same-bucket chunks run as one batch padded to a power of
+two, so the two packages see identical tensors.
 
-Not ported here: cluster / feature retrieval, shallow diffusion, the
-enhancer, the loudness envelope, ``slice_inference``,
-``infer_seq_parallel`` and ``RealTimeVC``. Asking for them raises.
+``slice_inference`` converts a whole song: the slicer cuts it at silences
+(long pieces into forced clips with a crossfade), every chunk's front end
+runs on the host, then one batched synthesizer pass covers all chunks, and
+the pieces are joined again; a speaker-mix timeline spans the whole song.
+``RealTimeVC`` converts a stream chunk by chunk with a crossfade.
+
+Not ported: cluster / feature retrieval, shallow diffusion, the enhancer and
+``infer_seq_parallel``. Asking for them raises NotImplementedError naming
+the argument.
 """
 
 from __future__ import annotations
@@ -21,9 +28,11 @@ import torch
 
 from .. import config as scfg
 
-from ..dsp.audio import repeat_expand, resample
+from ..dsp.audio import change_rms, repeat_expand, resample
 from ..f0.base import get_f0_predictor
 from ..models import factory
+from . import slicer as slicer_mod
+from .spkmix import build_spk_mix_frames
 
 BUCKETS = (128, 256, 512, 1024, 2048, 4096, 8192)
 
@@ -32,8 +41,36 @@ class F0FilterException(Exception):
     pass
 
 
+def pad_array(arr: np.ndarray, target_length: int) -> np.ndarray:
+    """Centre-pad with zeros, or centre-crop, to ``target_length``."""
+    n = len(arr)
+    if n >= target_length:
+        start = (n - target_length) // 2
+        return arr[start : start + target_length]
+    pad = target_length - n
+    return np.pad(arr, (pad // 2, pad - pad // 2))
+
+
+def split_list_by_n(data, n: int, pre: int = 0):
+    """Pieces of ``n`` items, each after the first starting ``pre`` items early."""
+    for i in range(0, len(data), n):
+        yield data[max(i - pre, 0) if i - pre >= 0 else i : i + n]
+
+
+def crossfade(a: np.ndarray, b: np.ndarray, fade_len: int) -> np.ndarray:
+    """Join a's tail into b's head with a linear crossfade of ``fade_len``."""
+    fade = np.linspace(0, 1, fade_len)
+    mixed = a[-fade_len:] * (1 - fade) + b[:fade_len] * fade
+    return np.concatenate([a[:-fade_len], mixed, b[fade_len:]])
+
+
 class Svc:
     def __init__(self, net_g_path: str, config_path: str, encoder=None,
+                 cluster_model_path: str | None = None, feature_retrieval: bool = False,
+                 shallow_diffusion: bool = False, only_diffusion: bool = False,
+                 diffusion_model_path: str | None = None,
+                 diffusion_config_path: str | None = None, nsf_hifigan_enhance: bool = False,
+                 enhancer_ckpt: str | None = "pretrain/nsf_hifigan/model",
                  device: torch.device | str = "cuda", dtype: torch.dtype = torch.float32):
         """Build the synthesizer from ``config_path`` on ``device`` and load
         ``net_g_path``: a so-vits-svc ``G_*.pth`` ({"model": state_dict}) or
@@ -42,7 +79,25 @@ class Svc:
         encoder is loaded from its default checkpoint on first use.
         ``dtype`` is the synthesizer's compute type (float32 or bfloat16);
         only the synthesizer takes it, as in the JAX package, and the audio
-        comes back float32."""
+        comes back float32.
+
+        The arguments between ``encoder`` and ``device`` are the JAX
+        package's. The port runs none of what they ask for: an existing
+        ``cluster_model_path``, ``feature_retrieval``, ``shallow_diffusion``,
+        ``only_diffusion`` and ``nsf_hifigan_enhance`` raise
+        NotImplementedError. A ``cluster_model_path`` that does not exist is
+        ignored, as the JAX package ignores it; the diffusion paths and
+        ``enhancer_ckpt`` are read only by the options that raise."""
+        asked = {
+            "cluster_model_path": bool(cluster_model_path) and Path(cluster_model_path).exists(),
+            "feature_retrieval": feature_retrieval,
+            "shallow_diffusion": shallow_diffusion,
+            "only_diffusion": only_diffusion,
+            "nsf_hifigan_enhance": nsf_hifigan_enhance,
+        }
+        for name, on in asked.items():
+            if on:
+                raise NotImplementedError(f"{name} is not supported by the port")
         self.device = torch.device(device)
         self.hps = scfg.load_config(config_path)
         self.target_sample = self.hps.data.sampling_rate
@@ -88,7 +143,8 @@ class Svc:
                     f0_filter: bool = False, f0_predictor: str = "pm", cr_threshold: float = 0.05):
         """f0 + units aligned to the f0 frames."""
         if cluster_infer_ratio != 0:
-            raise NotImplementedError("cluster / feature retrieval is not supported by the port")
+            raise NotImplementedError("cluster_infer_ratio != 0 (cluster / feature retrieval) "
+                                      "is not supported by the port")
         if self.f0_predictor_object is None or self.f0_predictor_object.name != f0_predictor:
             self.f0_predictor_object = get_f0_predictor(
                 f0_predictor, hop_length=self.hop_size, sampling_rate=self.target_sample,
@@ -163,6 +219,15 @@ class Svc:
                     out[i] = audio[row, : items[i]["n_frames"] * self.hop_size, 0]
         return out
 
+    def _post_chunk(self, item: dict, audio: np.ndarray,
+                    loudness_envelope_adjustment: float) -> np.ndarray:
+        """Per-chunk post stage: the loudness-envelope mix toward the input's
+        (the JAX package's diffusion and enhancer stages raise in __init__)."""
+        if loudness_envelope_adjustment != 1:
+            audio = change_rms(item["wav"], self.target_sample, audio, self.target_sample,
+                               loudness_envelope_adjustment)
+        return audio
+
     def infer(self, speaker, tran: int, wav: np.ndarray, sr: int | None = None,
               cluster_infer_ratio: float = 0.0, auto_predict_f0: bool = False,
               noice_scale: float = 0.4, f0_filter: bool = False, f0_predictor: str = "pm",
@@ -174,9 +239,135 @@ class Svc:
         ``k_step``, ``second_encoding`` and ``enhancer_adaptive_key`` only
         steer diffusion and the enhancer, which this port does not run.
         """
-        if loudness_envelope_adjustment != 1:
-            raise NotImplementedError("the loudness envelope is not supported by the port")
         item = self._prepare_chunk(speaker, tran, wav, sr, cluster_infer_ratio, f0_filter,
                                    f0_predictor, cr_threshold, spk_mix_frames)
         audio = self._run_synth_batch([item], noice_scale, auto_predict_f0, seed)[0]
+        audio = self._post_chunk(item, audio, loudness_envelope_adjustment)
         return audio, audio.shape[-1], item["n_frames"]
+
+    # ------------------------------------------------------------------
+    def slice_inference(self, raw_audio: np.ndarray, sr: int, spk, tran: int,
+                        slice_db: float = -40, cluster_infer_ratio: float = 0.0,
+                        auto_predict_f0: bool = False, noice_scale: float = 0.4,
+                        pad_seconds: float = 0.5, clip_seconds: float = 0.0,
+                        lg_num: float = 0.0, lgr_num: float = 0.75, f0_predictor: str = "pm",
+                        cr_threshold: float = 0.05, k_step: int = 100,
+                        second_encoding: bool = False, loudness_envelope_adjustment: float = 1.0,
+                        use_spk_mix: bool = False, enhancer_adaptive_key: float = 0) -> np.ndarray:
+        """Silence-sliced conversion of a whole song at the model rate.
+
+        The slicer cuts ``raw_audio`` at silences quieter than ``slice_db``;
+        silences come back as zeros. Each voiced piece gets ``pad_seconds``
+        of zeros on both sides, and with ``clip_seconds`` it is cut into
+        forced clips that overlap by ``lg_num`` seconds, of which the share
+        ``lgr_num`` is crossfaded. With ``use_spk_mix``, ``spk`` is a mix
+        timeline ({speaker_id: [[begin, end, v0, v1], ...]}, begin and end
+        as fractions of the song) and per-frame weights span the whole
+        output. Every chunk's front end runs first, then one batched
+        synthesizer pass (seed 52468, as the JAX package), then each chunk's
+        loudness mix. ``k_step``, ``second_encoding`` and
+        ``enhancer_adaptive_key`` steer only what the port does not run.
+        """
+        chunks = slicer_mod.cut(raw_audio, sr, db_thresh=slice_db)
+        audio_data = slicer_mod.chunks2audio(raw_audio, chunks)
+        per_size = int(clip_seconds * sr)
+        pad_len = int(sr * pad_seconds)
+
+        mix_weights = None
+        if use_spk_mix:
+            # frames of the whole output: silences at the model rate, voiced
+            # pieces with their padding, as the JAX package counts them
+            total_frames = sum(
+                int(np.ceil(len(d) / sr * self.target_sample)) // self.hop_size
+                + (0 if tag else 2 * int(self.target_sample * pad_seconds) // self.hop_size)
+                for tag, d in audio_data
+            )
+            mix_weights = build_spk_mix_frames(spk, total_frames, self.hps.model.n_speakers)
+        # forced clips overlap by overlap_len samples; the central fade_len
+        # of the overlap is crossfaded, the margins either side dropped
+        overlap_len = int(lg_num * sr)
+        fade_len = int(overlap_len * lgr_num)
+        keep_left = (overlap_len - fade_len) // 2
+        keep_right = overlap_len - fade_len - keep_left
+        fade_ramp = np.linspace(0, 1, fade_len)
+
+        # pass 1: every chunk's host front end
+        plan: list[tuple] = []  # ("sil", length) | ("chunk", item index, per_length, k)
+        items: list[dict] = []
+        global_frame = 0
+        for slice_tag, data in audio_data:
+            length = int(np.ceil(len(data) / sr * self.target_sample))
+            if slice_tag:
+                plan.append(("sil", length))
+                global_frame += length // self.hop_size
+                continue
+            datas = list(split_list_by_n(data, per_size, overlap_len)) if per_size else [data]
+            for k, dat in enumerate(datas):
+                per_length = int(np.ceil(len(dat) / sr * self.target_sample)) if clip_seconds else length
+                dat = np.concatenate([np.zeros(pad_len), dat, np.zeros(pad_len)])
+                chunk_mix = None
+                if mix_weights is not None:
+                    n_chunk = int(np.ceil(len(dat) / sr * self.target_sample)) // self.hop_size
+                    idx = np.minimum(np.arange(global_frame, global_frame + n_chunk),
+                                     len(mix_weights) - 1)
+                    chunk_mix = mix_weights[idx]
+                item = self._prepare_chunk(None if mix_weights is not None else spk, tran,
+                                           dat.astype(np.float32), sr, cluster_infer_ratio, False,
+                                           f0_predictor, cr_threshold, spk_mix_frames=chunk_mix)
+                global_frame += item["n_frames"]
+                plan.append(("chunk", len(items), per_length, k))
+                items.append(item)
+
+        # pass 2: one batched synthesizer pass over all chunks, then each chunk's post stage
+        outs = self._run_synth_batch(items, noice_scale, auto_predict_f0, 52468)
+        outs = [self._post_chunk(it, out, loudness_envelope_adjustment) for it, out in zip(items, outs)]
+
+        pieces: list[np.ndarray] = []
+        out_pad = int(self.target_sample * pad_seconds)
+        for entry in plan:
+            if entry[0] == "sil":
+                pieces.append(np.zeros(entry[1]))
+                continue
+            _, item_idx, per_length, k = entry
+            _audio = pad_array(np.asarray(outs[item_idx])[out_pad:-out_pad], per_length)
+            if overlap_len and k != 0:
+                # blend the assembled tail into the new clip's head over the
+                # fade window; the previous clip's last keep_right samples and
+                # the new clip's first keep_left are dropped (with lgr_num 1
+                # both margins are empty and the whole overlap is blended)
+                head = np.concatenate(pieces)
+                n = len(head)
+                blended = (head[n - fade_len - keep_right : n - keep_right] * (1 - fade_ramp)
+                           + _audio[keep_left : keep_left + fade_len] * fade_ramp)
+                pieces = [head[: n - fade_len - keep_right], blended]
+                _audio = _audio[keep_left + fade_len :]
+            pieces.append(_audio)
+        if not pieces:
+            return np.zeros(0, np.float32)
+        return np.concatenate(pieces).astype(np.float32)
+
+
+class RealTimeVC:
+    """Streaming conversion: each chunk is converted with the previous
+    chunk's last ``pre_len`` samples in front, and crossfaded into the
+    previous output."""
+
+    def __init__(self, chunk_len: int = 16000, pre_len: int = 3840):
+        self.last_chunk: np.ndarray | None = None
+        self.last_o: np.ndarray | None = None
+        self.chunk_len = chunk_len
+        self.pre_len = pre_len
+
+    def process(self, svc_model: Svc, speaker_id, f_pitch_change, audio: np.ndarray,
+                sr: int, **kwargs) -> np.ndarray:
+        if self.last_chunk is None:
+            out, _, _ = svc_model.infer(speaker_id, f_pitch_change, audio, sr=sr, **kwargs)
+            self.last_chunk = out[-self.pre_len :]
+            self.last_o = out
+            return out[-self.chunk_len :]
+        aud = np.concatenate([self.last_chunk, audio])
+        out, _, _ = svc_model.infer(speaker_id, f_pitch_change, aud, sr=sr, **kwargs)
+        ret = crossfade(self.last_o, out, self.pre_len)
+        self.last_chunk = out[-self.pre_len :]
+        self.last_o = out
+        return ret[self.chunk_len : 2 * self.chunk_len]

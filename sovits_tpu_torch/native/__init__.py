@@ -1,4 +1,4 @@
-"""The port's native WORLD library (DIO + StoneMask), bound with ctypes.
+"""The port's native WORLD library (DIO + StoneMask, Harvest), bound with ctypes.
 
 ``world_f0.cpp`` is compiled with g++ at first use, through the kernels'
 build helpers (``ops/build.py``), into
@@ -26,6 +26,7 @@ CXX_FLAGS = ("-O3", "-fopenmp-simd", "-fPIC", "-shared", "-std=c++17")
 _D = ctypes.POINTER(ctypes.c_double)
 _F = ctypes.POINTER(ctypes.c_float)
 _I64 = ctypes.c_int64
+_I64P = ctypes.POINTER(ctypes.c_int64)
 _DBL = ctypes.c_double
 SIGNATURES = {
     "world_dio_f0_length": ([_I64, _DBL, _DBL], ctypes.c_int),
@@ -34,6 +35,12 @@ SIGNATURES = {
     "world_band_candidates_f": ([_F, _I64] + [_DBL] * 4 + [_D, _I64, _D, _D], None),
     "world_fix_steps": ([_D, _D, _I64, _I64, _DBL, _DBL, _DBL, _D], None),
     "world_fir_decimate_f": ([_F, _I64, _F, _I64, _I64, _F, _I64], None),
+    "world_harvest_band_candidates_multi": (
+        [_D, _I64, _I64, _I64P, _I64, _DBL, _D] + [_DBL] * 3 + [_D, _I64, _D], None),
+    "world_harvest_band_candidates_multi_f": (
+        [_F, _I64, _I64, _I64P, _I64, _DBL, _D] + [_DBL] * 3 + [_D, _I64, _D], None),
+    "world_harvest_remove_unreliable": ([_D, _D, _I64, _I64, _DBL], None),
+    "world_refine_f0": ([_D, _I64, _DBL, _D, _D, _I64, _D, _D], None),
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -149,3 +156,59 @@ def fir_decimate(x: np.ndarray, ratio: int) -> np.ndarray:
     lib.world_fir_decimate_f(xf.ctypes.data_as(_F), len(xf), h.ctypes.data_as(_F), len(h),
                              ratio, out.ctypes.data_as(_F), n_out)
     return out.astype(np.float64)
+
+
+def world_harvest_band_candidates_multi(filt: np.ndarray, offsets: np.ndarray, y_length: int,
+                                        fs: float, boundary_f0s: np.ndarray, f0_floor: float,
+                                        f0_ceil: float, track_agreement: float,
+                                        temporal_positions: np.ndarray) -> np.ndarray:
+    """Harvest's raw candidates of a chunk of channels in one call: channel
+    ch reads ``filt[ch, offsets[ch] : offsets[ch] + y_length]``. float32
+    ``filt`` is read as it is, anything else as float64.
+    Returns [n_channels, n_frames]."""
+    lib = load()
+    n_ch, stride = filt.shape
+    offs = np.ascontiguousarray(offsets, dtype=np.int64)
+    bnds = np.ascontiguousarray(boundary_f0s, dtype=np.float64)
+    if offs.shape != (n_ch,) or bnds.shape != (n_ch,) or int(offs.max()) + y_length > stride:
+        raise ValueError("offsets and boundaries need one entry per channel, inside its row")
+    if filt.dtype == np.float32:
+        filt = np.ascontiguousarray(filt)
+        fn, data = lib.world_harvest_band_candidates_multi_f, filt.ctypes.data_as(_F)
+    else:
+        filt = np.ascontiguousarray(filt, dtype=np.float64)
+        fn, data = lib.world_harvest_band_candidates_multi, _dp(filt)
+    tpos = np.ascontiguousarray(temporal_positions, dtype=np.float64)
+    cand = np.empty((n_ch, len(tpos)), np.float64)
+    fn(data, n_ch, stride, offs.ctypes.data_as(_I64P), int(y_length), float(fs), _dp(bnds),
+       float(f0_floor), float(f0_ceil), float(track_agreement), _dp(tpos), len(tpos), _dp(cand))
+    return cand
+
+
+def world_harvest_remove_unreliable(cands: np.ndarray, scores: np.ndarray,
+                                    threshold: float) -> None:
+    """Harvest stage 7 in place: drop every candidate without one within
+    ``threshold`` (relative) in each neighbouring frame. cands, scores:
+    [n_frames, k], float64, C-contiguous."""
+    for a in (cands, scores):
+        if a.dtype != np.float64 or not a.flags.c_contiguous or a.shape != cands.shape:
+            raise ValueError("cands and scores must be C-contiguous float64 of one shape")
+    n_frames, k = cands.shape
+    load().world_harvest_remove_unreliable(_dp(cands), _dp(scores), n_frames, k, float(threshold))
+
+
+def world_refine_f0(x: np.ndarray, fs: float, positions: np.ndarray,
+                    f0s: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Harvest's candidate refinement: (refined f0, reliability score) of each
+    (position, f0) pair, from the harmonics' instantaneous frequency."""
+    lib = load()
+    x = np.ascontiguousarray(x, dtype=np.float64)
+    positions = np.ascontiguousarray(positions, dtype=np.float64)
+    f0s = np.ascontiguousarray(f0s, dtype=np.float64)
+    if positions.shape != f0s.shape:
+        raise ValueError("one position per f0")
+    refined = np.empty_like(f0s)
+    score = np.empty_like(f0s)
+    lib.world_refine_f0(_dp(x), len(x), float(fs), _dp(positions), _dp(f0s), len(f0s),
+                        _dp(refined), _dp(score))
+    return refined, score

@@ -1,9 +1,11 @@
-// WORLD's DIO + StoneMask F0 estimators (host C++), the PyTorch port's copy.
+// WORLD's DIO + StoneMask and Harvest F0 estimators (host C++), the PyTorch
+// port's copy.
 //
-// Copied from sovits_tpu/native/world_f0.cpp without its Harvest entry points:
-// the same published algorithm, operation for operation, so the port's DIO
-// computes the f0 the JAX package computes. The JAX package's tests hold that
-// file to its float64 numpy oracle (tests/test_native.py).
+// Copied from sovits_tpu/native/world_f0.cpp: the same published algorithms,
+// operation for operation, so the port's DIO and Harvest compute the f0 the
+// JAX package computes. The JAX package's tests hold that file to its float64
+// numpy oracles (tests/test_native.py); the port's tests hold this one to the
+// port's numpy copies (f0/world_dio.py, f0/world_harvest.py).
 //
 // Built by sovits_tpu_torch/native/__init__.py with g++ at first use, without
 // -march=native: the library must load on any x86-64 host, not only the one
@@ -370,6 +372,148 @@ void world_band_candidates_f(const float* filtered, int64_t y_length,
                                candidate, score);
 }
 
+// Harvest's per-channel raw candidate contour (world_harvest.py
+// _band_candidate_from_filtered): mean of the four event tracks at each
+// frame, gated on +-10% of the channel boundary, the f0 bounds, and the
+// four tracks agreeing within track_agreement of the candidate.
+extern "C++" {  // template: C++ linkage island inside the extern "C" block
+template <typename T>
+static void harvest_band_candidates_impl(const T* filtered, int64_t y_length,
+                                         double fs, double boundary_f0,
+                                         double f0_floor, double f0_ceil,
+                                         double track_agreement,
+                                         const double* temporal_positions,
+                                         int64_t n_frames, double* candidate) {
+  Track tracks[4];
+  four_tracks(filtered, int(y_length), fs, tracks);
+  for (int k = 0; k < 4; ++k) {
+    if (tracks[k].locations.size() <= 2) {
+      for (int64_t i = 0; i < n_frames; ++i) candidate[i] = 0.0;
+      return;
+    }
+  }
+  // frame positions ascend, so each track is swept with a cursor instead
+  // of a fresh binary search per query (same bracket, same arithmetic)
+  size_t cur[4] = {0, 0, 0, 0};
+  for (int64_t i = 0; i < n_frames; ++i) {
+    const double q = temporal_positions[i];
+    double vals[4];
+    double mean = 0.0;
+    for (int k = 0; k < 4; ++k) {
+      const auto& loc = tracks[k].locations;
+      const auto& f0v = tracks[k].f0;
+      while (cur[k] + 2 < loc.size() && loc[cur[k] + 1] <= q) ++cur[k];
+      if (q <= loc.front()) {
+        vals[k] = f0v.front();
+      } else if (q >= loc.back()) {
+        vals[k] = f0v.back();
+      } else {
+        const size_t lo = cur[k];
+        const double w = (q - loc[lo]) / (loc[lo + 1] - loc[lo]);
+        vals[k] = f0v[lo] * (1.0 - w) + f0v[lo + 1] * w;
+      }
+      mean += vals[k];
+    }
+    mean /= 4.0;
+    double dev = 0.0;
+    for (int k = 0; k < 4; ++k) dev = std::max(dev, std::fabs(vals[k] - mean));
+    const bool bad = mean > boundary_f0 * 1.1 || mean < boundary_f0 * 0.9 ||
+                     mean > f0_ceil || mean < f0_floor ||
+                     dev > mean * track_agreement;
+    candidate[i] = bad ? 0.0 : mean;
+  }
+}
+}  // extern "C++"
+
+void world_harvest_band_candidates(const double* filtered, int64_t y_length,
+                                   double fs, double boundary_f0,
+                                   double f0_floor, double f0_ceil,
+                                   double track_agreement,
+                                   const double* temporal_positions,
+                                   int64_t n_frames, double* candidate) {
+  harvest_band_candidates_impl(filtered, y_length, fs, boundary_f0, f0_floor,
+                               f0_ceil, track_agreement, temporal_positions,
+                               n_frames, candidate);
+}
+
+// Multi-channel variants: one call for a whole chunk of band-filtered
+// channels (filtered[ch] starts at base + ch*stride + offsets[ch]) —
+// amortizes the per-call ctypes/copy overhead of the 160+ channel Harvest
+// loop into one crossing. The float32 form consumes the fast path's
+// filtered chunks without an f64 staging copy.
+void world_harvest_band_candidates_multi(
+    const double* base, int64_t n_channels, int64_t stride,
+    const int64_t* offsets, int64_t y_length, double fs,
+    const double* boundary_f0s, double f0_floor, double f0_ceil,
+    double track_agreement, const double* temporal_positions,
+    int64_t n_frames, double* candidates /* [n_channels, n_frames] */) {
+  for (int64_t ch = 0; ch < n_channels; ++ch) {
+    harvest_band_candidates_impl(
+        base + ch * stride + offsets[ch], y_length, fs, boundary_f0s[ch],
+        f0_floor, f0_ceil, track_agreement, temporal_positions, n_frames,
+        candidates + ch * n_frames);
+  }
+}
+
+void world_harvest_band_candidates_multi_f(
+    const float* base, int64_t n_channels, int64_t stride,
+    const int64_t* offsets, int64_t y_length, double fs,
+    const double* boundary_f0s, double f0_floor, double f0_ceil,
+    double track_agreement, const double* temporal_positions,
+    int64_t n_frames, double* candidates /* [n_channels, n_frames] */) {
+  for (int64_t ch = 0; ch < n_channels; ++ch) {
+    harvest_band_candidates_impl(
+        base + ch * stride + offsets[ch], y_length, fs, boundary_f0s[ch],
+        f0_floor, f0_ceil, track_agreement, temporal_positions, n_frames,
+        candidates + ch * n_frames);
+  }
+}
+
+// Harvest stage 7 (world_harvest.py _remove_unreliable), in place over
+// cands/scores [n_frames, k]: a live candidate survives only if each
+// EXISTING neighbour frame holds some candidate within `threshold` of it.
+// Agreement is checked against a snapshot (removals must not cascade along
+// time); empty slots carry a large sentinel so an empty neighbour frame
+// yields a huge deviation and kills the whole frame, exactly as the numpy
+// oracle's sentinel-sort does.
+void world_harvest_remove_unreliable(double* cands, double* scores,
+                                     int64_t n_frames, int64_t k,
+                                     double threshold) {
+  const double kEmptySentinel = 100000.0;  // > any f0 (< f0_ceil ~1.1e3)
+  std::vector<double> frozen(cands, cands + size_t(n_frames) * k);
+  std::vector<double> sorted(size_t(n_frames) * k);
+  for (int64_t t = 0; t < n_frames; ++t) {
+    double* row = &sorted[size_t(t) * k];
+    for (int64_t j = 0; j < k; ++j) {
+      const double v = frozen[size_t(t) * k + j];
+      row[j] = v > 0.0 ? v : kEmptySentinel;
+    }
+    std::sort(row, row + k);
+  }
+  for (int64_t t = 0; t < n_frames; ++t) {
+    for (int64_t j = 0; j < k; ++j) {
+      const double cur = frozen[size_t(t) * k + j];
+      if (cur <= 0.0) continue;
+      bool ok = true;
+      for (int dt = -1; dt <= 1 && ok; dt += 2) {
+        const int64_t nt = t + dt;
+        if (nt < 0 || nt >= n_frames) continue;  // no constraint
+        const double* row = &sorted[size_t(nt) * k];
+        const double* hi = std::lower_bound(row, row + k, cur);
+        const double hi_v = hi <= row + k - 1 ? *hi : row[k - 1];
+        const double lo_v = hi - 1 >= row ? *(hi - 1) : row[0];
+        const double near = std::min(std::fabs(hi_v - cur),
+                                     std::fabs(cur - lo_v));
+        ok = near / (cur + kEps) <= threshold;
+      }
+      if (!ok) {
+        cands[size_t(t) * k + j] = 0.0;
+        scores[size_t(t) * k + j] = 0.0;
+      }
+    }
+  }
+}
+
 // the four contour-fixing passes over the best-candidate contour
 // (candidates laid out [band][frame], stride n_frames between bands)
 void world_fix_steps(const double* best, const double* candidates,
@@ -691,6 +835,110 @@ static double get_mean_f0(const double* x, int64_t x_length, double fs,
     den += amp * double(k);
   }
   return num / (den + kEps);
+}
+
+// GetRefinedF0 for Harvest: like get_mean_f0 but also returns a
+// reliability score = 1 / (amp-weighted mean relative deviation of the
+// per-harmonic instantaneous f0 from the refined estimate).
+static void refine_one(const double* x, int64_t x_length, double fs,
+                       double current_position, double current_f0,
+                       double* refined, double* score,
+                       std::vector<double>& wm, std::vector<double>& wd,
+                       std::vector<double>& win) {
+  *refined = 0.0;
+  *score = 0.0;
+  const int half_window = int(1.5 * fs / current_f0 + 1.0);
+  const int wlen = 2 * half_window + 1;
+  int fft_size = 1;
+  {
+    int log2n = 0;
+    while ((1 << log2n) < wlen) ++log2n;
+    fft_size = 1 << (2 + log2n);
+  }
+  const int n_harmonics = std::min(int(fs / 2.0 / current_f0), 6);
+  if (n_harmonics < 1) return;
+
+  wm.resize(wlen); wd.resize(wlen);
+  if (int(win.size()) != wlen) {  // pure function of wlen: cache across frames
+    win.resize(wlen);
+    const double step = 2 * kPi / double(wlen);
+    const double cs = std::cos(step), sn = std::sin(step);
+    double cr = std::cos(0.5 * step), ci = std::sin(0.5 * step);
+    for (int i = 0; i < wlen; ++i) {
+      win[i] = 0.42 - 0.5 * cr + 0.08 * (2.0 * cr * cr - 1.0);
+      const double nr = cr * cs - ci * sn;
+      ci = cr * sn + ci * cs;
+      cr = nr;
+    }
+  }
+  const int64_t base_idx = int64_t(std::llround(current_position * fs + 0.001));
+  for (int i = 0; i < wlen; ++i) {
+    int64_t idx = base_idx + int64_t(i - half_window);
+    idx = std::min<int64_t>(std::max<int64_t>(idx, 0), x_length - 1);
+    wm[i] = x[idx];
+  }
+  for (int i = 1; i + 1 < wlen; ++i) {
+    wd[i] = wm[i] * (-(win[i + 1] - win[i - 1]) / 2.0);
+  }
+  wd[0] = wm[0] * (-win[1] / 2.0);
+  wd[wlen - 1] = wm[wlen - 1] * (win[wlen - 2] / 2.0);
+  for (int i = 0; i < wlen; ++i) wm[i] *= win[i];
+
+  int bins[6];
+  for (int k = 1; k <= n_harmonics; ++k) {
+    bins[k - 1] = int(std::llround(current_f0 * k * fft_size / fs));
+  }
+  double mr[6], mi[6], dr[6], di[6];
+  harmonic_bins(wm.data(), wd.data(), wlen, bins, n_harmonics, fft_size, mr,
+                mi, dr, di);
+  double inst[6], amp[6];
+  double num = 0.0, den = 0.0;
+  for (int k = 1; k <= n_harmonics; ++k) {
+    const double power = mr[k - 1] * mr[k - 1] + mi[k - 1] * mi[k - 1] + kEps;
+    inst[k - 1] =
+        double(bins[k - 1]) * fs / fft_size +
+        (mr[k - 1] * di[k - 1] - mi[k - 1] * dr[k - 1]) / power * fs /
+            (2.0 * kPi);
+    amp[k - 1] = std::sqrt(power);
+    num += inst[k - 1] * amp[k - 1];
+    den += amp[k - 1] * double(k);
+  }
+  const double r = num / (den + kEps);
+  double dev = 0.0, asum = 0.0, amax = 0.0;
+  for (int k = 1; k <= n_harmonics; ++k) {
+    dev += amp[k - 1] * std::fabs(inst[k - 1] / double(k) - r) / (r + kEps);
+    asum += amp[k - 1];
+    amax = std::max(amax, amp[k - 1]);
+  }
+  *refined = r;
+  // fundamental-strength weighting: a subharmonic of a real tone explains
+  // the harmonic stack with near-zero IF deviation but has only noise in
+  // its own fundamental slot — scale reliability by amp(k=1)/max(amp).
+  *score = (amp[0] / (amax + kEps)) / (dev / (asum + kEps) + kEps);
+}
+
+void world_refine_f0(const double* x, int64_t x_length, double fs,
+                     const double* positions, const double* f0s, int64_t n,
+                     double* refined_out, double* score_out) {
+  std::vector<double> wm, wd, win;
+  // candidates are independent: process in window-length order so the
+  // wlen-keyed Blackman cache in refine_one rebuilds once per distinct
+  // length instead of (nearly) once per candidate. Outputs land at their
+  // original indices — identical results, any order.
+  std::vector<int64_t> order(n);
+  std::vector<int> wl(n);
+  for (int64_t i = 0; i < n; ++i) {
+    order[i] = i;
+    const double f = f0s[i] > 0.0 ? f0s[i] : 1.0;
+    wl[i] = 2 * int(1.5 * fs / f + 1.0) + 1;
+  }
+  std::stable_sort(order.begin(), order.end(),
+                   [&](int64_t a, int64_t b) { return wl[a] < wl[b]; });
+  for (int64_t k = 0; k < n; ++k) {
+    const int64_t i = order[k];
+    refine_one(x, x_length, fs, positions[i], f0s[i], &refined_out[i],
+               &score_out[i], wm, wd, win);
+  }
 }
 
 void world_stonemask(const double* x, int64_t x_length, double fs,

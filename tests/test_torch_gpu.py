@@ -172,6 +172,34 @@ def test_full_width_synthesizer_cuda_matches_cpu(cuda):
     torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-4)
 
 
+def test_full_width_batched_dispatch_matches_single(cuda, tmp_path):
+    """Svc's batched synthesizer pass on the card, as slice_inference runs it:
+    three chunks of bucket 256 in one dispatch padded to four rows (6 K1 and
+    4 K3 launches) equal their batch-1 dispatches with the noise off. fp32
+    on both sides, with the sums in another order: atol 1e-4, the CPU
+    parity tests' AUDIO_ATOL."""
+    from sovits_tpu_torch.infer.svc import Svc
+
+    hps = scfg.default_config()
+    scfg.save_config(hps, tmp_path / "config.json")
+    model = factory.init_random_(factory.build_synthesizer(hps, "cpu", fused_tail=True), _g(0))
+    torch.save({"model": model.state_dict(), "iteration": 0}, tmp_path / "G_0.pth")
+    svc = Svc(str(tmp_path / "G_0.pth"), str(tmp_path / "config.json"), device=cuda)
+    g = _g(2)
+    items = [dict(c=torch.randn(n, hps.model.ssl_dim, generator=g).numpy(),
+                  f0=(150.0 + 100.0 * torch.rand(n, generator=g)).numpy(),
+                  uv=(torch.rand(n, generator=g) > 0.2).float().numpy(), n_frames=n, spk=("id", 0))
+             for n in (200, 256, 137)]
+    fused_attention.launches = fused_resblock_trio.launches = 0
+    batched = svc._run_synth_batch(items, 0.0, False, 52468, sample_noise=False)
+    assert fused_attention.launches == 6 and fused_resblock_trio.launches == 4  # one dispatch
+    for it, got in zip(items, batched):
+        want = svc._run_synth_batch([it], 0.0, False, 52468, sample_noise=False)[0]
+        assert got.shape == want.shape == (it["n_frames"] * hps.data.hop_length,)
+        assert abs(got).max() > 1e-4
+        torch.testing.assert_close(torch.from_numpy(got), torch.from_numpy(want), rtol=0, atol=1e-4)
+
+
 def _train_attention_case(bh, t, window, masked, seed, device, dtype=torch.float32, d=96):
     """The training shapes' inputs in ``dtype``, head width ``d``: dropout
     0.1 as the attention modules draw it (keep/(1-rate), with the values of

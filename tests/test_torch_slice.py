@@ -235,7 +235,7 @@ def test_unsupported_config_options_raise(option, value):
         factory.build_synthesizer(scfg.default_config(**{option: value}), "cpu", fused_tail=True)
 
 
-@pytest.mark.parametrize("what", ["f0:yin", "f0:harvest", "encoder:hubertsoft"])
+@pytest.mark.parametrize("what", ["f0:crepe", "f0:rmvpe", "encoder:hubertsoft"])
 def test_unsupported_front_ends_raise(what):
     from sovits_tpu_torch.encoders.factory import get_speech_encoder
     from sovits_tpu_torch.f0.base import get_f0_predictor
