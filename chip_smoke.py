@@ -13,13 +13,17 @@ a bf16 encoder; bf16 against fp32 audio), 7 ``slice_inference`` (a 59.5 s
 song of six pieces in fp32 and bf16, each same-bucket group one batched
 dispatch; forced clips, the loudness envelope, a speaker mix, harvest and
 yin, RealTimeVC, one batched dispatch on the card against the CPU, and the
-infer CLI), 8 training (a feature dataset made
+infer CLI), 8 ``[configs]``: so-vits-svc 4.1's model options at full width
+(volume embedding with the transformer flow, the tiny template's depthwise
+convs and shared flow, ResBlock2, the Snake vocoder), each a seeded
+G_0.pth loaded by Svc, with its K1/K3 launches checked, held against the
+CPU and, for two of them, run in bf16 too, 9 training (a feature dataset made
 by the port itself, six full-width GAN steps through ``train``, a resume, a
-profiled step), 9 three GAN steps with the fused tail against the same steps
-without it, 10 the bf16 GAN step at bench.py's training configuration (batch
+profiled step), 10 three GAN steps with the fused tail against the same steps
+without it, 11 the bf16 GAN step at bench.py's training configuration (batch
 6 x 512 frames, bf16 synthesizer and discriminator; its first step against
-the same step through fp32 nets), 11 the trio staging microbench at its
-defaults, 12 kernel times beside their bounds. Any failure raises, so the script exits non-zero; the
+the same step through fp32 nets), 12 the trio staging microbench at its
+defaults, 13 kernel times beside their bounds. Any failure raises, so the script exits non-zero; the
 last line is the JSON result the caller reads. Needs a CUDA card; without
 one (or without the repository around it) it fails before printing a result.
 """
@@ -840,10 +844,11 @@ def bench_signal(seconds: float, sr: int, seed: int = 0, base_hz: float = 170.0)
     return wav.astype(np.float32)
 
 
-def build_svc(tmp: Path, device: str, encoder=None, dtype=torch.float32):
-    """Full-width default config, seeded random weights written as a
-    so-vits-svc G_0.pth, loaded by the port's Svc like a trained model; in
-    bf16 the synthesizer and the encoder (same weights) compute in bf16."""
+def build_svc(tmp: Path, device: str, encoder=None, dtype=torch.float32, hps=None):
+    """A full-width config (``hps``, the default when None), seeded random
+    weights written as a so-vits-svc G_0.pth, loaded by the port's Svc like a
+    trained model; in bf16 the synthesizer and the encoder (same weights)
+    compute in bf16."""
     from sovits_tpu_torch import config as scfg
     from sovits_tpu_torch.encoders.factory import CONFIGS, SpeechEncoder
     from sovits_tpu_torch.encoders.wav2vec2 import Wav2Vec2Encoder
@@ -851,7 +856,7 @@ def build_svc(tmp: Path, device: str, encoder=None, dtype=torch.float32):
     from sovits_tpu_torch.models import factory
 
     if not (tmp / "G_0.pth").exists():
-        hps = scfg.default_config()
+        hps = hps or scfg.default_config()
         scfg.save_config(hps, tmp / "config.json")
         model = factory.init_random_(factory.build_synthesizer(hps, "cpu", fused_tail=True),
                                      torch.Generator().manual_seed(0))
@@ -973,8 +978,6 @@ def phase_main_bf16(tmp: Path, svc32) -> dict:
     encoder in bf16, the same weights) answering the main path's requests,
     each 10 s request through 6 bf16 K1 and 4 bf16 K3 launches; then the
     log-mel L1 of a bf16 request against the fp32 one, noise off."""
-    from sovits_tpu_torch.dsp.stft import mel_spectrogram
-
     svc = build_svc(tmp, "cuda", dtype=torch.bfloat16)
     sr, hop = svc.target_sample, svc.hop_size
     long_clip = bench_signal(SECONDS, sr)
@@ -1010,13 +1013,23 @@ def phase_main_bf16(tmp: Path, svc32) -> dict:
         raise AssertionError(f"the bf16 path did not run its kernels: {total}")
     log("breakdown", clip="10s", dtype="bf16", **stage_times(svc, long_clip))
 
+    bf16_vs_fp32("main-bf16", svc32, svc)
+    return total, svc
+
+
+def bf16_vs_fp32(phase: str, svc32, svc16) -> None:
+    """A 3 s request through the bf16 Svc against the fp32 one, noise off:
+    loud-bin log-mel L1 < MEL_L1_BF16 and wave max-abs <= E2E_REL x peak."""
+    from sovits_tpu_torch.dsp.stft import mel_spectrogram
+
+    sr = svc32.target_sample
     clip = bench_signal(3.0, sr, seed=3)
     item32 = svc32._prepare_chunk(0, 0, clip, sr, 0.0, False, "dio", 0.05)
-    item16 = svc._prepare_chunk(0, 0, clip, sr, 0.0, False, "dio", 0.05)
+    item16 = svc16._prepare_chunk(0, 0, clip, sr, 0.0, False, "dio", 0.05)
     run = dict(noice_scale=0.0, auto_predict_f0=False, seed=52468, sample_noise=False)
     a32 = svc32._run_synth_batch([item32], **run)[0]
-    a16 = svc._run_synth_batch([item16], **run)[0]
-    a16_same_units = svc._run_synth_batch([item32], **run)[0]
+    a16 = svc16._run_synth_batch([item16], **run)[0]
+    a16_same_units = svc16._run_synth_batch([item32], **run)[0]
     mel = lambda a: mel_spectrogram(torch.from_numpy(a)[None])  # noqa: E731
     m32, m16 = mel(a32), mel(a16)
     loud = m32 > m32.max() - LOUD_DB / 20 * np.log(10)  # log-mel is ln of a magnitude
@@ -1027,14 +1040,14 @@ def phase_main_bf16(tmp: Path, svc32) -> dict:
     units = np.abs(item16["c"] - item32["c"]).max() / np.abs(item32["c"]).max()
     rel = np.abs(a16 - a32).max() / np.abs(a32).max()
     ok = l1_loud < MEL_L1_BF16 and rel <= E2E_REL
-    log("main-bf16", what="bf16 vs fp32 request, 3 s clip, noise off", mel_l1_all_bins=f"{l1:.4e}",
+    log(phase, what="bf16 vs fp32 request, 3 s clip, noise off", mel_l1_all_bins=f"{l1:.4e}",
         mel_l1_fp32_audio_rounded_to_bf16=f"{l1_rounding:.4e}",
         mel_l1_loud_bins=f"{l1_loud:.4e}", loud_share=f"{loud.float().mean().item():.3f}",
         synthesizer_only_mel_l1=f"{l1_synth:.4e}", units_rel_max_abs=f"{units:.3e}",
         wave_rel_max_abs=f"{rel:.3e}", limits=f"loud-bin L1<{MEL_L1_BF16}, wave<={E2E_REL}", ok=ok)
     if not ok:
-        raise AssertionError(f"bf16 and fp32 requests disagree: loud-bin log-mel L1 {l1_loud}, wave {rel}")
-    return total, svc
+        raise AssertionError(f"{phase}: bf16 and fp32 requests disagree: loud-bin log-mel L1 "
+                             f"{l1_loud}, wave {rel}")
 
 
 SONG_SEGMENTS = (5.5, 8.0, 12.0, 6.0, 9.0, 14.0)  # seconds, 1 s of zeros between
@@ -1067,10 +1080,12 @@ def _dispatches(items: list, hop: int) -> list[tuple[int, int]]:
     return out
 
 
-def _slice_run(svc, wav: np.ndarray, what: str, bf16: bool = False, **kw) -> tuple[np.ndarray, list]:
+def _slice_run(svc, wav: np.ndarray, what: str, bf16: bool = False, per_dispatch=(6, 4),
+               **kw) -> tuple[np.ndarray, list]:
     """One slice_inference call with its front-end and synthesizer time taken
-    apart; checks the output and, per dispatch, 6 K1 and 4 K3 launches of
-    the Svc's type (bf16 or fp32) and no others. Returns (audio, dispatches)."""
+    apart; checks the output and, per dispatch, ``per_dispatch`` K1 and K3
+    launches of the Svc's type (bf16 or fp32) and no others. Returns (audio,
+    dispatches)."""
     sr, hop = svc.target_sample, svc.hop_size
     k1, k3 = ("rel_attention_bf16", "resblock_trio_bf16") if bf16 else ("rel_attention", "resblock_trio")
     spent = {"front_end_s": 0.0, "synthesizer_s": 0.0}
@@ -1105,7 +1120,8 @@ def _slice_run(svc, wav: np.ndarray, what: str, bf16: bool = False, **kw) -> tup
     seconds = len(wav) / sr
     ok = (abs(len(audio) - len(wav)) <= hop * len(items) and audio.dtype == np.float32
           and np.isfinite(audio).all() and float(np.abs(audio).max()) > 1e-4
-          and got[k1] == 6 * len(dispatches) and got[k3] == 4 * len(dispatches)
+          and got[k1] == per_dispatch[0] * len(dispatches)
+          and got[k3] == per_dispatch[1] * len(dispatches)
           and sum(got.values()) == got[k1] + got[k3])
     log("slice", what=repr(what), seconds=f"{seconds:.2f}", chunks=len(items),
         frames=[it["n_frames"] for it in items], dispatches=dispatches, out_len=len(audio),
@@ -1170,6 +1186,127 @@ def phase_slice(tmp: Path, svc32, svc16) -> tuple[dict, dict]:
     phase_card_vs_cpu_batch(tmp, svc32, wav)
     log("slice", phase_s=f"{time.perf_counter() - t_phase:.1f}", launches=slice32, launches_bf16=slice16)
     return slice32, slice16
+
+
+# [configs]: so-vits-svc 4.1's model options at full width (default widths
+# unless the template sets them): template, overrides, the K1 and K3
+# launches of one 10 s request, and whether the model runs in bf16 too
+CONFIG_CASES = {
+    "vol_tflow": ("default_config", {"vol_embedding": True, "use_transformer_flow": True,
+                                     "n_flow_layer": 4, "n_layers_trans_flow": 3}, 18, 4, True),
+    "tiny": ("tiny_config", {}, 6, 0, False),
+    "resblock2": ("default_config", {"resblock": "2"}, 6, 0, False),
+    "snake": ("default_config", {"vocoder_name": "nsf-snake-hifigan"}, 6, 0, True),
+}
+# the latent after the reversed flow, card against CPU (fp32, TF32 off):
+# max-abs <= Z_REL x peak; the audio alone would hardly see the encoder and
+# the flow, since random N(0, 0.01) upsamplers shrink the latent's share of it
+Z_REL = 1e-3
+
+
+def config_hps(name: str):
+    from sovits_tpu_torch import config as scfg
+
+    template, overrides, *_ = CONFIG_CASES[name]
+    return getattr(scfg, template)(**{f"model.{k}": v for k, v in overrides.items()})
+
+
+def _latent(svc, item) -> torch.Tensor:
+    """Synthesizer.infer_pre's latent for one prepared chunk, noise off."""
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))[None].to(svc.device)  # noqa: E731
+    z, _, _ = svc.model.infer_pre(t(item["c"]), t(item["f0"]), t(item["uv"]),
+                                  torch.zeros(1, dtype=torch.long, device=svc.device),
+                                  noise_scale=0.0, sample_noise=False,
+                                  vol=None if item["vol"] is None else t(item["vol"]))
+    return z.float().cpu()
+
+
+def phase_configs(tmp: Path, svc32, svc16) -> tuple[dict, dict]:
+    """Each CONFIG_CASES model written as a seeded G_0.pth and config.json and
+    loaded by Svc on the card like a trained model: a warm-up and a 10 s
+    request, each with the table's K1 and K3 launches and no others; a 3 s
+    request on the card against the same model on the CPU (log-mel L1 < 1e-3
+    and the latent within Z_REL, fp32, noise off), and the 10 s request's
+    latent too; in bf16 where the table says so, the same requests in bf16
+    held against fp32 by the bf16 bars.
+    The vol_tflow model also converts a song through slice_inference, and
+    the Snake model's synthesizer pass is profiled. Returns the K1/K3
+    launches of the fp32 and the bf16 requests."""
+    from sovits_tpu_torch.dsp.stft import mel_spectrogram
+
+    t_phase = time.perf_counter()
+    sr, hop = svc32.target_sample, svc32.hop_size
+    long_clip = bench_signal(SECONDS, sr)
+    totals = {torch.float32: dict.fromkeys(_counts(), 0), torch.bfloat16: dict.fromkeys(_counts(), 0)}
+    for name, (_template, _overrides, k1, k3, with_bf16) in CONFIG_CASES.items():
+        work = tmp / "configs" / name
+        work.mkdir(parents=True)
+        hps = config_hps(name)
+        svcs = {torch.float32: build_svc(work, "cuda", encoder=svc32.encoder, hps=hps)}
+        if with_bf16:
+            svcs[torch.bfloat16] = build_svc(work, "cuda", encoder=svc16.encoder, dtype=torch.bfloat16)
+        for dtype, svc in svcs.items():
+            suffix = "_bf16" if dtype == torch.bfloat16 else ""
+            want = {f"rel_attention{suffix}": k1, f"resblock_trio{suffix}": k3}
+            _reset_counts()
+            for request in ("10s warm-up", "10s"):
+                before = _counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                audio, n_samples, n_frames = svc.infer(0, 0, long_clip, sr=sr, f0_predictor="dio")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got = {k: v - before[k] for k, v in _counts().items()}
+                ok = (n_samples == n_frames * hop == len(long_clip) // hop * hop
+                      and np.isfinite(audio).all() and float(np.abs(audio).max()) > 1e-4
+                      and all(got[k] == want.get(k, 0) for k in got))
+                log("configs", config=name, dtype=str(dtype).split(".")[1], request=repr(request),
+                    frames=n_frames, wall_s=f"{wall:.4f}", rtf=f"{wall / SECONDS:.5f}",
+                    **{k: got[k] for k in want}, peak=f"{np.abs(audio).max():.4f}", ok=ok)
+                if not ok:
+                    raise AssertionError(f"[configs] {name} {request}: bad output or launches {got}, "
+                                         f"want {want}")
+            if name == "vol_tflow" and dtype == torch.float32:
+                _slice_run(svc, song(sr, (5.5, 5.5)), "12 s, vol_tflow", f0_predictor="dio",
+                           per_dispatch=(k1, k3))
+            for k, v in _counts().items():
+                totals[dtype][k] += v
+        svc = svcs[torch.float32]
+        cpu_svc = build_svc(work, "cpu", encoder=svc.encoder)
+        item = svc._prepare_chunk(0, 0, bench_signal(3.0, sr, seed=3), sr, 0.0, False, "dio", 0.05)
+        card = svc._run_synth_batch([item], 0.0, False, 52468, sample_noise=False)[0]
+        host = cpu_svc._run_synth_batch([item], 0.0, False, 52468, sample_noise=False)[0]
+        mels = [mel_spectrogram(torch.from_numpy(a)[None]) for a in (card, host)]
+        l1 = (mels[0] - mels[1]).abs().mean().item()
+        # the latent also at the 10 s request's own length: the shapes the
+        # path gives K1 (the transformer flow's causal layers at BH 2, T 861)
+        item10 = svc._prepare_chunk(0, 0, long_clip, sr, 0.0, False, "dio", 0.05)
+        z_rel = {}
+        for clip, it in (("3s", item), ("10s", item10)):
+            z_card, z_host = _latent(svc, it), _latent(cpu_svc, it)
+            z_rel[clip] = ((z_card - z_host).abs().max() / z_host.abs().max()).item()
+        ok = l1 < 1e-3 and max(z_rel.values()) <= Z_REL
+        log("configs", config=name, what="card vs CPU, fp32, noise off: audio of a 3 s clip, "
+            "latent of it and of the 10 s request", frames_10s=item10["n_frames"],
+            max_abs=f"{np.abs(card - host).max():.3e}", mel_l1=f"{l1:.3e}",
+            z_rel_max_abs={k: f"{v:.3e}" for k, v in z_rel.items()},
+            limits=f"mel L1<1e-3, latent<={Z_REL}", ok=ok)
+        if not ok:
+            raise AssertionError(f"[configs] {name}: card and CPU disagree: log-mel L1 {l1}, latent {z_rel}")
+        del cpu_svc
+        if with_bf16:
+            bf16_vs_fp32(f"configs:{name}", svc, svcs[torch.bfloat16])
+        if name == "snake":
+            wall, busy_ms, dev = _profiled(lambda: svc._run_synth_batch([item10], 0.4, False, 52468))
+            top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
+            log("configs", config=name, what="profiled synthesizer pass, 10 s, fp32",
+                wall_s=f"{wall:.4f}", device_busy_ms=f"{busy_ms:.2f}",
+                top_kernels_us={k[:60]: round(v, 1) for k, v in top})
+        del svcs, svc
+        torch.cuda.empty_cache()
+    log("configs", phase_s=f"{time.perf_counter() - t_phase:.1f}", launches=totals[torch.float32],
+        launches_bf16=totals[torch.bfloat16])
+    return totals[torch.float32], totals[torch.bfloat16]
 
 
 def phase_card_vs_cpu_batch(tmp: Path, svc, wav: np.ndarray) -> None:
@@ -1651,6 +1788,7 @@ def main() -> None:
         phase_card_vs_cpu(Path(tmp), svc)
         infer_bf16, svc16 = phase_main_bf16(Path(tmp), svc)
         slice32, slice16 = phase_slice(Path(tmp), svc, svc16)
+        configs32, configs16 = phase_configs(Path(tmp), svc, svc16)
         del svc16
         train, hps = phase_train(Path(tmp), svc.encoder)
         fused_tail = phase_train_fused_tail(hps)
@@ -1661,17 +1799,20 @@ def main() -> None:
         times[key] = [r["ms"], r["plain_ms"]]
     paths = {
         "rel_attention": {"infer": infer["rel_attention"], "slice": slice32["rel_attention"],
-                          "train": train["rel_attention"],
+                          "configs": configs32["rel_attention"], "train": train["rel_attention"],
                           "train_fused_tail": fused_tail["rel_attention"]},
         "rel_attention_bf16": {"infer_bf16": infer_bf16["rel_attention_bf16"],
                                "slice_bf16": slice16["rel_attention_bf16"],
+                               "configs_bf16": configs16["rel_attention_bf16"],
                                "train_bf16": train_bf16["rel_attention_bf16"]},
         "rel_attention_bwd": {"train": train["rel_attention_bwd"]},
         "rel_attention_bwd_bf16": {"train_bf16": train_bf16["rel_attention_bwd_bf16"]},
         "resblock_trio": {"infer": infer["resblock_trio"], "slice": slice32["resblock_trio"],
+                          "configs": configs32["resblock_trio"],
                           "train_fused_tail": fused_tail["resblock_trio"]},
         "resblock_trio_bf16": {"infer_bf16": infer_bf16["resblock_trio_bf16"],
-                               "slice_bf16": slice16["resblock_trio_bf16"]},
+                               "slice_bf16": slice16["resblock_trio_bf16"],
+                               "configs_bf16": configs16["resblock_trio_bf16"]},
         **{key: {"microbench": r["launches"]} for key, r in k4.items()},
     }
     bound = bounds()

@@ -172,6 +172,17 @@ def save_config(hps: HParams, path: str | Path) -> None:
         json.dump(hps.to_dict(), f, indent=2)
 
 
+def tiny_config(**overrides) -> HParams:
+    """The 'tiny' variant (so-vits-svc's config_tiny_template.json): filter
+    512, upsample_initial 400, depthwise convs, shared flow parameters."""
+    cfg = default_config(**overrides)
+    cfg.model["filter_channels"] = 512
+    cfg.model["upsample_initial_channel"] = 400
+    cfg.model["use_depthwise_conv"] = True
+    cfg.model["flow_share_parameter"] = True
+    return cfg
+
+
 def synthesizer_kwargs(hps: HParams) -> dict:
     """Map a config to Synthesizer constructor kwargs."""
     m = hps.model

@@ -11,6 +11,7 @@ numpy arrays; load them with ``{k: torch.from_numpy(v)}``.
 
 Layout maps (flax -> torch):
 - Conv1d        kernel (kw, in, out)  -> weight (out, in, kw)
+- separable     depth / point         -> depth_conv / point_conv
 - Conv2d        kernel (kh, kw, in, out) -> weight_v (out, in, kh, kw)
 - ConvT1d       kernel (kw, in, out)  -> weight_v (in, out, kw)
 - weight norm   g (out,) / g_in (in,) -> weight_g (n, 1, 1)
@@ -91,6 +92,14 @@ def _count(p: dict, stem: str) -> int:
     return sum(1 for k in p if k.startswith(stem) and k[len(stem):].isdigit())
 
 
+def conv1d_any(p: dict) -> dict:
+    """A plain, weight-normed or separable (``depth`` / ``point``) conv."""
+    if "depth" in p:
+        return {f"{part}_conv.{k}": v for part in ("depth", "point")
+                for k, v in conv1d_maybe_wn(p[part]).items()}
+    return conv1d_maybe_wn(p)
+
+
 def wavenet(sd: dict, prefix: str, p: dict) -> None:
     if "cond" in p:
         _put(sd, prefix + "cond_layer.", conv1d_wn(p["cond"]))
@@ -135,36 +144,71 @@ def attn_fft(sd: dict, prefix: str, p: dict) -> None:
         _put(sd, prefix + f"norm_layers_1.{i}.", _layer_norm(p[f"norm1_{i}"]))
 
 
-def generator(sd: dict, prefix: str, p: dict, n_kernels: int, n_dilations: int) -> None:
+def _snake(sd: dict, prefix: str, p: dict) -> None:
+    sd[prefix + "act.alpha"] = _np(p["act"]["alpha"])
+    sd[prefix + "act.beta"] = _np(p["act"]["beta"])
+
+
+def coupling_block(sd: dict, prefix: str, p: dict, transformer: bool) -> None:
+    """ResidualCouplingBlock / TransformerCouplingBlock: couplings at
+    ``flows.{0,2,4,...}``; a shared inner net (``shared_wn`` / ``shared_enc``)
+    under ``wn.`` and, as so-vits-svc's state_dict holds it, under every
+    coupling's ``enc.``."""
+    inner = attn_fft if transformer else wavenet
+    shared = p.get("shared_enc", p.get("shared_wn"))
+    if shared is not None:
+        inner(sd, prefix + "wn.", shared)
+    for i in range(_count(p, "coupling_")):
+        cp = p[f"coupling_{i}"]
+        where = f"{prefix}flows.{2 * i}."
+        _put(sd, where + "pre.", conv1d(cp["pre"]))
+        inner(sd, where + "enc.", cp["enc"] if shared is None else shared)
+        _put(sd, where + "post.", conv1d(cp["post"]))
+
+
+def resblock(sd: dict, prefix: str, p: dict) -> None:
+    """ResBlock1 / ResBlock2, plain or separable, and their Snake variants."""
+    for name, value in p.items():
+        stem, j = name.rsplit("_", 1)
+        j = int(j)
+        if stem.startswith("act"):  # Snake's: act1_j / act2_j alternate, act_j in order
+            slot = {"act1": 2 * j, "act2": 2 * j + 1, "act": j}[stem]
+            _snake(sd, f"{prefix}activations.{slot}.", value)
+        else:
+            convs = {"conv1": "convs1", "conv2": "convs2", "conv": "convs"}[stem]
+            _put(sd, f"{prefix}{convs}.{j}.", conv1d_any(value))
+
+
+def generator(sd: dict, prefix: str, p: dict) -> None:
+    """NSF-HiFiGAN or its Snake variant (``snake_{i}`` / ``snake_post``)."""
     _put(sd, prefix + "conv_pre.", conv1d_wn(p["conv_pre"]))
     _put(sd, prefix + "conv_post.", conv1d_wn(p["conv_post"]))
     sd[prefix + "m_source.l_linear.weight"] = _np(np.transpose(p["m_source"]["merge_kernel"], (1, 0)))
     sd[prefix + "m_source.l_linear.bias"] = _np(p["m_source"]["merge_bias"])
     if "cond" in p:
         _put(sd, prefix + "cond.", conv1d(p["cond"]))
+    if "snake_post" in p:
+        _snake(sd, prefix + "snake_post.", p["snake_post"])
+    n_kernels = _count(p, "resblock_0_")
     for i in range(_count(p, "up_")):
         _put(sd, prefix + f"ups.{i}.", conv_transpose1d_wn(p[f"up_{i}"]))
         _put(sd, prefix + f"noise_convs.{i}.", conv1d(p[f"noise_conv_{i}"]))
+        if f"snake_{i}" in p:
+            _snake(sd, prefix + f"snakes.{i}.", p[f"snake_{i}"])
         for j in range(n_kernels):
-            rb = p[f"resblock_{i}_{j}"]
-            rp = prefix + f"resblocks.{i * n_kernels + j}."
-            for d in range(n_dilations):
-                _put(sd, rp + f"convs1.{d}.", conv1d_maybe_wn(rb[f"conv1_{d}"]))
-                _put(sd, rp + f"convs2.{d}.", conv1d_maybe_wn(rb[f"conv2_{d}"]))
+            resblock(sd, prefix + f"resblocks.{i * n_kernels + j}.", p[f"resblock_{i}_{j}"])
 
 
 def synthesizer(params: dict, hps) -> dict:
-    """flax Synthesizer params -> so-vits-svc SynthesizerTrn state_dict (numpy).
-
-    Covers the configuration the port runs: ResBlock1 vocoder, WN flow
-    without parameter sharing, no volume embedding.
-    """
-    m = hps.model
-    if str(m.resblock) != "1" or m.use_transformer_flow or m.flow_share_parameter or m.vol_embedding:
-        raise NotImplementedError("from_jax.synthesizer covers resblock '1', WN flow, no vol embedding")
+    """flax Synthesizer params -> so-vits-svc SynthesizerTrn state_dict
+    (numpy), for every model option: the volume embedding, the WN or
+    transformer flow with or without a shared inner net, and the NSF or
+    Snake generator with ResBlock1 or ResBlock2, plain or separable."""
     sd: dict = {}
     sd["emb_g.weight"] = _np(params["emb_g"]["embedding"])
     sd["emb_uv.weight"] = _np(params["emb_uv"]["embedding"])
+    if "emb_vol" in params:
+        _put(sd, "emb_vol.", linear(params["emb_vol"]))
     _put(sd, "pre.", conv1d(params["pre"]))
     enc_p = params["enc_p"]
     sd["enc_p.f0_emb.weight"] = _np(enc_p["f0_emb"]["embedding"])
@@ -175,18 +219,13 @@ def synthesizer(params: dict, hps) -> dict:
         _put(sd, "enc_q.pre.", conv1d(enc_q["pre"]))
         wavenet(sd, "enc_q.enc.", enc_q["enc"])
         _put(sd, "enc_q.proj.", conv1d(enc_q["proj"]))
-    for i in range(_count(params["flow"], "coupling_")):
-        cp = params["flow"][f"coupling_{i}"]
-        prefix = f"flow.flows.{2 * i}."
-        _put(sd, prefix + "pre.", conv1d(cp["pre"]))
-        wavenet(sd, prefix + "enc.", cp["enc"])
-        _put(sd, prefix + "post.", conv1d(cp["post"]))
+    coupling_block(sd, "flow.", params["flow"], bool(hps.model.use_transformer_flow))
     if "f0_decoder" in params:
         fd = params["f0_decoder"]
         for name in ("prenet", "proj", "f0_prenet", "cond"):
             _put(sd, f"f0_decoder.{name}.", conv1d(fd[name]))
         attn_fft(sd, "f0_decoder.decoder.", fd["decoder"])
-    generator(sd, "dec.", params["dec"], len(m.resblock_kernel_sizes), len(m.resblock_dilation_sizes[0]))
+    generator(sd, "dec.", params["dec"])
     return sd
 
 

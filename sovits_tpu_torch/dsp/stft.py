@@ -4,8 +4,8 @@
 Reflect pad by (n_fft - hop) / 2, centre-free STFT with a periodic Hann
 window, magnitude sqrt(power + 1e-6); the mel projection is the Slaney
 filterbank of ``dsp/mel.py`` followed by log(clamp(., 1e-5)). Outputs are
-the JAX package's layout [B, T, F]. Its rDFT-as-matmul is TPU layout work
-and is not ported.
+the JAX package's layout [B, T, F]. ``energy`` is the per-frame RMS volume
+feature. Its rDFT-as-matmul is TPU layout work and is not ported.
 """
 
 from __future__ import annotations
@@ -41,3 +41,16 @@ def mel_spectrogram(y: torch.Tensor, n_fft: int = 2048, n_mels: int = 80,
     """Waveform [B, L] -> log-mel [B, T, M]."""
     return spec_to_mel(spectrogram(y, n_fft, hop_length, win_length), n_fft, n_mels,
                        sample_rate, fmin, fmax)
+
+
+def energy(y: torch.Tensor, hop_length: int = 512) -> torch.Tensor:
+    """RMS per hop frame, the volume feature: audio [B, L] -> [B, L // hop].
+
+    Square, reflect-pad by (hop // 2, (hop + 1) // 2), mean over
+    non-overlapping hop windows truncated to L // hop frames, sqrt.
+    """
+    n_frames = y.shape[-1] // hop_length
+    a2 = torch.nn.functional.pad(y.float()[:, None] ** 2,
+                                 (hop_length // 2, (hop_length + 1) // 2), mode="reflect")[:, 0]
+    blocks = a2[:, : n_frames * hop_length].reshape(y.shape[0], n_frames, hop_length)
+    return torch.sqrt(blocks.mean(dim=-1))

@@ -29,6 +29,7 @@ import torch
 from .. import config as scfg
 
 from ..dsp.audio import change_rms, repeat_expand, resample
+from ..dsp.stft import energy
 from ..f0.base import get_f0_predictor
 from ..models import factory
 from . import slicer as slicer_mod
@@ -104,6 +105,7 @@ class Svc:
         self.hop_size = self.hps.data.hop_length
         self.spk2id = dict(self.hps.spk.items()) if self.hps.spk else {}
         self.unit_interpolate_mode = self.hps.data.unit_interpolate_mode or "left"
+        self.vol_embedding = bool(self.hps.model.vol_embedding)
         self.model = factory.build_synthesizer(self.hps, self.device, fused_tail=True, dtype=dtype)
         self.model.load_state_dict(self._load_state_dict(net_g_path), strict=True)
         self.f0_predictor_object = None
@@ -163,7 +165,8 @@ class Svc:
 
     def _prepare_chunk(self, speaker, tran, wav, sr, cluster_infer_ratio, f0_filter,
                        f0_predictor, cr_threshold, spk_mix_frames=None) -> dict:
-        """Host-side front end for one chunk: resample, f0, units, speaker."""
+        """Host-side front end for one chunk: resample, f0, units, volume
+        (a ``vol_embedding`` model's per-frame RMS), speaker."""
         if sr is not None and sr != self.target_sample:
             wav = resample(wav, sr, self.target_sample)
         wav = np.asarray(wav, dtype=np.float32)
@@ -171,6 +174,10 @@ class Svc:
             wav, tran, cluster_infer_ratio, speaker, f0_filter, f0_predictor, cr_threshold
         )
         n_frames = len(f0)
+        vol = None
+        if self.vol_embedding:
+            vol = energy(torch.from_numpy(wav[None, : n_frames * self.hop_size]),
+                         self.hop_size)[0].numpy()
         if spk_mix_frames is not None:
             spk = ("mix", np.asarray(spk_mix_frames[:n_frames], np.float32))
         else:
@@ -180,7 +187,7 @@ class Svc:
             if spk_id is None:
                 raise RuntimeError("The name you entered is not in the speaker list!")
             spk = ("id", int(spk_id))
-        return dict(wav=wav, c=c, f0=f0, uv=uv, vol=None, n_frames=n_frames, spk=spk)
+        return dict(wav=wav, c=c, f0=f0, uv=uv, vol=vol, n_frames=n_frames, spk=spk)
 
     def _run_synth_batch(self, items: list, noice_scale: float, auto_predict_f0: bool,
                          seed: int, max_batch: int = 8, sample_noise: bool = True) -> list:
@@ -208,11 +215,12 @@ class Svc:
                 else:
                     spk = torch.tensor([items[i]["spk"][1] for i in rows], device=self.device)
                 lengths = torch.tensor([items[i]["n_frames"] for i in rows], device=self.device)
+                vol = stack([items[i]["vol"] for i in rows]) if self.vol_embedding else None
                 audio, _f0 = self.model.infer(
                     stack([items[i]["c"] for i in rows]), stack([items[i]["f0"] for i in rows]),
                     stack([items[i]["uv"] for i in rows]), spk, noise_scale=noice_scale,
                     predict_f0=bool(auto_predict_f0), sample_noise=sample_noise,
-                    lengths=lengths, generator=generator,
+                    lengths=lengths, generator=generator, vol=vol,
                 )
                 audio = audio.float().cpu().numpy()
                 for row, i in enumerate(sub):

@@ -12,44 +12,20 @@ from .. import config as scfg
 from ..nn.attention import MultiHeadAttention
 from ..nn.conv import WeightNormed, WNConvTranspose1d
 from ..nn.norm import LayerNorm
-from ..nn.resblocks import ResBlock1
+from ..nn.resblocks import ResBlock1, ResBlock2
+from ..nn.snake import SnakeBeta
 from .discriminator import MultiPeriodDiscriminator
 from .synthesizer import Synthesizer
-
-# config options this port does not implement, with the value it runs
-_UNSUPPORTED = {
-    "vol_embedding": False,
-    "use_transformer_flow": False,
-    "use_depthwise_conv": False,
-    "flow_share_parameter": False,
-    "resblock": "1",
-    "vocoder_name": "nsf-hifigan",
-}
-# Synthesizer kwargs of the JAX package that the port does not use (the
-# transformer flow is unsupported above)
-_UNUSED = ("n_layers_trans_flow",)
-
-
-def synthesizer_kwargs(hps) -> dict:
-    """Config -> Synthesizer kwargs (the JAX package's mapping); raises
-    NotImplementedError naming any option outside what the port runs."""
-    kw = scfg.synthesizer_kwargs(hps)
-    for name, value in _UNSUPPORTED.items():
-        got = kw.pop(name)
-        if type(value)(got) != value:
-            raise NotImplementedError(f"model.{name}={got!r} is not supported by the port")
-    for name in _UNUSED:
-        kw.pop(name)
-    return kw
 
 
 def build_synthesizer(hps, device: torch.device | str, *, fused_tail: bool,
                       dtype: torch.dtype = torch.float32) -> Synthesizer:
     """The synthesizer for ``hps`` on ``device``, computing in ``dtype``
-    (parameters stay float32). Each caller decides the vocoder tail: ``Svc``
-    keeps the fused one (``fused_tail=True``), the trainer the plain convs
-    (``False``), as the JAX trainer does."""
-    model = Synthesizer(**synthesizer_kwargs(hps), fused_tail=fused_tail, dtype=dtype)
+    (parameters stay float32), with every model option of the config. Each
+    caller decides the vocoder tail: ``Svc`` keeps the fused one
+    (``fused_tail=True``; only a resblock-"1" generator with plain convs has
+    one), the trainer the plain convs (``False``), as the JAX trainer does."""
+    model = Synthesizer(**scfg.synthesizer_kwargs(hps), fused_tail=fused_tail, dtype=dtype)
     return model.to(device).eval()
 
 
@@ -71,11 +47,14 @@ def build_discriminator(hps, device: torch.device | str,
 def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-draw every parameter from ``generator`` (a CPU generator), with
     the distributions the reference initialises with: torch's uniform
-    +-1/sqrt(fan_in) for convs and linears, N(0, 0.01) for the vocoder's
-    upsampling and resblock convs, N(0, 1) embeddings, N(0, d^-1/2) Shaw
-    tables, unit LayerNorms. Weight norm starts at g = ||v||. The F0
-    decoder's causal attention starts with conv_k equal to conv_q
-    (so-vits-svc's proximal_init)."""
+    +-1/sqrt(fan_in) for convs and linears (a separable conv's depthwise
+    part included), N(0, 0.01) for the vocoder's upsampling and resblock
+    convs, N(0, 1) embeddings, N(0, d^-1/2) Shaw tables, unit LayerNorms.
+    Weight norm starts at g = ||v||. The F0 decoder's causal attention
+    starts with conv_k equal to conv_q (so-vits-svc's proximal_init).
+    What the reference starts at zero is drawn too, so that a random model
+    runs every path: the flows' ``post`` convs take the uniform draw, and
+    Snake's log-scale alpha and beta N(0, 0.1)."""
 
     def fill(p: torch.Tensor, sample: torch.Tensor) -> None:
         p.copy_(sample.to(p.dtype))
@@ -88,8 +67,8 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
     small = set()
     for mod in model.modules():
-        if isinstance(mod, ResBlock1):
-            small.update(id(c) for c in mod.modules())
+        if isinstance(mod, (ResBlock1, ResBlock2)):
+            small.update(id(c) for c in mod.modules() if getattr(c, "groups", 1) == 1)
     for mod in model.modules():
         if isinstance(mod, WeightNormed):
             fan_in = mod.weight_v[0].numel()
@@ -115,6 +94,9 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(mod, MultiHeadAttention) and mod.window_size is not None:
             normal(mod.emb_rel_k, mod.k_channels**-0.5)
             normal(mod.emb_rel_v, mod.k_channels**-0.5)
+        elif isinstance(mod, SnakeBeta):
+            normal(mod.alpha, 0.1)
+            normal(mod.beta, 0.1)
     if getattr(model, "f0_decoder", None) is not None:
         for attn in model.f0_decoder.decoder.self_attn_layers:
             attn.conv_k.load_state_dict(attn.conv_q.state_dict())

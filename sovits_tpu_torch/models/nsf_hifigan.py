@@ -16,11 +16,10 @@ import math
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..nn.conv import Cast, Conv1d, WNConv1d, WNConvTranspose1d
-from ..nn.resblocks import LRELU_SLOPE, ResBlock1
+from ..nn.resblocks import ResBlock1, ResBlock2, activation
 from ..ops.fused_stage import TRIO_CHANNELS, fused_resblock_trio
 
 
@@ -73,19 +72,41 @@ class SourceModuleHnNSF(Cast, nn.Module):
 
 
 class Generator(nn.Module):
-    """latent [B, C_in, T_f] + f0 [B, T_f] + g [B, gin, 1 or T_f] -> wav [B, 1, T_f*upp]."""
+    """latent [B, C_in, T_f] + f0 [B, T_f] + g [B, gin, 1 or T_f] -> wav [B, 1, T_f*upp].
+
+    With ``snake`` it is the ``nsf-snake-hifigan`` vocoder (the JAX
+    package's ``SnakeGenerator``; so-vits-svc
+    ``vdecoder/hifiganwithsnake/models.py``): every leaky ReLU becomes an
+    alias-free SnakeAlias -- before each upsample (``snakes``), around every
+    resblock conv and before ``conv_post`` (``snake_post``). The leaky
+    ReLUs sit under the same names and hold no parameters. In a bf16 Snake
+    model the convs compute in bf16 while the residual stream between them
+    and the Snake activations stay float32: Snake's periodic activation
+    turns the absolute rounding error of its input into output error, and a
+    bf16 stream moved the full-width model's audio by 5.3% of its peak
+    against float32 on an H100, over the 5% bar of two bf16 decodes
+    (PERF.md). The JAX package's Snake generator has no bf16 path to follow
+    (``nn/snake.py``).
+    """
 
     def __init__(self, sampling_rate: int = 44100, inter_channels: int = 192,
                  resblock_kernel_sizes=(3, 7, 11), resblock_dilation_sizes=((1, 3, 5),) * 3,
                  upsample_rates=(8, 8, 2, 2, 2), upsample_initial_channel: int = 512,
                  upsample_kernel_sizes=(16, 16, 4, 4, 4), gin_channels: int = 768,
-                 fused_tail: bool = False):
+                 fused_tail: bool = False, resblock: str = "1", separable: bool = False,
+                 snake: bool = False):
         """``fused_tail`` (the JAX package's name) runs the stages of width
         16-128 through the fused ResBlock trio (differentiable: its backward
         recomputes the plain convs); without it every stage runs the plain
-        ResBlock1 convs, as the trainer does."""
+        ResBlock1 convs, as the trainer does. ``resblock`` "2" builds
+        ResBlock2s and ``separable`` (``use_depthwise_conv``) makes their
+        convs depthwise-separable; as in the JAX package, the fused trio
+        serves only the leaky resblock "1" with plain convs, and the other
+        generators run stock convs in every stage."""
         super().__init__()
-        self.fused_tail = fused_tail
+        block_cls = ResBlock1 if str(resblock) == "1" else ResBlock2
+        self.fused = fused_tail and str(resblock) == "1" and not separable and not snake
+        self.snake = snake
         self.upsample_rates = tuple(upsample_rates)
         self.kernel_sizes = tuple(resblock_kernel_sizes)
         self.dilation_sizes = tuple(map(tuple, resblock_dilation_sizes))
@@ -95,37 +116,47 @@ class Generator(nn.Module):
         self.ups = nn.ModuleList()
         self.noise_convs = nn.ModuleList()
         self.resblocks = nn.ModuleList()
+        self.snakes = nn.ModuleList()
         self.stage_channels = []
         for i, (u, k) in enumerate(zip(upsample_rates, upsample_kernel_sizes)):
-            ch = upsample_initial_channel // (2 ** (i + 1))
+            ch_in = upsample_initial_channel // (2**i)
+            ch = ch_in // 2
             self.stage_channels.append(ch)
-            self.ups.append(WNConvTranspose1d(ch * 2, ch, k, u, padding=(k - u + 1) // 2))
+            self.snakes.append(activation(ch_in, snake))
+            self.ups.append(WNConvTranspose1d(ch_in, ch, k, u, padding=(k - u + 1) // 2))
             if i + 1 < len(upsample_rates):
                 s = int(np.prod(upsample_rates[i + 1 :]))
                 self.noise_convs.append(Conv1d(1, ch, s * 2, stride=s, padding=(s + 1) // 2))
             else:
                 self.noise_convs.append(Conv1d(1, ch, 1))
             for rk, rd in zip(self.kernel_sizes, self.dilation_sizes):
-                self.resblocks.append(ResBlock1(ch, rk, rd))
-        self.conv_post = WNConv1d(self.stage_channels[-1], 1, 7, padding=3)
+                self.resblocks.append(block_cls(ch, rk, rd, separable=separable, snake=snake))
+        # torch's default slope 0.01 before conv_post, as the reference
+        self.snake_post = activation(ch, snake, slope=0.01)
+        self.conv_post = WNConv1d(ch, 1, 7, padding=3)
         self.cond = Conv1d(gin_channels, upsample_initial_channel, 1)
+
+    def _stream(self, x: torch.Tensor) -> torch.Tensor:
+        """The residual stream's type: float32 around Snake, else the compute type."""
+        return x.float() if self.snake else x
 
     def forward(self, x: torch.Tensor, f0: torch.Tensor, g: torch.Tensor | None = None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         har_source, _ = self.m_source(f0, self.upp, generator)
-        x = self.conv_pre(x)
+        x = self._stream(self.conv_pre(x))
         if g is not None:
             x = x + self.cond(g)
         nk = len(self.kernel_sizes)
         for i, ch in enumerate(self.stage_channels):
-            x = self.ups[i](F.leaky_relu(x, LRELU_SLOPE))
-            x = x + self.noise_convs[i](har_source)
+            x = self._stream(self.ups[i](self.snakes[i](x))) + self.noise_convs[i](har_source)
             blocks = self.resblocks[i * nk : (i + 1) * nk]
-            if self.fused_tail and ch in TRIO_CHANNELS:
-                # dispatch by stage width, as the JAX package's fold * C == 128
-                # condition does: these stages run the fused trio (kernel on
-                # CUDA, its plain version on the CPU; under autograd through
-                # FusedTrio); wider ones plain convs
+            if self.fused and ch in TRIO_CHANNELS:
+                # the JAX package's use_pallas condition: resblock "1" with
+                # plain convs, and by stage width as its fold * C == 128: these
+                # stages run the fused trio (kernel on CUDA, its plain version
+                # on the CPU; under autograd through FusedTrio); wider ones,
+                # and every stage of a resblock-2, separable or Snake
+                # generator, stock convs
                 pairs = [p for block in blocks for p in block.chain_weights()]
                 x = fused_resblock_trio(
                     x.transpose(1, 2).contiguous(), [p[0] for p in pairs], [p[1] for p in pairs],
@@ -137,5 +168,4 @@ class Generator(nn.Module):
                     y = block(x)
                     xs = y if xs is None else xs + y
                 x = xs / nk
-        x = self.conv_post(F.leaky_relu(x))  # torch's default slope 0.01, as the reference
-        return torch.tanh(x)
+        return torch.tanh(self.conv_post(self.snake_post(x)))

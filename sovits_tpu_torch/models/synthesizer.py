@@ -30,8 +30,8 @@ from torch import nn
 from ..dsp.f0 import f0_to_coarse, f0_to_lf0, lf0_to_f0, normalize_f0
 from ..dsp.sequence import rand_slice_segments_with_pitch, sequence_mask
 from ..nn.attention import FFT, Encoder
-from ..nn.conv import Conv1d, Embedding, set_compute_dtype
-from ..nn.flows import ResidualCouplingBlock
+from ..nn.conv import Conv1d, Embedding, Linear, set_compute_dtype
+from ..nn.flows import ResidualCouplingBlock, TransformerCouplingBlock
 from ..nn.wavenet import WN
 from .nsf_hifigan import Generator
 
@@ -124,6 +124,7 @@ class Synthesizer(nn.Module):
         n_layers: int = 6,
         kernel_size: int = 3,
         p_dropout: float = 0.1,
+        resblock: str = "1",
         resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
         resblock_dilation_sizes: Sequence[Sequence[int]] = ((1, 3, 5),) * 3,
         upsample_rates: Sequence[int] = (8, 8, 2, 2, 2),
@@ -133,35 +134,62 @@ class Synthesizer(nn.Module):
         ssl_dim: int = 768,
         n_speakers: int = 200,
         sampling_rate: int = 44100,
+        vol_embedding: bool = False,
+        use_depthwise_conv: bool = False,
         use_automatic_f0_prediction: bool = True,
+        flow_share_parameter: bool = False,
         n_flow_layer: int = 4,
+        n_layers_trans_flow: int = 3,
+        use_transformer_flow: bool = False,
         n_layers_q: int = 16,
+        vocoder_name: str = "nsf-hifigan",
         fused_tail: bool = False,
         dtype: torch.dtype = torch.float32,
     ):
         """``segment_size`` is in latent frames (segment samples // hop);
-        ``fused_tail`` decodes through the fused ResBlock trio;
-        ``dtype`` is the compute type (float32 or bfloat16)."""
+        ``fused_tail`` decodes through the fused ResBlock trio where the
+        generator allows it (resblock "1", plain convs); ``dtype`` is the
+        compute type (float32 or bfloat16). The other keywords are
+        so-vits-svc 4.1's model options, as the JAX package names them:
+        ``vol_embedding`` adds a per-frame volume to the prenet,
+        ``use_transformer_flow`` takes ``n_flow_layer`` couplings of causal
+        FFTs ``n_layers_trans_flow`` deep (the WN flow has 4 couplings of WNs
+        ``n_flow_layer`` deep), ``flow_share_parameter`` shares one inner net
+        among the couplings, ``use_depthwise_conv`` makes the vocoder's
+        resblock convs separable, and ``vocoder_name`` "nsf-snake-hifigan"
+        takes the Snake generator."""
         super().__init__()
         self.segment_size = segment_size
         self.use_automatic_f0_prediction = use_automatic_f0_prediction
+        self.vol_embedding = vol_embedding
         self.emb_g = Embedding(n_speakers, gin_channels)
         self.emb_uv = Embedding(2, hidden_channels)
+        if vol_embedding:
+            self.emb_vol = Linear(1, hidden_channels)
         self.pre = Conv1d(ssl_dim, hidden_channels, 5, padding=2)
         self.enc_p = ContentEncoder(inter_channels, hidden_channels, filter_channels, n_heads,
                                     n_layers, kernel_size, p_dropout)
         self.enc_q = PosteriorEncoder(spec_channels, inter_channels, hidden_channels, 5, 1,
                                       n_layers_q, gin_channels)
-        # so-vits-svc: always 4 couplings; n_flow_layer is each WN's depth
-        self.flow = ResidualCouplingBlock(inter_channels, hidden_channels, 5, 1, n_flow_layer,
-                                          n_flows=4, gin_channels=gin_channels)
+        if use_transformer_flow:
+            self.flow = TransformerCouplingBlock(
+                inter_channels, hidden_channels, filter_channels, n_heads, n_layers_trans_flow, 5,
+                p_dropout, n_flows=n_flow_layer, gin_channels=gin_channels,
+                share_parameter=flow_share_parameter)
+        else:  # so-vits-svc: always 4 couplings; n_flow_layer is each WN's depth
+            self.flow = ResidualCouplingBlock(
+                inter_channels, hidden_channels, 5, 1, n_flow_layer, n_flows=4,
+                gin_channels=gin_channels, share_parameter=flow_share_parameter)
         if use_automatic_f0_prediction:
             self.f0_decoder = F0Decoder(1, hidden_channels, filter_channels, n_heads, n_layers,
                                         kernel_size, spk_channels=gin_channels,
                                         p_dropout=p_dropout)
-        self.dec = Generator(sampling_rate, inter_channels, resblock_kernel_sizes,
-                             resblock_dilation_sizes, upsample_rates, upsample_initial_channel,
-                             upsample_kernel_sizes, gin_channels, fused_tail=fused_tail)
+        dec_args = (sampling_rate, inter_channels, resblock_kernel_sizes, resblock_dilation_sizes,
+                    upsample_rates, upsample_initial_channel, upsample_kernel_sizes, gin_channels)
+        snake = vocoder_name == "nsf-snake-hifigan"
+        # as in the JAX package, the Snake vocoder takes no separable convs
+        self.dec = Generator(*dec_args, fused_tail=fused_tail, resblock=resblock,
+                             separable=use_depthwise_conv and not snake, snake=snake)
         set_compute_dtype(self, dtype)
 
     def _speaker_embedding(self, spk: torch.Tensor) -> torch.Tensor:
@@ -172,15 +200,19 @@ class Synthesizer(nn.Module):
             return self.emb_g(spk)[:, :, None]
         return torch.einsum("bts,sg->bgt", spk, self.emb_g.weight.to(spk.dtype))
 
-    def _prenet(self, c, uv, x_mask):
-        return self.pre(c.transpose(1, 2)) * x_mask + self.emb_uv(uv.long()).transpose(1, 2)
+    def _prenet(self, c, uv, vol, x_mask):
+        x = self.pre(c.transpose(1, 2)) * x_mask + self.emb_uv(uv.long()).transpose(1, 2)
+        if self.vol_embedding and vol is not None:
+            x = x + self.emb_vol(vol[..., None]).transpose(1, 2)
+        return x
 
-    def forward(self, c, f0, uv, spec, spk, c_lengths, deterministic: bool = False,
+    def forward(self, c, f0, uv, spec, spk, c_lengths, vol=None, deterministic: bool = False,
                 generator: torch.Generator | None = None):
         """The training forward: c [B, T, ssl], f0 / uv [B, T], spec [B, T, F],
-        spk [B], c_lengths [B]. Returns (wav [B, segment*hop, 1], ids_slice [B],
-        spec_mask [B, T, 1], (z, z_p, m_p, logs_p, m_q, logs_q) [B, T, C],
-        pred_lf0, norm_lf0, lf0 [B, T, 1]).
+        spk [B], c_lengths [B], vol [B, T] (read with ``vol_embedding``).
+        Returns (wav [B, segment*hop, 1], ids_slice [B], spec_mask [B, T, 1],
+        (z, z_p, m_p, logs_p, m_q, logs_q) [B, T, C], pred_lf0, norm_lf0,
+        lf0 [B, T, 1]).
 
         ``deterministic`` (the JAX module's switch): no dropout, no noise, no
         random f0 scale, every slice at frame 0. Otherwise every draw comes
@@ -191,7 +223,7 @@ class Synthesizer(nn.Module):
         gen = None if deterministic else generator
         g = self._speaker_embedding(spk)
         x_mask = sequence_mask(c_lengths, c.shape[1])[:, None, :].to(c.dtype)  # [B, 1, T]
-        x = self._prenet(c, uv, x_mask)
+        x = self._prenet(c, uv, vol, x_mask)
         if self.use_automatic_f0_prediction:
             lf0 = f0_to_lf0(f0)[..., None]  # [B, T, 1]
             norm_lf0 = normalize_f0(lf0, x_mask.transpose(1, 2), uv, generator=gen)
@@ -202,7 +234,7 @@ class Synthesizer(nn.Module):
         # prior stats only: the reference's unused prior sample is not drawn
         _, m_p, logs_p = self.enc_p(x, x_mask, f0_to_coarse(f0), drop_generator=gen)
         z, m_q, logs_q, spec_mask = self.enc_q(spec.transpose(1, 2), c_lengths, g=g, generator=gen)
-        z_p = self.flow(z, spec_mask, g=g)
+        z_p = self.flow(z, spec_mask, g=g, drop_generator=gen)
         z_cl = z.transpose(1, 2)
         if deterministic:
             ids_slice = torch.zeros(c.shape[0], dtype=torch.int32, device=c.device)
@@ -217,13 +249,13 @@ class Synthesizer(nn.Module):
 
     @torch.no_grad()
     def infer_pre(self, c, f0, uv, spk, noise_scale: float = 0.35, predict_f0: bool = False,
-                  sample_noise: bool = True, lengths=None, generator=None):
+                  sample_noise: bool = True, lengths=None, generator=None, vol=None):
         """``infer`` up to the vocoder: (z [B, inter, T] masked, f0 [B, T], g)."""
         g = self._speaker_embedding(spk)
         if lengths is None:
             lengths = torch.full((c.shape[0],), c.shape[1], device=c.device)
         x_mask = sequence_mask(lengths, c.shape[1])[:, None, :].to(c.dtype)  # [B, 1, T]
-        x = self._prenet(c, uv, x_mask)
+        x = self._prenet(c, uv, vol, x_mask)
 
         if self.use_automatic_f0_prediction and predict_f0:
             lf0 = f0_to_lf0(f0)[..., None]  # [B, T, 1]
@@ -238,8 +270,9 @@ class Synthesizer(nn.Module):
 
     @torch.no_grad()
     def infer(self, c, f0, uv, spk, noise_scale: float = 0.35, predict_f0: bool = False,
-              sample_noise: bool = True, lengths=None, generator=None):
-        """(wav [B, T*hop, 1], f0 [B, T]). With ``sample_noise`` the prior
+              sample_noise: bool = True, lengths=None, generator=None, vol=None):
+        """(wav [B, T*hop, 1], f0 [B, T]); ``vol`` [B, T] is the per-frame
+        volume a ``vol_embedding`` model reads. With ``sample_noise`` the prior
         noise and the source's random phases and noise come from
         ``generator`` (a freshly seeded one when None); without it the
         output is deterministic."""
@@ -247,6 +280,6 @@ class Synthesizer(nn.Module):
             generator = torch.Generator(device=c.device)
             generator.seed()
         z, f0, g = self.infer_pre(c, f0, uv, spk, noise_scale, predict_f0, sample_noise,
-                                  lengths, generator)
+                                  lengths, generator, vol)
         o = self.dec(z, f0, g=g, generator=generator if sample_noise else None)
         return o.transpose(1, 2), f0

@@ -28,9 +28,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import NEG, fused_attention
-from .conv import Conv1d
+from .conv import Conv1d, WNConv1d
 from .dropout import dropout, keep_mask
 from .norm import LayerNorm
+from .wavenet import gated_tanh_sigmoid
 
 
 def _relative_to_absolute(x: torch.Tensor) -> torch.Tensor:
@@ -189,12 +190,20 @@ class Encoder(nn.Module):
 
 
 class FFT(nn.Module):
-    """Causal self-attention stack (the F0Decoder's; no flow conditioning)."""
+    """Causal self-attention stack: the F0Decoder's, and with ``isflow`` the
+    transformer flow's inner net, conditioned on g (so-vits-svc ``FFT``)."""
 
     def __init__(self, hidden_channels: int, filter_channels: int, n_heads: int,
-                 n_layers: int = 1, kernel_size: int = 1, p_dropout: float = 0.0):
+                 n_layers: int = 1, kernel_size: int = 1, p_dropout: float = 0.0,
+                 isflow: bool = False, gin_channels: int = 0):
         super().__init__()
         self.p_dropout = p_dropout
+        self.hidden_channels = hidden_channels
+        if isflow:
+            # one 1x1 conv makes every layer's gate offsets; one pre-gate
+            # projection is shared by all layers
+            self.cond_layer = WNConv1d(gin_channels, 2 * hidden_channels * n_layers, 1)
+            self.cond_pre = Conv1d(hidden_channels, 2 * hidden_channels, 1)
         self.self_attn_layers = nn.ModuleList(
             MultiHeadAttention(hidden_channels, hidden_channels, n_heads, p_dropout=p_dropout)
             for _ in range(n_layers)
@@ -208,11 +217,17 @@ class FFT(nn.Module):
         self.norm_layers_1 = nn.ModuleList(LayerNorm(hidden_channels) for _ in range(n_layers))
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
-                drop_generator: torch.Generator | None = None) -> torch.Tensor:
-        p, gen = self.p_dropout, drop_generator
+                drop_generator: torch.Generator | None = None,
+                g: torch.Tensor | None = None) -> torch.Tensor:
+        """x [B, H, T], x_mask [B, 1, T]; g [B, gin, 1 or T] gates each layer's
+        input when the stack is a flow's."""
+        p, gen, h = self.p_dropout, drop_generator, self.hidden_channels
+        g_all = self.cond_layer(g) if g is not None and hasattr(self, "cond_layer") else None
         x = x * x_mask
-        for attn, norm0, ffn, norm1 in zip(self.self_attn_layers, self.norm_layers_0,
-                                          self.ffn_layers, self.norm_layers_1):
+        for i, (attn, norm0, ffn, norm1) in enumerate(zip(
+                self.self_attn_layers, self.norm_layers_0, self.ffn_layers, self.norm_layers_1)):
+            if g_all is not None:
+                x = gated_tanh_sigmoid(self.cond_pre(x), g_all[:, i * 2 * h : (i + 1) * 2 * h])
             x = norm0(x + dropout(attn(x, x, causal=True, drop_generator=gen), p, gen))
             x = norm1(x + dropout(ffn(x, x_mask, gen), p, gen))
         return x * x_mask

@@ -159,3 +159,20 @@ class WNConvTranspose1d(WeightNormed):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv_transpose1d(x.to(self.dtype), self.effective_weight(), self.cast_bias(),
                                   self.stride, self.padding)
+
+
+class SeparableConv1d(nn.Module):
+    """Depthwise-separable conv (so-vits-svc ``Depthwise_Separable_Conv1D``
+    under its weight norm, the JAX ``SeparableConv1d(weight_norm=True)``): a
+    weight-normed depthwise conv (groups = C_in), then a weight-normed
+    pointwise 1x1; state_dict names ``depth_conv`` / ``point_conv``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, padding: int = 0,
+                 dilation: int = 1):
+        super().__init__()
+        self.depth_conv = WNConv1d(in_channels, in_channels, kernel_size, padding=padding,
+                                   dilation=dilation, groups=in_channels)
+        self.point_conv = WNConv1d(in_channels, out_channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.point_conv(self.depth_conv(x))

@@ -25,13 +25,15 @@ def train_step(net_g, net_d, optim_g, optim_d, batch: dict, hps,
                generator: torch.Generator | None = None, deterministic: bool = False) -> dict:
     """Update both nets once from ``batch`` (the data pipeline's layout:
     c [B, T, ssl], f0 / uv [B, T], spec [B, T, F], spk [B], lengths [B],
-    wav [B, T*hop, 1]). Returns the step's metrics as 0-d tensors."""
+    wav [B, T*hop, 1], volume [B, T], which a ``vol_embedding`` model
+    reads). Returns the step's metrics as 0-d tensors."""
     d = hps.data
     hop = d.hop_length
     mel_kw = dict(n_fft=d.filter_length, n_mels=d.n_mel_channels, sample_rate=d.sampling_rate,
                   fmin=d.mel_fmin, fmax=d.mel_fmax)
     y_hat, ids_slice, spec_mask, (z, z_p, m_p, logs_p, m_q, logs_q), pred_lf0, _norm_lf0, lf0 = net_g(
         batch["c"], batch["f0"], batch["uv"], batch["spec"], batch["spk"], batch["lengths"],
+        vol=batch.get("volume"),
         deterministic=deterministic, generator=generator,
     )
     y_seg = slice_segments(batch["wav"], ids_slice * hop, hps.train.segment_size)

@@ -15,6 +15,7 @@ bf16 ulps).
 import pytest
 import torch
 
+from chip_smoke import CONFIG_CASES, config_hps
 from sovits_tpu_torch import config as scfg
 from sovits_tpu_torch.models import factory
 from sovits_tpu_torch.ops.attention import (
@@ -170,6 +171,35 @@ def test_full_width_synthesizer_cuda_matches_cpu(cuda):
     assert fused_resblock_trio.launches == 4  # stages with C = 128, 64, 32, 16
     assert got.shape == (b, t * hps.data.hop_length, 1)
     torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", list(CONFIG_CASES))
+def test_full_width_config_cuda_matches_cpu(cuda, name):
+    """chip_smoke.py's [configs] models (so-vits-svc 4.1's options at full
+    width) on the card against the CPU, fp32, noise off, atol 1e-4 on the
+    audio and on the latent after the reversed flow, with the table's K1 and
+    K3 launches: the transformer flow adds 12 causal K1, and only a
+    resblock-"1" generator with plain convs launches K3."""
+    _template, _overrides, k1, k3, _bf16 = CONFIG_CASES[name]
+    hps = config_hps(name)
+    model = factory.init_random_(factory.build_synthesizer(hps, "cpu", fused_tail=True), _g(0))
+    g = _g(1)
+    b, t = 1, 96
+    inputs = (torch.randn(b, t, hps.model.ssl_dim, generator=g), 150.0 + 100.0 * torch.rand(b, t, generator=g),
+              torch.ones(b, t), torch.zeros(b, dtype=torch.long))
+    kw = dict(noise_scale=0.0, sample_noise=False, vol=0.2 * torch.rand(b, t, generator=g))
+    ref, _ = model.infer(*inputs, **kw)
+    z_ref, _, _ = model.infer_pre(*inputs, **kw)
+    model.to(cuda)
+    kw["vol"] = kw["vol"].to(cuda)
+    fused_attention.launches = fused_resblock_trio.launches = 0
+    got, _ = model.infer(*(x.to(cuda) for x in inputs), **kw)
+    torch.cuda.synchronize()
+    assert (fused_attention.launches, fused_resblock_trio.launches) == (k1, k3)
+    assert got.shape == (b, t * hps.data.hop_length, 1)
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-4)
+    z, _, _ = model.infer_pre(*(x.to(cuda) for x in inputs), **kw)
+    torch.testing.assert_close(z.cpu(), z_ref, rtol=0, atol=1e-4)
 
 
 def test_full_width_batched_dispatch_matches_single(cuda, tmp_path):

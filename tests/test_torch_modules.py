@@ -215,7 +215,7 @@ def test_generator_with_fused_trio_stages():
     params = _init(jm, *args)
     ref = jm.apply({"params": params}, *args, rng=None)
     tm = Generator(resblock_kernel_sizes=(3, 7, 11), resblock_dilation_sizes=((1, 3, 5),) * 3, **kw)
-    _load(tm, _sd(lambda sd, p, prm: from_jax.generator(sd, p, prm, 3, 3), params))
+    _load(tm, _sd(from_jax.generator, params))
     got = tm(_cf(x), torch.from_numpy(f0), _cf(g)).transpose(1, 2).detach().numpy()
     assert got.shape == ref.shape == (1, 12 * 16, 1)
     _close(got, ref)
@@ -321,10 +321,10 @@ def test_fused_tail_generator_grads_match_jax():
     def loss(p):
         return jnp.sum(jm.apply({"params": p}, *args, rng=None) ** 2) * 1e3
 
-    ref = _sd(lambda sd, p, prm: from_jax.generator(sd, p, prm, 3, 3), jax.grad(loss)(params))
+    ref = _sd(from_jax.generator, jax.grad(loss)(params))
     tm = Generator(resblock_kernel_sizes=(3, 7, 11), resblock_dilation_sizes=((1, 3, 5),) * 3,
                    fused_tail=True, **kw)
-    _load(tm, _sd(lambda sd, p, prm: from_jax.generator(sd, p, prm, 3, 3), params))
+    _load(tm, _sd(from_jax.generator, params))
     wav = tm(_cf(x), torch.from_numpy(f0), _cf(g))
     assert wav.grad_fn is not None
     (wav.square().sum() * 1e3).backward()

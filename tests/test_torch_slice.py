@@ -4,7 +4,7 @@
 (b) Svc: one G_0.pth and one tiny encoder in both packages; DIO f0, units
     and audio over two clips in different length buckets.
 (c) The port runs in a fresh process without importing jax or flax.
-(d) Config options the port does not implement raise NotImplementedError.
+(d) Front ends the port does not implement raise NotImplementedError.
 """
 
 import json
@@ -221,20 +221,7 @@ def test_svc_matches_jax(svc_pair):
         np.testing.assert_allclose(at, aj, rtol=0, atol=AUDIO_ATOL)
 
 
-# ------------------------------------------------------- (d) unsupported
-@pytest.mark.parametrize("option,value", [
-    ("model.vol_embedding", True),
-    ("model.use_transformer_flow", True),
-    ("model.use_depthwise_conv", True),
-    ("model.flow_share_parameter", True),
-    ("model.resblock", "2"),
-    ("model.vocoder_name", "nsf-snake-hifigan"),
-])
-def test_unsupported_config_options_raise(option, value):
-    with pytest.raises(NotImplementedError, match=option.split(".")[1]):
-        factory.build_synthesizer(scfg.default_config(**{option: value}), "cpu", fused_tail=True)
-
-
+# ----------------------------------------------------- (d) unsupported
 @pytest.mark.parametrize("what", ["f0:crepe", "f0:rmvpe", "encoder:hubertsoft"])
 def test_unsupported_front_ends_raise(what):
     from sovits_tpu_torch.encoders.factory import get_speech_encoder

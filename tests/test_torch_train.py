@@ -7,7 +7,9 @@ network or a step sits between input and output.
 
 (a) modules: weight-norm grads, spectrograms, segment slicing, the
     discriminators, the losses;
-(b) Synthesizer.forward(deterministic=True), all seven outputs;
+(b) Synthesizer.forward(deterministic=True), all seven outputs, also for a
+    vol_embedding + transformer-flow model given the batch's volume, which
+    train_step hands to it;
 (c) one full deterministic GAN step with its AdamW updates, against a
     reference step assembled from the JAX package's modules and optax;
 (d) train() for two steps and a resume (the resumed run restarts the data
@@ -237,6 +239,88 @@ def test_synthesizer_forward_matches_jax(jax_step):
     for name, a, b in zip(names, flat(got), flat(ref)):
         assert a.shape == b.shape, name
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=0, atol=1e-4, err_msg=name)
+
+
+VOL_TFLOW = {"model.vol_embedding": True, "model.use_transformer_flow": True}
+
+
+def _vol_tflow_batch(hps):
+    bt = _batch(hps)
+    bt["volume"] = _rng(8).uniform(0.0, 0.3, bt["f0"].shape).astype(np.float32)
+    return bt
+
+
+def test_synthesizer_forward_with_volume_matches_jax():
+    """A vol_embedding + transformer-flow synthesizer's deterministic training
+    forward, with the batch's volume, against the JAX forward given ``vol``."""
+    hps = pcfg.HParams(**tiny_hps(**TRAIN_OVERRIDES, **VOL_TFLOW).to_dict())
+    m = hps.model
+    net = factory.init_random_(factory.build_synthesizer(hps, "cpu", fused_tail=False),
+                               torch.Generator().manual_seed(4))
+    tree = from_torch.synthesizer(
+        {k: v.numpy() for k, v in net.state_dict().items()}, n_flows=m.n_flow_layer,
+        use_transformer_flow=True, vol_embedding=True, n_upsamples=len(m.upsample_rates),
+        n_resblock_kernels=len(m.resblock_kernel_sizes))
+    bt = _vol_tflow_batch(hps)
+    jm = jfactory.build_synthesizer(hps)
+    names = ("c", "f0", "uv", "spec", "spk", "lengths", "volume")
+    ref = jax.jit(lambda p, c, f0, uv, spec, spk, lengths, vol: jm.apply(
+        {"params": p}, c, f0, uv, spec, spk, lengths, vol=vol, deterministic=True,
+    ))(tree, *(jnp.asarray(bt[k], jnp.int32 if k in ("spk", "lengths") else None) for k in names))
+    got = net(*(T(bt[k]) for k in names[:-1]), vol=T(bt["volume"]), deterministic=True)
+    flat = lambda o: [o[0], o[2], *o[3], o[4], o[5], o[6]]  # noqa: E731
+    labels = ["wav", "spec_mask", "z", "z_p", "m_p", "logs_p", "m_q", "logs_q", "pred_lf0", "norm_lf0", "lf0"]
+    for name, a, b in zip(labels, flat(got), flat(ref)):
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=0, atol=1e-4, err_msg=name)
+    # the volume moves the prior (m_p) and the flow's output
+    silent = net(*(T(bt[k]) for k in names[:-1]), vol=torch.zeros(bt["f0"].shape), deterministic=True)
+    assert (silent[3][2] - got[3][2]).abs().max() > 1e-3
+
+
+def test_train_step_feeds_the_volume():
+    """train_step hands the batch's volume to the generator, as the JAX step does."""
+    hps = pcfg.HParams(**tiny_hps(**TRAIN_OVERRIDES, **VOL_TFLOW).to_dict())
+    net_g = factory.init_random_(factory.build_synthesizer(hps, "cpu", fused_tail=False),
+                                 torch.Generator().manual_seed(4))
+    net_d = factory.build_discriminator(hps, "cpu")
+    seen = {}
+    forward = net_g.forward
+    net_g.forward = lambda *a, **k: seen.update(vol=k.get("vol")) or forward(*a, **k)
+    batch = {k: T(v) for k, v in _vol_tflow_batch(hps).items()}
+    metrics = train_step(net_g, net_d, make_optimizer(net_g.parameters(), hps),
+                         make_optimizer(net_d.parameters(), hps), batch, hps, deterministic=True)
+    assert seen["vol"] is batch["volume"]
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+
+
+@pytest.mark.parametrize("part", ["f0_decoder", "flow"])
+def test_training_forward_applies_dropout(part):
+    """The stochastic training forward drops out inside the F0 decoder's and
+    the transformer flow's causal FFTs (p_dropout 0.1), as the JAX step
+    does: with the same generator, turning that part's dropout off changes
+    its output (pred_lf0, z_p) and nothing drawn before it."""
+    hps = pcfg.HParams(**tiny_hps(**TRAIN_OVERRIDES, **VOL_TFLOW).to_dict())
+    assert hps.model.p_dropout > 0
+    net = factory.init_random_(factory.build_synthesizer(hps, "cpu", fused_tail=False),
+                               torch.Generator().manual_seed(4))
+    bt = _vol_tflow_batch(hps)
+    args = [T(bt[k]) for k in ("c", "f0", "uv", "spec", "spk", "lengths")]
+
+    def run():
+        out = net(*args, vol=T(bt["volume"]), generator=torch.Generator().manual_seed(5))
+        return {"norm_lf0": out[5], "pred_lf0": out[4], "z": out[3][0], "z_p": out[3][1]}
+
+    with torch.no_grad():
+        on, again = run(), run()
+        for mod in (net.f0_decoder.decoder if part == "f0_decoder" else net.flow).modules():
+            if hasattr(mod, "p_dropout"):
+                mod.p_dropout = 0.0
+        off = run()
+    before, out = ("norm_lf0", "pred_lf0") if part == "f0_decoder" else ("z", "z_p")
+    torch.testing.assert_close(on[out], again[out], rtol=0, atol=0)
+    torch.testing.assert_close(on[before], off[before], rtol=0, atol=0)
+    assert (on[out] - off[out]).abs().max() > 1e-3, f"no dropout in the {part}"
 
 
 # ------------------------------------------------------- (c) one full GAN step
