@@ -17,13 +17,19 @@ infer CLI), 8 ``[configs]``: so-vits-svc 4.1's model options at full width
 (volume embedding with the transformer flow, the tiny template's depthwise
 convs and shared flow, ResBlock2, the Snake vocoder), each a seeded
 G_0.pth loaded by Svc, with its K1/K3 launches checked, held against the
-CPU and, for two of them, run in bf16 too, 9 training (a feature dataset made
-by the port itself, six full-width GAN steps through ``train``, a resume, a
-profiled step), 10 three GAN steps with the fused tail against the same steps
-without it, 11 the bf16 GAN step at bench.py's training configuration (batch
-6 x 512 frames, bf16 synthesizer and discriminator; its first step against
-the same step through fp32 nets), 12 the trio staging microbench at its
-defaults, 13 kernel times beside their bounds. Any failure raises, so the script exits non-zero; the
+CPU and, for two of them, run in bf16 too, 9 ``[diffusion]``: shallow
+diffusion at full width (so-vits-svc's published diffusion template and
+44.1 kHz NSF-HiFiGAN vocoder as seeded checkpoints) through Svc.infer,
+slice_inference and the infer CLI, in fp32 and on the bf16 Svc, with
+only_diffusion, the enhancer and every sampler, each request's K1/K3
+launches checked and its stages timed, held against the CPU, 10 training
+(a feature dataset made by the port itself, six full-width GAN steps
+through ``train``, a resume, a profiled step), 11 three GAN steps with the
+fused tail against the same steps without it, 12 the bf16 GAN step at
+bench.py's training configuration (batch 6 x 512 frames, bf16 synthesizer
+and discriminator; its first step against the same step through fp32
+nets), 13 the trio staging microbench at its defaults, 14 kernel times
+beside their bounds. Any failure raises, so the script exits non-zero; the
 last line is the JSON result the caller reads. Needs a CUDA card; without
 one (or without the repository around it) it fails before printing a result.
 """
@@ -844,11 +850,11 @@ def bench_signal(seconds: float, sr: int, seed: int = 0, base_hz: float = 170.0)
     return wav.astype(np.float32)
 
 
-def build_svc(tmp: Path, device: str, encoder=None, dtype=torch.float32, hps=None):
+def build_svc(tmp: Path, device: str, encoder=None, dtype=torch.float32, hps=None, **options):
     """A full-width config (``hps``, the default when None), seeded random
     weights written as a so-vits-svc G_0.pth, loaded by the port's Svc like a
     trained model; in bf16 the synthesizer and the encoder (same weights)
-    compute in bf16."""
+    compute in bf16. ``options`` are Svc's (shallow diffusion, the enhancer)."""
     from sovits_tpu_torch import config as scfg
     from sovits_tpu_torch.encoders.factory import CONFIGS, SpeechEncoder
     from sovits_tpu_torch.encoders.wav2vec2 import Wav2Vec2Encoder
@@ -866,7 +872,7 @@ def build_svc(tmp: Path, device: str, encoder=None, dtype=torch.float32, hps=Non
                                    torch.Generator().manual_seed(1))
         encoder = SpeechEncoder("vec768l12", net, device)
     return Svc(str(tmp / "G_0.pth"), str(tmp / "config.json"), encoder=encoder, device=device,
-               dtype=dtype)
+               dtype=dtype, **options)
 
 
 def _reset_counts() -> None:
@@ -1080,31 +1086,33 @@ def _dispatches(items: list, hop: int) -> list[tuple[int, int]]:
     return out
 
 
+def _synced(spent: dict, key: str, fn):
+    """``fn``, adding the host seconds of each call, between synchronises,
+    to ``spent[key]``."""
+    def run(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        spent[key] += time.perf_counter() - t0
+        return out
+    return run
+
+
 def _slice_run(svc, wav: np.ndarray, what: str, bf16: bool = False, per_dispatch=(6, 4),
-               **kw) -> tuple[np.ndarray, list]:
+               per_chunk_k3: int = 0, **kw) -> tuple[np.ndarray, list]:
     """One slice_inference call with its front-end and synthesizer time taken
     apart; checks the output and, per dispatch, ``per_dispatch`` K1 and K3
-    launches of the Svc's type (bf16 or fp32) and no others. Returns (audio,
-    dispatches)."""
+    launches of the Svc's type (bf16 or fp32), plus ``per_chunk_k3`` fp32 K3
+    launches per chunk (a shallow-diffusion Svc's vocoder), and no others.
+    Returns (audio, dispatches)."""
     sr, hop = svc.target_sample, svc.hop_size
     k1, k3 = ("rel_attention_bf16", "resblock_trio_bf16") if bf16 else ("rel_attention", "resblock_trio")
     spent = {"front_end_s": 0.0, "synthesizer_s": 0.0}
     batches: list = []
-
-    def timed(key, fn):
-        def run(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            spent[key] += time.perf_counter() - t0
-            if key == "synthesizer_s":
-                batches.append(a[0])
-            return out
-        return run
-
-    svc._prepare_chunk = timed("front_end_s", svc._prepare_chunk)
-    svc._run_synth_batch = timed("synthesizer_s", svc._run_synth_batch)
+    synth = _synced(spent, "synthesizer_s", svc._run_synth_batch)
+    svc._prepare_chunk = _synced(spent, "front_end_s", svc._prepare_chunk)
+    svc._run_synth_batch = lambda items, *a, **k: batches.append(items) or synth(items, *a, **k)
     before = _counts()
     try:
         torch.cuda.synchronize()
@@ -1121,7 +1129,7 @@ def _slice_run(svc, wav: np.ndarray, what: str, bf16: bool = False, per_dispatch
     ok = (abs(len(audio) - len(wav)) <= hop * len(items) and audio.dtype == np.float32
           and np.isfinite(audio).all() and float(np.abs(audio).max()) > 1e-4
           and got[k1] == per_dispatch[0] * len(dispatches)
-          and got[k3] == per_dispatch[1] * len(dispatches)
+          and got[k3] == per_dispatch[1] * len(dispatches) + per_chunk_k3 * len(items)
           and sum(got.values()) == got[k1] + got[k3])
     log("slice", what=repr(what), seconds=f"{seconds:.2f}", chunks=len(items),
         frames=[it["n_frames"] for it in items], dispatches=dispatches, out_len=len(audio),
@@ -1307,6 +1315,218 @@ def phase_configs(tmp: Path, svc32, svc16) -> tuple[dict, dict]:
     log("configs", phase_s=f"{time.perf_counter() - t_phase:.1f}", launches=totals[torch.float32],
         launches_bf16=totals[torch.bfloat16])
     return totals[torch.float32], totals[torch.bfloat16]
+
+
+# [diffusion]: the sampler names of the diffusion config's ``infer.method``
+# (None: the ancestral chain, one denoiser call per step)
+DIFFUSION_METHODS = (None, "ddim", "pndm", "dpm-solver", "dpm-solver++", "dpm-solver++-1s",
+                     "dpm-solver++-2s", "dpm-solver++-3s", "unipc", "unipc-bh1", "unipc-bh2",
+                     "unipc-vary", "dpm-solver++-adaptive", "dpm-solver++-adaptive-3")
+K_STEP = 100  # shallow diffusion's depth, the infer CLI's -ks default
+
+
+def write_diffusion_files(root: Path) -> dict:
+    """so-vits-svc's published diffusion template (DIFFUSION_DEFAULTS: 20
+    layers, 512 channels, 256 hidden, 1000 steps, vec768l12 units) and the
+    44.1 kHz NSF-HiFiGAN of DEFAULT_NSF_CONFIG, with seeded random weights,
+    written in so-vits-svc's formats: model_0.pt ({"model": sd}), its
+    config.yaml (as JSON text, which is valid YAML), the vocoder's
+    {"generator": sd} with its config.json."""
+    from sovits_tpu_torch.models import factory
+    from sovits_tpu_torch.models.diffusion.vocoder import DEFAULT_NSF_CONFIG, build_generator
+    from sovits_tpu_torch.train.diffusion import (DIFFUSION_DEFAULTS, build_unit2mel,
+                                                  load_diffusion_config)
+
+    (root / "nsf_hifigan").mkdir(parents=True)
+    vocoder = root / "nsf_hifigan" / "model"
+    net = factory.init_random_(build_generator(DEFAULT_NSF_CONFIG, "cpu"), torch.Generator().manual_seed(5))
+    torch.save({"generator": net.state_dict()}, vocoder)
+    (root / "nsf_hifigan" / "config.json").write_text(json.dumps(DEFAULT_NSF_CONFIG))
+    (root / "config.yaml").write_text(json.dumps(
+        {**DIFFUSION_DEFAULTS, "vocoder": {"type": "nsf-hifigan", "ckpt": str(vocoder)}}))
+    args = load_diffusion_config(root / "config.yaml")
+    model = factory.init_random_(build_unit2mel(args, DEFAULT_NSF_CONFIG["num_mels"], "cpu"),
+                                 torch.Generator().manual_seed(6))
+    torch.save({"model": model.state_dict()}, root / "model_0.pt")
+    n_params = sum(p.numel() for p in model.parameters())
+    log("diffusion", unit2mel_params=n_params, layers=args.model.n_layers, chans=args.model.n_chans,
+        hidden=args.model.n_hidden, timesteps=args.model.timesteps, mels=DEFAULT_NSF_CONFIG["num_mels"],
+        vocoder_params=sum(p.numel() for p in net.parameters()))
+    return dict(diffusion_model_path=str(root / "model_0.pt"),
+                diffusion_config_path=str(root / "config.yaml"))
+
+
+def _timed_stages(svc) -> dict:
+    """Wrap the Svc's stages with synchronised host timers: VITS (the
+    synthesizer), mel extraction, Unit2Mel sampling, vocoding. Returns the
+    dict the wrappers add their seconds to; ``_untime`` takes them off."""
+    spent = dict.fromkeys(("vits_s", "mel_s", "sampling_s", "vocoder_s"), 0.0)
+    svc._run_synth_batch = _synced(spent, "vits_s", svc._run_synth_batch)
+    vocoder = (svc.diffusion or svc.enhancer).vocoder
+    vocoder.extract = _synced(spent, "mel_s", vocoder.extract)
+    vocoder.infer = _synced(spent, "vocoder_s", vocoder.infer)
+    if svc.diffusion is not None:
+        svc.diffusion.model.forward = _synced(spent, "sampling_s", svc.diffusion.model.forward)
+    return spent
+
+
+def _untime(svc) -> None:
+    del svc._run_synth_batch
+    vocoder = (svc.diffusion or svc.enhancer).vocoder
+    del vocoder.extract, vocoder.infer
+    if svc.diffusion is not None:
+        del svc.diffusion.model.forward
+
+
+def _diffusion_request(svc, wav: np.ndarray, what: str, want: dict, **kw) -> np.ndarray:
+    """One Svc.infer with its stages timed apart; checks the output and that
+    the K1/K3 launches are ``want``'s (every other count 0)."""
+    sr, hop = svc.target_sample, svc.hop_size
+    spent = _timed_stages(svc)
+    calls = []  # denoiser calls: the adaptive samplers' step count shows in them
+    hook = (svc.diffusion.model.decoder["denoise_fn"].register_forward_hook(lambda *a: calls.append(1))
+            if svc.diffusion is not None else None)
+    before = _counts()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        audio, n_samples, n_frames = svc.infer(0, 0, wav, sr=sr, f0_predictor="dio", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        _untime(svc)
+        if hook is not None:
+            hook.remove()
+    got = {k: v - before[k] for k, v in _counts().items()}
+    seconds = len(wav) / sr
+    # the enhancer resamples to its adaptive rate and back: within two hops
+    ok = (abs(n_samples - n_frames * hop) <= 2 * hop and n_frames == len(wav) // hop
+          and np.isfinite(audio).all() and float(np.abs(audio).max()) > 1e-4
+          and all(got[k] == want.get(k, 0) for k in got))
+    log("diffusion", request=repr(what), seconds=seconds, frames=n_frames, wall_s=f"{wall:.4f}",
+        rtf=f"{wall / seconds:.5f}", **{k: f"{v:.4f}" for k, v in spent.items()},
+        other_s=f"{wall - sum(spent.values()):.4f}", denoiser_calls=len(calls),
+        **{k: v for k, v in got.items() if v},
+        peak=f"{np.abs(audio).max():.4f}", ok=ok)
+    if not ok:
+        raise AssertionError(f"[diffusion] {what}: bad output or launches {got}, want {want}")
+    return audio
+
+
+def phase_diffusion(tmp: Path, svc32, svc16) -> tuple[dict, dict]:
+    """Shallow diffusion at full width through Svc and slice_inference: the
+    published diffusion template and 44.1 kHz vocoder as seeded checkpoints;
+    10 s requests after a warm-up with shallow diffusion (fp32, and on the
+    bf16 Svc with the refiner in fp32), only_diffusion, the enhancer at
+    adaptive key 2, each sampler once at speedup 10, the 59.5 s song, and
+    the infer CLI with -shd; each request's stages timed apart and its
+    K1/K3 launches checked; the denoiser's device-busy time; shallow
+    diffusion and only_diffusion on the card against the CPU (log-mel
+    L1 < 1e-3, fp32, synthesizer noise off). Returns the K1/K3 launches of
+    the fp32 and of the bf16 Svc's requests."""
+    from sovits_tpu_torch.dsp.stft import mel_spectrogram
+
+    t_phase = time.perf_counter()
+    files = write_diffusion_files(tmp / "diffusion")
+    shallow = dict(shallow_diffusion=True, **files)
+    sr = svc32.target_sample
+    long_clip = bench_signal(SECONDS, sr)
+    _reset_counts()
+    svc = build_svc(tmp, "cuda", encoder=svc32.encoder, **shallow)
+    _diffusion_request(svc, long_clip, "10s shallow warm-up", {"rel_attention": 6, "resblock_trio": 8})
+    _diffusion_request(svc, long_clip, "10s shallow", {"rel_attention": 6, "resblock_trio": 8})
+    model = svc.diffusion.model
+    captured = {}
+    forward = model.forward
+    model.forward = lambda *a, **k: captured.update(a=a, k=k) or forward(*a, **k)
+    svc.infer(0, 0, long_clip, sr=sr, f0_predictor="dio")
+    del model.forward
+    wall, busy_ms, dev = _profiled(lambda: model(*captured["a"], **captured["k"]))
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+    t_frames = captured["k"]["gt_spec"].shape[1]
+    gflop = 10 * 20 * 2 * t_frames * 1024 * (512 * 3 + 256 + 512) / 1e9  # 10 calls, 20 blocks
+    log("diffusion", what=f"Unit2Mel sampling alone, profiled: {K_STEP} steps at speedup 10, dpm-solver++",
+        frames=t_frames, wall_s=f"{wall:.4f}", device_busy_ms=f"{busy_ms:.2f}",
+        conv_gflop=f"{gflop:.1f}", fp32_bound_ms=f"{gflop * 1e12 / FP32_FLOPS:.2f}")
+    for key, us in top:
+        print(f"    device {us / 1e3:9.3f} ms  {key[:110]}", flush=True)
+    for method in DIFFUSION_METHODS:
+        svc.diffusion.args.infer.method = method
+        _diffusion_request(svc, long_clip, f"10s shallow, {method or 'ddpm'}",
+                           {"rel_attention": 6, "resblock_trio": 8})
+    svc.diffusion.args.infer.method = "dpm-solver++"
+    only = build_svc(tmp, "cuda", encoder=svc32.encoder, only_diffusion=True, **files)
+    for what in ("10s only_diffusion warm-up", "10s only_diffusion"):
+        _diffusion_request(only, long_clip, what, {"resblock_trio": 4})
+    enh = build_svc(tmp, "cuda", encoder=svc32.encoder, nsf_hifigan_enhance=True,
+                    enhancer_ckpt=str(tmp / "diffusion" / "nsf_hifigan" / "model"))
+    for what in ("10s enhancer warm-up", "10s enhancer, adaptive key 2"):
+        _diffusion_request(enh, long_clip, what, {"rel_attention": 6, "resblock_trio": 8},
+                           enhancer_adaptive_key=2)
+    wav = song(sr)
+    _slice_run(svc, wav, "song fp32, shallow diffusion", f0_predictor="dio", per_chunk_k3=4)
+    phase_cli_diffusion(tmp, files)
+    counts32 = _counts()
+
+    _reset_counts()
+    svc_bf16 = build_svc(tmp, "cuda", encoder=svc16.encoder, dtype=torch.bfloat16, **shallow)
+    bf16_want = {"rel_attention_bf16": 6, "resblock_trio_bf16": 4, "resblock_trio": 4}
+    _diffusion_request(svc_bf16, long_clip, "10s shallow bf16 warm-up", bf16_want)
+    _diffusion_request(svc_bf16, long_clip, "10s shallow bf16 (refiner fp32)", bf16_want)
+    counts16 = _counts()
+
+    clip = bench_signal(3.0, sr, seed=3)
+    cpu = {"shallow": build_svc(tmp, "cpu", encoder=svc32.encoder, **shallow),
+           "only_diffusion": build_svc(tmp, "cpu", encoder=svc32.encoder, only_diffusion=True, **files)}
+    for name, card_svc in (("shallow", svc), ("only_diffusion", only)):
+        item = card_svc._prepare_chunk(0, 0, clip, sr, 0.0, False, "dio", 0.05)
+        outs = []
+        for s in (card_svc, cpu[name]):
+            if name == "shallow":
+                audio = s._run_synth_batch([item], 0.0, False, 52468, sample_noise=False)[0]
+                outs.append(s._post_chunk(item, audio, K_STEP, False, 1.0, 0))
+            else:
+                outs.append(s.infer_only_diffusion(item, K_STEP, False, 1.0))
+        mels = [mel_spectrogram(torch.from_numpy(np.asarray(a, np.float32))[None]) for a in outs]
+        l1 = (mels[0] - mels[1]).abs().mean().item()
+        log("diffusion", what=f"card vs CPU, {name}, 3 s clip, fp32, synthesizer noise off",
+            max_abs=f"{np.abs(outs[0] - outs[1]).max():.3e}", peak=f"{np.abs(outs[1]).max():.4f}",
+            mel_l1=f"{l1:.3e}", limit=1e-3, ok=l1 < 1e-3)
+        if not l1 < 1e-3:
+            raise AssertionError(f"[diffusion] {name}: card and CPU disagree: log-mel L1 {l1}")
+    log("diffusion", phase_s=f"{time.perf_counter() - t_phase:.1f}", launches=counts32,
+        launches_bf16=counts16)
+    del svc, only, enh, svc_bf16, cpu
+    torch.cuda.empty_cache()
+    return counts32, counts16
+
+
+def phase_cli_diffusion(tmp: Path, files: dict) -> None:
+    """``python -m sovits_tpu_torch.cli.infer -shd`` on the card, from the
+    directory ``phase_cli`` prepared (its encoder checkpoint and 12 s song)."""
+    import os
+
+    from scipy.io import wavfile
+
+    from sovits_tpu_torch.cli import infer as cli
+
+    work = tmp / "cli"
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        cli.main(["-m", str(tmp / "G_0.pth"), "-c", str(tmp / "config.json"), "-n", "song.wav",
+                  "-f0p", "dio", "-shd", "-dm", files["diffusion_model_path"],
+                  "-dc", files["diffusion_config_path"], "-ks", str(K_STEP)])
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    _, audio = wavfile.read(work / "results" / "song_0key_0_sovits_dio.wav")
+    _, src = wavfile.read(work / "song.wav")
+    ok = abs(len(audio) - len(src)) <= 2 * 512 and np.abs(audio).max() > 0
+    log("diffusion", what="infer CLI -shd, 12 s song", samples=len(audio), wall_s=f"{wall:.2f}", ok=ok)
+    if not ok:
+        raise AssertionError(f"the CLI with -shd wrote {len(audio)} samples for {len(src)}")
 
 
 def phase_card_vs_cpu_batch(tmp: Path, svc, wav: np.ndarray) -> None:
@@ -1789,6 +2009,7 @@ def main() -> None:
         infer_bf16, svc16 = phase_main_bf16(Path(tmp), svc)
         slice32, slice16 = phase_slice(Path(tmp), svc, svc16)
         configs32, configs16 = phase_configs(Path(tmp), svc, svc16)
+        diffusion32, diffusion16 = phase_diffusion(Path(tmp), svc, svc16)
         del svc16
         train, hps = phase_train(Path(tmp), svc.encoder)
         fused_tail = phase_train_fused_tail(hps)
@@ -1799,20 +2020,25 @@ def main() -> None:
         times[key] = [r["ms"], r["plain_ms"]]
     paths = {
         "rel_attention": {"infer": infer["rel_attention"], "slice": slice32["rel_attention"],
-                          "configs": configs32["rel_attention"], "train": train["rel_attention"],
+                          "configs": configs32["rel_attention"],
+                          "diffusion": diffusion32["rel_attention"], "train": train["rel_attention"],
                           "train_fused_tail": fused_tail["rel_attention"]},
         "rel_attention_bf16": {"infer_bf16": infer_bf16["rel_attention_bf16"],
                                "slice_bf16": slice16["rel_attention_bf16"],
                                "configs_bf16": configs16["rel_attention_bf16"],
+                               "diffusion_bf16": diffusion16["rel_attention_bf16"],
                                "train_bf16": train_bf16["rel_attention_bf16"]},
         "rel_attention_bwd": {"train": train["rel_attention_bwd"]},
         "rel_attention_bwd_bf16": {"train_bf16": train_bf16["rel_attention_bwd_bf16"]},
         "resblock_trio": {"infer": infer["resblock_trio"], "slice": slice32["resblock_trio"],
                           "configs": configs32["resblock_trio"],
+                          "diffusion": diffusion32["resblock_trio"],
+                          "diffusion_bf16": diffusion16["resblock_trio"],
                           "train_fused_tail": fused_tail["resblock_trio"]},
         "resblock_trio_bf16": {"infer_bf16": infer_bf16["resblock_trio_bf16"],
                                "slice_bf16": slice16["resblock_trio_bf16"],
-                               "configs_bf16": configs16["resblock_trio_bf16"]},
+                               "configs_bf16": configs16["resblock_trio_bf16"],
+                               "diffusion_bf16": diffusion16["resblock_trio_bf16"]},
         **{key: {"microbench": r["launches"]} for key, r in k4.items()},
     }
     bound = bounds()

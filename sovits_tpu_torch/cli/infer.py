@@ -7,9 +7,13 @@ so-vits-svc's inference_main.py flags:
 Each song goes through ``Svc.slice_inference`` and is written as
 ``results/<name>_<trans>key_<speaker>_sovits_<f0 predictor>.wav`` (``auto``
 in place of the key with -a). Runs on the CUDA card unless ``-d`` names
-another device. Flags for what the port does not run (cluster and feature
-retrieval, shallow diffusion, the enhancer, the f0 nets, the sequence-
-sharded decode) stop the program, naming the flag, before any model loads.
+another device. ``-shd`` refines each chunk by shallow diffusion (``-dm``
+the diffusion model, ``-dc`` its config, ``-ks`` the depth, ``-se`` a second
+encoding of the synthesizer's audio), ``-od`` diffuses from the input alone,
+``-eh`` re-vocodes through the NSF-HiFiGAN enhancer (``-eak`` its key).
+Flags for what the port does not run (cluster and feature retrieval, the f0
+nets, the sequence-sharded decode) stop the program, naming the flag,
+before any model loads.
 """
 
 from __future__ import annotations
@@ -68,9 +72,6 @@ def build_parser() -> argparse.ArgumentParser:
 def unsupported(args) -> list[str]:
     """The flags in ``args`` that ask for what the port does not run."""
     asked = [
-        ("-shd/--shallow_diffusion", args.shallow_diffusion),
-        ("-od/--only_diffusion", args.only_diffusion),
-        ("-eh/--enhance", args.enhance),
         ("-fr/--feature_retrieval", args.feature_retrieval),
         ("-cm/--cluster_model_path", bool(args.cluster_model_path)
          and Path(args.cluster_model_path).exists()),
@@ -88,7 +89,12 @@ def main(argv=None):
     if bad:
         raise SystemExit("not supported by the port: " + ", ".join(bad))
 
-    svc = Svc(args.model_path, args.config_path, device=args.device)
+    diffusion = args.shallow_diffusion or args.only_diffusion
+    svc = Svc(args.model_path, args.config_path, shallow_diffusion=args.shallow_diffusion,
+              only_diffusion=args.only_diffusion,
+              diffusion_model_path=args.diffusion_model_path if diffusion else None,
+              diffusion_config_path=args.diffusion_config_path, nsf_hifigan_enhance=args.enhance,
+              device=args.device)
     out_dir = Path("results")
     out_dir.mkdir(exist_ok=True)
     for name in args.clean_names:

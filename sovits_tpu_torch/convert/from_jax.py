@@ -4,7 +4,9 @@
 synthesizer``: a flax param tree -> a so-vits-svc ``SynthesizerTrn``
 state_dict (weight-normed convs as weight_g / weight_v).
 ``multi_period_discriminator`` is the inverse of ``from_torch.py::
-multi_period_discriminator`` (weight-normed). ``wav2vec2`` is the
+multi_period_discriminator`` (weight-normed); ``unit2mel`` of
+``from_torch.py::unit2mel`` (the diffusion model), and ``generator`` with no
+``cond`` of ``nsf_hifigan_generator`` for a standalone vocoder. ``wav2vec2`` is the
 inverse of ``sovits_tpu/encoders/convert.py::from_fairseq_hubert``: flax
 Wav2Vec2Encoder params -> a fairseq HuBERT state_dict. Values come back as
 numpy arrays; load them with ``{k: torch.from_numpy(v)}``.
@@ -227,6 +229,50 @@ def synthesizer(params: dict, hps) -> dict:
         attn_fft(sd, "f0_decoder.decoder.", fd["decoder"])
     generator(sd, "dec.", params["dec"])
     return sd
+
+
+def diffusion_wavenet(sd: dict, prefix: str, p: dict) -> None:
+    """DiffusionWaveNet params -> so-vits-svc ``diffusion/wavenet.py``
+    WaveNet keys (the inverse of ``from_torch.py::diffusion_wavenet``)."""
+    _put(sd, prefix + "input_projection.", conv1d(p["input_projection"]))
+    _put(sd, prefix + "mlp.0.", linear(p["mlp1"]))
+    _put(sd, prefix + "mlp.2.", linear(p["mlp2"]))
+    _put(sd, prefix + "skip_projection.", conv1d(p["skip_projection"]))
+    _put(sd, prefix + "output_projection.", conv1d(p["output_projection"]))
+    for i in range(_count(p, "layer_")):
+        lp, where = p[f"layer_{i}"], f"{prefix}residual_layers.{i}."
+        _put(sd, where + "dilated_conv.", conv1d(lp["dilated_conv"]))
+        _put(sd, where + "diffusion_projection.", linear(lp["diffusion_projection"]))
+        _put(sd, where + "conditioner_projection.", conv1d(lp["conditioner_projection"]))
+        _put(sd, where + "output_projection.", conv1d(lp["output_projection"]))
+
+
+def unit2mel(params: dict) -> dict:
+    """flax Unit2Mel params -> so-vits-svc Unit2Mel state_dict (numpy),
+    without GaussianDiffusion's schedule buffers (the inverse of
+    ``from_torch.py::unit2mel``)."""
+    sd: dict = {}
+    for name in ("unit_embed", "f0_embed", "volume_embed"):
+        _put(sd, name + ".", linear(params[name]))
+    if "aug_shift_embed" in params:
+        _put(sd, "aug_shift_embed.", linear(params["aug_shift_embed"]))
+    if "spk_embed" in params:
+        sd["spk_embed.weight"] = _np(params["spk_embed"]["embedding"])
+    diffusion_wavenet(sd, "decoder.denoise_fn.", params["denoiser"])
+    return sd
+
+
+def unflatten_params(flat: dict) -> dict:
+    """A flat {"a/b/c": array} dict (the JAX package's ``.npz`` release
+    format, ``sovits_tpu/cli/tools.py::flatten_params``) -> a nested tree."""
+    tree: dict = {}
+    for key, value in flat.items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return tree
 
 
 def multi_period_discriminator(params: dict) -> dict:

@@ -16,15 +16,20 @@ import torch
 from .mel import mel_filterbank
 
 
+def hann_window(win_length: int, device) -> torch.Tensor:
+    """Periodic Hann window (``torch.hann_window``'s values), computed in
+    float64 and returned as float32."""
+    n = torch.arange(win_length, dtype=torch.float64, device=device)
+    return (0.5 * (1.0 - torch.cos(2.0 * np.pi * n / win_length))).float()
+
+
 def spectrogram(y: torch.Tensor, n_fft: int = 2048, hop_length: int = 512,
                 win_length: int = 2048) -> torch.Tensor:
     """Waveform [B, L] -> linear magnitude [B, T, 1 + n_fft // 2] (float32)."""
     pad = (n_fft - hop_length) // 2
     y = torch.nn.functional.pad(y.float()[:, None], (pad, pad), mode="reflect")[:, 0]
-    n = torch.arange(win_length, dtype=torch.float64, device=y.device)
-    window = (0.5 * (1.0 - torch.cos(2.0 * np.pi * n / win_length))).float()
-    spec = torch.stft(y, n_fft, hop_length=hop_length, win_length=win_length, window=window,
-                      center=False, return_complex=True)
+    spec = torch.stft(y, n_fft, hop_length=hop_length, win_length=win_length,
+                      window=hann_window(win_length, y.device), center=False, return_complex=True)
     return torch.sqrt(spec.real**2 + spec.imag**2 + 1e-6).transpose(1, 2)
 
 

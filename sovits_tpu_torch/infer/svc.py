@@ -14,9 +14,15 @@ runs on the host, then one batched synthesizer pass covers all chunks, and
 the pieces are joined again; a speaker-mix timeline spans the whole song.
 ``RealTimeVC`` converts a stream chunk by chunk with a crossfade.
 
-Not ported: cluster / feature retrieval, shallow diffusion, the enhancer and
-``infer_seq_parallel``. Asking for them raises NotImplementedError naming
-the argument.
+Each chunk's post stage refines the synthesizer's audio by shallow
+diffusion (``shallow_diffusion``: Unit2Mel from the audio's mel at
+``k_step``, then the mel vocoder) or re-vocodes it through the NSF-HiFiGAN
+enhancer (``nsf_hifigan_enhance``), then mixes in the input's loudness
+envelope; ``only_diffusion`` skips the synthesizer and diffuses from the
+input's own mel.
+
+Not ported: cluster / feature retrieval and ``infer_seq_parallel``. Asking
+for them raises NotImplementedError naming the argument.
 """
 
 from __future__ import annotations
@@ -83,18 +89,19 @@ class Svc:
         comes back float32.
 
         The arguments between ``encoder`` and ``device`` are the JAX
-        package's. The port runs none of what they ask for: an existing
-        ``cluster_model_path``, ``feature_retrieval``, ``shallow_diffusion``,
-        ``only_diffusion`` and ``nsf_hifigan_enhance`` raise
-        NotImplementedError. A ``cluster_model_path`` that does not exist is
-        ignored, as the JAX package ignores it; the diffusion paths and
-        ``enhancer_ckpt`` are read only by the options that raise."""
+        package's. ``shallow_diffusion`` or ``only_diffusion`` with a
+        ``diffusion_model_path`` (a so-vits-svc diffusion checkpoint or the
+        JAX trainer's ``.npz``, its config at ``diffusion_config_path``)
+        builds the refiner; ``only_diffusion`` without one raises
+        FileNotFoundError. ``nsf_hifigan_enhance`` builds the enhancer from
+        ``enhancer_ckpt`` unless shallow diffusion supersedes it. The refiner
+        and the enhancer compute in float32 whatever ``dtype`` is. An
+        existing ``cluster_model_path`` and ``feature_retrieval`` raise
+        NotImplementedError; a ``cluster_model_path`` that does not exist is
+        ignored, as the JAX package ignores it."""
         asked = {
             "cluster_model_path": bool(cluster_model_path) and Path(cluster_model_path).exists(),
             "feature_retrieval": feature_retrieval,
-            "shallow_diffusion": shallow_diffusion,
-            "only_diffusion": only_diffusion,
-            "nsf_hifigan_enhance": nsf_hifigan_enhance,
         }
         for name, on in asked.items():
             if on:
@@ -112,6 +119,22 @@ class Svc:
         self._encoder = encoder
         self._encoder_name = self.hps.model.speech_encoder or "vec768l12"
 
+        self.diffusion = None
+        self.only_diffusion = only_diffusion
+        if (shallow_diffusion or only_diffusion) and diffusion_model_path:
+            from .diffusion_wrapper import DiffusionRefiner
+
+            self.diffusion = DiffusionRefiner(diffusion_model_path, diffusion_config_path,
+                                              device=self.device)
+        if only_diffusion and self.diffusion is None:
+            raise FileNotFoundError("only_diffusion requires a diffusion model")
+        # shallow diffusion supersedes the enhancer (infer_tool.py:183-184)
+        self.enhancer = None
+        if nsf_hifigan_enhance and not shallow_diffusion:
+            from .enhancer import Enhancer
+
+            self.enhancer = Enhancer("nsf-hifigan", enhancer_ckpt, device=self.device)
+
     @property
     def encoder(self):
         if self._encoder is None:
@@ -125,14 +148,7 @@ class Svc:
         if p.suffix == ".npz":
             from ..convert import from_jax
 
-            flat = dict(np.load(p))
-            tree: dict = {}
-            for key, value in flat.items():  # "a/b/c" -> nested, as cli/tools.py writes
-                node = tree
-                *parents, leaf = key.split("/")
-                for part in parents:
-                    node = node.setdefault(part, {})
-                node[leaf] = value
+            tree = from_jax.unflatten_params(dict(np.load(p)))
             sd = {k: torch.from_numpy(v) for k, v in from_jax.synthesizer(tree, self.hps).items()}
             # a compressed release model drops enc_q, which inference never runs
             fresh = {k: v for k, v in self.model.state_dict().items() if k.startswith("enc_q.")}
@@ -166,7 +182,8 @@ class Svc:
     def _prepare_chunk(self, speaker, tran, wav, sr, cluster_infer_ratio, f0_filter,
                        f0_predictor, cr_threshold, spk_mix_frames=None) -> dict:
         """Host-side front end for one chunk: resample, f0, units, volume
-        (a ``vol_embedding`` model's per-frame RMS), speaker."""
+        (the per-frame RMS, for a ``vol_embedding`` model or
+        ``only_diffusion``), speaker."""
         if sr is not None and sr != self.target_sample:
             wav = resample(wav, sr, self.target_sample)
         wav = np.asarray(wav, dtype=np.float32)
@@ -175,7 +192,7 @@ class Svc:
         )
         n_frames = len(f0)
         vol = None
-        if self.vol_embedding:
+        if self.vol_embedding or self.only_diffusion:
             vol = energy(torch.from_numpy(wav[None, : n_frames * self.hop_size]),
                          self.hop_size)[0].numpy()
         if spk_mix_frames is not None:
@@ -227,13 +244,39 @@ class Svc:
                     out[i] = audio[row, : items[i]["n_frames"] * self.hop_size, 0]
         return out
 
-    def _post_chunk(self, item: dict, audio: np.ndarray,
-                    loudness_envelope_adjustment: float) -> np.ndarray:
-        """Per-chunk post stage: the loudness-envelope mix toward the input's
-        (the JAX package's diffusion and enhancer stages raise in __init__)."""
-        if loudness_envelope_adjustment != 1:
-            audio = change_rms(item["wav"], self.target_sample, audio, self.target_sample,
-                               loudness_envelope_adjustment)
+    @staticmethod
+    def _spk_array(item: dict) -> np.ndarray:
+        """The chunk's speaker for the refiner: [id] or mix weights [1, T, S]."""
+        kind, value = item["spk"]
+        return np.asarray([value]) if kind == "id" else np.asarray(value)[None]
+
+    def infer_only_diffusion(self, item: dict, k_step: int, second_encoding: bool,
+                             loudness_envelope_adjustment: float, seed: int = 52468) -> np.ndarray:
+        """The only_diffusion branch (infer_tool.py:300-328): diffuse from the
+        input audio's mel, with its volume, and vocode; no VITS pass."""
+        wav, n_frames = item["wav"], item["n_frames"]
+        audio = self.diffusion.refine(self, wav[: n_frames * self.hop_size], item["c"], item["f0"],
+                                      item["vol"], self._spk_array(item), k_step, second_encoding,
+                                      seed)
+        return self._loudness(item, audio, loudness_envelope_adjustment)
+
+    def _post_chunk(self, item: dict, audio: np.ndarray, k_step: int, second_encoding: bool,
+                    loudness_envelope_adjustment: float, enhancer_adaptive_key: float) -> np.ndarray:
+        """Per-chunk post stages (infer_tool.py:299-337): shallow diffusion
+        from the synthesizer's audio (the refiner's own seed, 52468) or the
+        enhancer, then the loudness-envelope mix toward the input's."""
+        if self.diffusion is not None:
+            audio = self.diffusion.refine(self, audio, item["c"], item["f0"], item["vol"],
+                                          self._spk_array(item), k_step, second_encoding)
+        elif self.enhancer is not None:
+            audio, _ = self.enhancer.enhance(audio, self.target_sample, item["f0"][: item["n_frames"]],
+                                             self.hop_size, adaptive_key=enhancer_adaptive_key)
+        return self._loudness(item, audio, loudness_envelope_adjustment)
+
+    def _loudness(self, item: dict, audio: np.ndarray, adjustment: float) -> np.ndarray:
+        """The loudness-envelope mix of ``audio`` toward the chunk's input."""
+        if adjustment != 1:
+            audio = change_rms(item["wav"], self.target_sample, audio, self.target_sample, adjustment)
         return audio
 
     def infer(self, speaker, tran: int, wav: np.ndarray, sr: int | None = None,
@@ -244,13 +287,18 @@ class Svc:
               spk_mix_frames: np.ndarray | None = None, enhancer_adaptive_key: float = 0):
         """Convert one clip; returns (audio, n_samples, n_frames).
 
-        ``k_step``, ``second_encoding`` and ``enhancer_adaptive_key`` only
-        steer diffusion and the enhancer, which this port does not run.
+        ``k_step`` and ``second_encoding`` steer the diffusion refiner,
+        ``enhancer_adaptive_key`` the enhancer.
         """
         item = self._prepare_chunk(speaker, tran, wav, sr, cluster_infer_ratio, f0_filter,
                                    f0_predictor, cr_threshold, spk_mix_frames)
+        if self.only_diffusion:
+            audio = self.infer_only_diffusion(item, k_step, second_encoding,
+                                              loudness_envelope_adjustment, seed)
+            return audio, audio.shape[-1], item["n_frames"]
         audio = self._run_synth_batch([item], noice_scale, auto_predict_f0, seed)[0]
-        audio = self._post_chunk(item, audio, loudness_envelope_adjustment)
+        audio = self._post_chunk(item, audio, k_step, second_encoding,
+                                 loudness_envelope_adjustment, enhancer_adaptive_key)
         return audio, audio.shape[-1], item["n_frames"]
 
     # ------------------------------------------------------------------
@@ -273,8 +321,8 @@ class Svc:
         as fractions of the song) and per-frame weights span the whole
         output. Every chunk's front end runs first, then one batched
         synthesizer pass (seed 52468, as the JAX package), then each chunk's
-        loudness mix. ``k_step``, ``second_encoding`` and
-        ``enhancer_adaptive_key`` steer only what the port does not run.
+        post stage (shallow diffusion or the enhancer, and the loudness mix);
+        with ``only_diffusion`` each chunk is diffused from its input instead.
         """
         chunks = slicer_mod.cut(raw_audio, sr, db_thresh=slice_db)
         audio_data = slicer_mod.chunks2audio(raw_audio, chunks)
@@ -327,8 +375,13 @@ class Svc:
                 items.append(item)
 
         # pass 2: one batched synthesizer pass over all chunks, then each chunk's post stage
-        outs = self._run_synth_batch(items, noice_scale, auto_predict_f0, 52468)
-        outs = [self._post_chunk(it, out, loudness_envelope_adjustment) for it, out in zip(items, outs)]
+        if self.only_diffusion:
+            outs = [self.infer_only_diffusion(it, k_step, second_encoding, loudness_envelope_adjustment)
+                    for it in items]
+        else:
+            outs = self._run_synth_batch(items, noice_scale, auto_predict_f0, 52468)
+            outs = [self._post_chunk(it, out, k_step, second_encoding, loudness_envelope_adjustment,
+                                     enhancer_adaptive_key) for it, out in zip(items, outs)]
 
         pieces: list[np.ndarray] = []
         out_pad = int(self.target_sample * pad_seconds)

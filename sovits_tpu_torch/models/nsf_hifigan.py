@@ -134,7 +134,8 @@ class Generator(nn.Module):
         # torch's default slope 0.01 before conv_post, as the reference
         self.snake_post = activation(ch, snake, slope=0.01)
         self.conv_post = WNConv1d(ch, 1, 7, padding=3)
-        self.cond = Conv1d(gin_channels, upsample_initial_channel, 1)
+        # a standalone vocoder (gin_channels 0) has no speaker input and no cond
+        self.cond = Conv1d(gin_channels, upsample_initial_channel, 1) if gin_channels else None
 
     def _stream(self, x: torch.Tensor) -> torch.Tensor:
         """The residual stream's type: float32 around Snake, else the compute type."""

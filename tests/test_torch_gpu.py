@@ -15,7 +15,7 @@ bf16 ulps).
 import pytest
 import torch
 
-from chip_smoke import CONFIG_CASES, config_hps
+from chip_smoke import CONFIG_CASES, bench_signal, config_hps
 from sovits_tpu_torch import config as scfg
 from sovits_tpu_torch.models import factory
 from sovits_tpu_torch.ops.attention import (
@@ -496,3 +496,107 @@ def test_full_width_bf16_synthesizer_launches_bf16_kernels(cuda):
     assert fused_attention.launches == 6 and fused_resblock_trio.launches == 4
     err = (got.float() - ref).abs().max().item()
     assert err <= 5e-2 * ref.abs().max().item(), err
+
+
+# -------------------------------------------------------- shallow diffusion
+def _diffusion_files(root, n_layers=4, n_chans=128):
+    """A seeded 44.1 kHz vocoder ({"generator": sd}, DEFAULT_NSF_CONFIG) and a
+    seeded Unit2Mel of ``n_layers`` x ``n_chans`` over its 128 mels, with
+    their configs. Returns (diffusion model, its config, the vocoder)."""
+    import json
+
+    from sovits_tpu_torch.models.diffusion.vocoder import DEFAULT_NSF_CONFIG, build_generator
+    from sovits_tpu_torch.train.diffusion import DIFFUSION_DEFAULTS, build_unit2mel, load_diffusion_config
+
+    vocoder = root / "model"
+    net = factory.init_random_(build_generator(DEFAULT_NSF_CONFIG, "cpu"), _g(5))
+    torch.save({"generator": net.state_dict()}, vocoder)
+    (root / "config.json").write_text(json.dumps(DEFAULT_NSF_CONFIG))
+    cfg = json.loads(json.dumps(DIFFUSION_DEFAULTS))
+    cfg["model"].update(n_layers=n_layers, n_chans=n_chans)
+    cfg["vocoder"]["ckpt"] = str(vocoder)
+    (root / "config.yaml").write_text(json.dumps(cfg))
+    model = factory.init_random_(build_unit2mel(load_diffusion_config(root / "config.yaml"), 128, "cpu"),
+                                 _g(6))
+    torch.save({"model": model.state_dict()}, root / "model_0.pt")
+    return root / "model_0.pt", root / "config.yaml", vocoder
+
+
+def test_diffusion_vocoder_fused_matches_unfused(cuda):
+    """The full-width 44.1 kHz mel vocoder with the fused tail (4 K3
+    launches) against the same weights through stock convs."""
+    from sovits_tpu_torch.models.diffusion.vocoder import DEFAULT_NSF_CONFIG, build_generator
+
+    fused = factory.init_random_(build_generator(DEFAULT_NSF_CONFIG, "cpu"), _g(7)).to(cuda)
+    plain = build_generator(DEFAULT_NSF_CONFIG, cuda)
+    plain.load_state_dict(fused.state_dict())
+    plain.fused = False  # every stage through stock convs
+    assert fused.cond is None and fused.fused
+    g = _g(8)
+    mel = (-9.0 * torch.rand(1, 128, 200, generator=g)).to(cuda)
+    f0 = (150.0 + 100.0 * torch.rand(1, 200, generator=g)).to(cuda)
+    fused_resblock_trio.launches = 0
+    with torch.no_grad():
+        got, want = fused(mel, f0), plain(mel, f0)
+    torch.cuda.synchronize()
+    assert fused_resblock_trio.launches == 4
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("second_encoding", [False, True], ids=["units", "second-encoding"])
+def test_refiner_cuda_matches_cpu(cuda, tmp_path, second_encoding):
+    """DiffusionRefiner.refine on the card against the same files on the CPU
+    (a 4-layer, 128-channel Unit2Mel, the full vocoder): the q-sample noise
+    comes from the same CPU generator, so the two compute the same thing."""
+    import types
+
+    import numpy as np
+
+    from sovits_tpu_torch.infer.diffusion_wrapper import DiffusionRefiner
+
+    model, cfg, _ = _diffusion_files(tmp_path)
+    wave = bench_signal(1.5, 44100)
+    n = len(wave) // 512
+    rng = np.random.default_rng(9)
+    units = rng.standard_normal((n, 768)).astype(np.float32)
+    f0 = (170.0 + 30.0 * np.sin(np.arange(n) / 9.0)).astype(np.float32)
+
+    class Encoder:  # a fixed random projection of the 16 kHz audio's frames
+        def encode(self, wav16k):
+            frames = (len(wav16k) - 400) // 320 + 1
+            idx = np.arange(frames)[:, None] * 320 + np.arange(400)[None]
+            return (wav16k[idx] @ np.random.default_rng(10).standard_normal((400, 768))).astype(np.float32)
+
+    svc = types.SimpleNamespace(target_sample=44100, hop_size=512, encoder=Encoder(),
+                                unit_interpolate_mode="left")
+    outs = []
+    for device in (cuda, "cpu"):
+        refiner = DiffusionRefiner(str(model), str(cfg), device=device)
+        fused_resblock_trio.launches = 0
+        outs.append(refiner.refine(svc, wave[: n * 512], units, f0, None, np.asarray([0]), 100,
+                                   second_encoding))
+        if device == cuda:
+            assert fused_resblock_trio.launches == 4
+    got, want = outs
+    assert got.shape == want.shape == (n * 512,)
+    err = np.abs(got - want).max()
+    assert np.isfinite(got).all() and err <= 1e-3 * np.abs(want).max(), err
+
+
+@pytest.mark.parametrize("adaptive_key", [0, 2])
+def test_enhancer_cuda_matches_cpu(cuda, tmp_path, adaptive_key):
+    import numpy as np
+
+    from sovits_tpu_torch.infer.enhancer import Enhancer
+
+    _, _, vocoder = _diffusion_files(tmp_path, n_layers=1, n_chans=8)
+    wave = bench_signal(1.0, 44100, seed=1)
+    f0 = (170.0 + 30.0 * np.sin(np.arange(len(wave) // 512) / 9.0)).astype(np.float32)
+    outs = [Enhancer("nsf-hifigan", str(vocoder), device=d).enhance(wave, 44100, f0, 512,
+                                                                    adaptive_key=adaptive_key)
+            for d in (cuda, "cpu")]
+    (got, sr_got), (want, sr_want) = outs
+    assert sr_got == sr_want == 44100 and got.shape == want.shape
+    err = np.abs(got - want).max()
+    assert np.isfinite(got).all() and err <= 1e-4 * np.abs(want).max(), err

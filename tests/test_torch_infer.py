@@ -17,7 +17,8 @@
 (c) The port's batched dispatch against its per-chunk dispatch.
 (d) yin and harvest against the JAX package; the native Harvest stages
     against their numpy oracles.
-(e) The infer CLI on the CPU, and every flag it rejects.
+(e) The infer CLI on the CPU, and every flag it rejects (its diffusion
+    and enhancer flags: test_torch_diffusion.py).
 """
 
 import functools
@@ -318,11 +319,11 @@ def test_native_harvest_stage_matches_numpy(stage):
     np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
 
 
-@pytest.mark.parametrize("kwarg", ["cluster_model_path", "feature_retrieval", "shallow_diffusion",
-                                   "only_diffusion", "nsf_hifigan_enhance"])
+@pytest.mark.parametrize("kwarg", ["cluster_model_path", "feature_retrieval"])
 def test_svc_rejects_what_it_does_not_run(tmp_path, kwarg):
-    """The JAX package's Svc arguments that ask for cluster retrieval,
-    diffusion or the enhancer raise, naming themselves, before anything loads."""
+    """The JAX package's Svc arguments that ask for cluster retrieval raise,
+    naming themselves, before anything loads (diffusion and the enhancer:
+    test_torch_diffusion.py)."""
     (tmp_path / "kmeans.pt").write_bytes(b"")
     value = str(tmp_path / "kmeans.pt") if kwarg == "cluster_model_path" else True
     with pytest.raises(NotImplementedError, match=kwarg):
@@ -366,9 +367,6 @@ def test_cli_infer_writes_result(cli_dir, capsys):
 
 
 @pytest.mark.parametrize("flags,named", [
-    (["-shd"], "--shallow_diffusion"),
-    (["-od"], "--only_diffusion"),
-    (["-eh"], "--enhance"),
     (["-fr"], "--feature_retrieval"),
     (["-cm", "kmeans.pt"], "--cluster_model_path"),
     (["-cr", "0.5"], "--cluster_infer_ratio"),
