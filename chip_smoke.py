@@ -22,13 +22,16 @@ diffusion at full width (so-vits-svc's published diffusion template and
 44.1 kHz NSF-HiFiGAN vocoder as seeded checkpoints) through Svc.infer,
 slice_inference and the infer CLI, in fp32 and on the bf16 Svc, with
 only_diffusion, the enhancer and every sampler, each request's K1/K3
-launches checked and its stages timed, held against the CPU, 10 training
-(a feature dataset made by the port itself, six full-width GAN steps
-through ``train``, a resume, a profiled step), 11 three GAN steps with the
-fused tail against the same steps without it, 12 the bf16 GAN step at
+launches checked and its stages timed, held against the CPU, 10
+``[frontend]``: the f0 nets (RMVPE, FCPE, CREPE "full") and the vec256l9,
+hubertsoft and cnhubertlarge encoders at their published widths with seeded
+weights, each held against a CPU copy and run in 10 s requests through Svc,
+11 training (a feature dataset made by the port itself, six full-width GAN
+steps through ``train``, a resume, a profiled step), 12 three GAN steps with
+the fused tail against the same steps without it, 13 the bf16 GAN step at
 bench.py's training configuration (batch 6 x 512 frames, bf16 synthesizer
 and discriminator; its first step against the same step through fp32
-nets), 13 the trio staging microbench at its defaults, 14 kernel times
+nets), 14 the trio staging microbench at its defaults, 15 kernel times
 beside their bounds. Any failure raises, so the script exits non-zero; the
 last line is the JSON result the caller reads. Needs a CUDA card; without
 one (or without the repository around it) it fails before printing a result.
@@ -1501,6 +1504,290 @@ def phase_diffusion(tmp: Path, svc32, svc16) -> tuple[dict, dict]:
     return counts32, counts16
 
 
+# [frontend]: the f0 nets at their published widths (seeded weights in the
+# published key names) and the wav2vec2-family encoders other than
+# vec768l12, each in its checkpoint layout
+F0_NETS = ("rmvpe", "fcpe", "crepe")
+NEW_ENCODERS = ("vec256l9", "hubertsoft", "cnhubertlarge")
+SALIENCE_ATOL = 1e-4  # card against CPU, fp32 with TF32 off: the CPU tests' bar against JAX
+UNITS_REL = 1e-4  # the units' max-abs error over max|units|, card against CPU
+FRONTEND_LIMIT_S = 420  # the phase's hard time limit (SIGALRM)
+
+
+def f0_net_weights(kind: str, seed: int = 7) -> dict:
+    """A seeded state_dict (CPU tensors, the published checkpoint's key
+    names) of ``kind`` at its published width."""
+    from sovits_tpu_torch.f0.crepe import CrepeNet
+    from sovits_tpu_torch.f0.fcpe import FcpeNet
+    from sovits_tpu_torch.f0.rmvpe import RmvpeNet
+    from sovits_tpu_torch.models import factory
+
+    net = {"rmvpe": RmvpeNet, "fcpe": FcpeNet, "crepe": CrepeNet}[kind]()
+    return factory.init_random_(net, torch.Generator().manual_seed(seed)).state_dict()
+
+
+def to_bshall_hubert(sd: dict) -> dict:
+    """A fairseq-named HuBERT state_dict (the port's encoder) under bshall's
+    HuBERT-soft names (hubert_model.py, as the hubertsoft checkpoint holds
+    them): the inverse of the port's ``encoders.convert.from_bshall_hubert``."""
+    top = {"layer_norm": "feature_projection.norm", "post_extract_proj": "feature_projection.projection",
+           "encoder.pos_conv.0": "positional_embedding.conv", "encoder.layer_norm": "norm",
+           "final_proj": "proj", "feature_extractor.conv_layers.0.2": "feature_extractor.norm0"}
+    layer = {"fc1": "linear1", "fc2": "linear2", "self_attn_layer_norm": "norm1",
+             "final_layer_norm": "norm2", "self_attn.out_proj": "self_attn.out_proj"}
+    out = {}
+    for key, value in sd.items():
+        stem, leaf = key.rsplit(".", 1)
+        parts = stem.split(".")
+        if stem in top:
+            out[f"{top[stem]}.{leaf}"] = value
+        elif stem.startswith("feature_extractor.conv_layers."):
+            out[f"feature_extractor.conv{parts[2]}.{leaf}"] = value
+        elif stem.startswith("encoder.layers."):
+            pre, rest = ".".join(parts[:3]), ".".join(parts[3:])
+            if rest in layer:
+                out[f"{pre}.{layer[rest]}.{leaf}"] = value
+            elif rest == "self_attn.q_proj":
+                qkv = [sd[f"{pre}.self_attn.{p}_proj.{leaf}"] for p in "qkv"]
+                out[f"{pre}.self_attn.in_proj_{leaf}"] = (torch.cat(qkv) if torch.is_tensor(qkv[0])
+                                                          else np.concatenate(qkv))
+    return out
+
+
+def write_encoder_checkpoint(name: str, path: Path, seed: int = 11, cfg=None) -> None:
+    """A seeded ``name`` encoder (``cfg``, its configuration by default)
+    saved in its checkpoint's layout: fairseq's {"model": state_dict}, or
+    bshall's flat state_dict with the ``module.`` prefix for hubertsoft."""
+    from sovits_tpu_torch.encoders.factory import BSHALL, CONFIGS
+    from sovits_tpu_torch.encoders.wav2vec2 import Wav2Vec2Encoder
+    from sovits_tpu_torch.models import factory
+
+    net = factory.init_random_(Wav2Vec2Encoder(cfg or CONFIGS[name]), torch.Generator().manual_seed(seed))
+    sd = net.state_dict()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if name in BSHALL:
+        torch.save({f"module.{k}": v for k, v in to_bshall_hubert(sd).items()}, path)
+    else:
+        torch.save({"model": sd}, path)
+
+
+def _gflop(fn) -> float:
+    """The FLOPs torch's FlopCounterMode counts in one call of fn (convs,
+    matmuls; not the GRU's cuDNN kernel), in GFLOP."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return counter.get_total_flops() / 1e9
+
+
+def _net_call(kind: str, pred, wav: np.ndarray, sr: int):
+    """A zero-argument call of the predictor's net alone on the clip's
+    input (the FLOP count's subject) and the GRU's GFLOP, which the counter
+    does not see."""
+    from sovits_tpu_torch.dsp.audio import resample
+
+    if kind == "crepe":
+        from sovits_tpu_torch.f0.crepe import crepe_frames
+
+        hop16 = int(round(pred.hop_length * 16000 / sr))
+        x = torch.from_numpy(crepe_frames(resample(wav, sr, 16000), len(wav) // pred.hop_length,
+                                          hop16)).to(pred.device)
+        return lambda: pred.net(x), 0.0
+    wav16 = torch.from_numpy(resample(wav, sr, 16000)[None]).to(pred.device)
+    if kind == "rmvpe":
+        from sovits_tpu_torch.f0.rmvpe import rmvpe_mel
+
+        mel = rmvpe_mel(wav16)
+        mel = torch.nn.functional.pad(mel, (0, 0, 0, -mel.shape[1] % 32))
+        gru = pred.net.fc[0].gru
+        h, t = gru.hidden_size, mel.shape[1]
+        return lambda: pred.net(mel), 2 * 2 * t * 3 * h * (gru.input_size + h) / 1e9
+    from sovits_tpu_torch.f0.fcpe import fcpe_mel
+
+    mel = fcpe_mel(wav16)
+    return lambda: pred.net(mel), 0.0
+
+
+def _device_union_ms(fn) -> float:
+    """Milliseconds of one call of fn in which at least one kernel ran on
+    the card: the union of the profiler's kernel intervals (where kernels
+    overlap, the sum of their times exceeds it)."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    total, reached = 0.0, float("-inf")
+    for start, end in spans:
+        if end > reached:
+            total += end - max(start, reached)
+            reached = end
+    return total / 1e3
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _frontend_request(svc, wav: np.ndarray, what: str, f0_predictor: str) -> dict:
+    """One Svc.infer on the card: wall, RTF and its K1/K3 launches (6 and 4)."""
+    before = _counts()
+    wall, (audio, n_samples, n_frames) = _timed(
+        lambda: svc.infer(0, 0, wav, sr=svc.target_sample, f0_predictor=f0_predictor))
+    got = {k: v - before[k] for k, v in _counts().items()}
+    seconds = len(wav) / svc.target_sample
+    ok = (n_samples == n_frames * svc.hop_size == len(wav) // svc.hop_size * svc.hop_size
+          and np.isfinite(audio).all() and float(np.abs(audio).max()) > 1e-4
+          and got["rel_attention"] == 6 and got["resblock_trio"] == 4
+          and all(v == 0 for k, v in got.items() if k not in ("rel_attention", "resblock_trio")))
+    log("frontend", request=repr(what), f0=f0_predictor, encoder=svc.encoder.name, frames=n_frames,
+        wall_s=f"{wall:.4f}", rtf=f"{wall / seconds:.5f}", rel_attention=got["rel_attention"],
+        resblock_trio=got["resblock_trio"], peak=f"{np.abs(audio).max():.4f}", ok=ok)
+    if not ok:
+        raise AssertionError(f"[frontend] {what}: bad output or launches {got} (want 6 and 4)")
+    return {"wall_s": wall, "rtf": wall / seconds}
+
+
+def frontend_f0_nets(svc) -> None:
+    """Each f0 net at its published width: the salience of a 3 s clip on
+    the card against a CPU copy (SALIENCE_ATOL), then a warm-up and a 10 s
+    request through ``svc`` with the net as its f0_predictor_object; the
+    predictor's own seconds, its device-busy time and top kernels, and its
+    FLOPs beside the fp32 bound."""
+    from sovits_tpu_torch.dsp.audio import resample
+    from sovits_tpu_torch.f0.base import get_f0_predictor
+
+    sr, hop = svc.target_sample, svc.hop_size
+    clip3, long_clip = bench_signal(3.0, sr, seed=5), bench_signal(SECONDS, sr)
+    for kind in F0_NETS:
+        sd = f0_net_weights(kind)
+        card, host = (get_f0_predictor(kind, hop, sr, weights=sd, device=d) for d in ("cuda", "cpu"))
+        t0 = time.perf_counter()
+        if kind == "crepe":
+            sal = [p.salience(clip3, len(clip3) // hop) for p in (card, host)]
+        else:
+            wav16 = resample(clip3, sr, 16000)
+            sal = [p.salience(wav16) for p in (card, host)]
+        err = float(np.abs(sal[0] - sal[1]).max())
+        ok = sal[0].shape == sal[1].shape and np.isfinite(sal[0]).all() and err <= SALIENCE_ATOL
+        log("frontend", f0=kind, what="salience, card vs CPU, 3 s clip, fp32 (TF32 off)",
+            frames=sal[0].shape[0], max_abs=f"{err:.3e}", limit=SALIENCE_ATOL,
+            card_and_cpu_s=f"{time.perf_counter() - t0:.2f}", ok=ok)
+        if not ok:
+            raise AssertionError(f"[frontend] {kind}: card and CPU salience disagree by {err}")
+        del host
+        svc.f0_predictor_object = card
+        _frontend_request(svc, long_clip, "10s warm-up", kind)
+        r = _frontend_request(svc, long_clip, "10s", kind)
+        if svc.f0_predictor_object is not card:
+            raise AssertionError(f"[frontend] Svc replaced the preset {kind} predictor")
+        pred_s, _ = _timed(lambda: card.compute_f0_uv(long_clip))
+        wall, busy_ms, dev = _profiled(lambda: card.compute_f0_uv(long_clip))
+        union_ms = _device_union_ms(lambda: card.compute_f0_uv(long_clip))
+        net_call, gru_gflop = _net_call(kind, card, long_clip, sr)
+        net_s, _ = _timed(net_call)
+        gflop = _gflop(net_call) + gru_gflop
+        top = sorted(dev.items(), key=lambda kv: -kv[1])[:5]
+        log("frontend", f0=kind, what="10 s clip", request_wall_s=f"{r['wall_s']:.4f}",
+            request_rtf=f"{r['rtf']:.5f}", predictor_s=f"{pred_s:.4f}", net_s=f"{net_s:.4f}",
+            profiled_wall_s=f"{wall:.4f}", device_busy_ms=f"{busy_ms:.2f}",
+            device_busy_union_ms=f"{union_ms:.2f}", kernel_names=len(dev), gflop=f"{gflop:.1f}",
+            fp32_bound_ms=f"{gflop * 1e12 / FP32_FLOPS:.2f}")
+        for key, us in top:
+            print(f"    device {us / 1e3:9.3f} ms  {key[:110]}", flush=True)
+        svc.f0_predictor_object = None
+        del card
+        torch.cuda.empty_cache()
+
+
+def frontend_encoders(tmp: Path) -> None:
+    """Each new encoder at its full width, seeded, written in its
+    checkpoint's layout and loaded by get_speech_encoder on the card and on
+    the CPU: the units of a 3 s clip card against CPU (UNITS_REL of their
+    peak) and the encode seconds of 10 s; then a full-width default model
+    with the encoder's ssl_dim: a warm-up and a 10 s request (K1/K3 6/4),
+    and a 3 s request card against CPU with noise off (log-mel L1 < 1e-3)."""
+    from sovits_tpu_torch import config as scfg
+    from sovits_tpu_torch.dsp.audio import resample
+    from sovits_tpu_torch.dsp.stft import mel_spectrogram
+    from sovits_tpu_torch.encoders.factory import get_speech_encoder
+
+    for name in NEW_ENCODERS:
+        work = tmp / "frontend" / name
+        path = work / f"{name}.pt"
+        t0 = time.perf_counter()
+        write_encoder_checkpoint(name, path)
+        card, host = (get_speech_encoder(name, path, device=d) for d in ("cuda", "cpu"))
+        load_s = time.perf_counter() - t0
+        hps = scfg.default_config(**{"model.ssl_dim": card.hidden_dim, "model.speech_encoder": name})
+        sr = hps.data.sampling_rate
+        clip3, long_clip = bench_signal(3.0, sr, seed=5), bench_signal(SECONDS, sr)
+        wav16 = resample(clip3, sr, 16000)
+        units = [e.encode(wav16) for e in (card, host)]
+        rel = float(np.abs(units[0] - units[1]).max() / np.abs(units[1]).max())
+        long16 = resample(long_clip, sr, 16000)
+        card.encode(long16)
+        encode_s, _ = _timed(lambda: card.encode(long16))
+        ok = units[0].shape == ((len(wav16) + 2 * card.pad - 400) // 320 + 1, card.hidden_dim) and rel <= UNITS_REL
+        log("frontend", encoder=name, params_m=f"{sum(p.numel() for p in card.net.parameters()) / 1e6:.1f}",
+            write_and_load_s=f"{load_s:.2f}", units_shape=units[0].shape,
+            units_rel_max_abs=f"{rel:.3e}", limit=UNITS_REL, encode_10s_s=f"{encode_s:.4f}", ok=ok)
+        if not ok:
+            raise AssertionError(f"[frontend] {name}: units {units[0].shape}, card vs CPU {rel}")
+        svc = build_svc(work, "cuda", encoder=card, hps=hps)
+        if svc.model.pre.in_channels != card.hidden_dim:
+            raise AssertionError(f"[frontend] {name}: the synthesizer takes {svc.model.pre.in_channels}")
+        _frontend_request(svc, long_clip, "10s warm-up", "dio")
+        _frontend_request(svc, long_clip, "10s", "dio")
+        cpu_svc = build_svc(work, "cpu", encoder=host)
+        outs = [s._run_synth_batch([s._prepare_chunk(0, 0, clip3, sr, 0.0, False, "dio", 0.05)], 0.0,
+                                   False, 52468, sample_noise=False)[0] for s in (svc, cpu_svc)]
+        mels = [mel_spectrogram(torch.from_numpy(a)[None]) for a in outs]
+        l1 = (mels[0] - mels[1]).abs().mean().item()
+        log("frontend", encoder=name, what="3 s request card vs CPU (encoder and synthesizer), noise off",
+            max_abs=f"{np.abs(outs[0] - outs[1]).max():.3e}", mel_l1=f"{l1:.3e}", limit=1e-3,
+            ok=l1 < 1e-3)
+        if not l1 < 1e-3:
+            raise AssertionError(f"[frontend] {name}: card and CPU disagree: log-mel L1 {l1}")
+        del svc, cpu_svc, card, host
+        torch.cuda.empty_cache()
+
+
+def phase_frontend(tmp: Path, svc) -> dict:
+    """The front end of a request on the card (``frontend_f0_nets``, then
+    ``frontend_encoders``) under a hard time limit of FRONTEND_LIMIT_S.
+    Returns the K1/K3 launches of the phase's requests."""
+    import signal
+
+    def over(*_):
+        raise TimeoutError(f"[frontend] over its {FRONTEND_LIMIT_S} s limit")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    previous = signal.signal(signal.SIGALRM, over)
+    signal.alarm(FRONTEND_LIMIT_S)
+    try:
+        _reset_counts()
+        frontend_f0_nets(svc)
+        f0_s = time.perf_counter() - t_phase
+        frontend_encoders(tmp)
+        counts = _counts()
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, previous)
+    log("frontend", phase_s=f"{time.perf_counter() - t_phase:.1f}", f0_nets_s=f"{f0_s:.1f}",
+        limit_s=FRONTEND_LIMIT_S, launches=counts)
+    return counts
+
+
 def phase_cli_diffusion(tmp: Path, files: dict) -> None:
     """``python -m sovits_tpu_torch.cli.infer -shd`` on the card, from the
     directory ``phase_cli`` prepared (its encoder checkpoint and 12 s song)."""
@@ -1567,14 +1854,9 @@ def phase_cli(tmp: Path, sr: int, hop: int) -> None:
     from scipy.io import wavfile
 
     from sovits_tpu_torch.cli import infer as cli
-    from sovits_tpu_torch.encoders.factory import CONFIGS
-    from sovits_tpu_torch.encoders.wav2vec2 import Wav2Vec2Encoder
-    from sovits_tpu_torch.models import factory
 
     work = tmp / "cli"
-    (work / "pretrain").mkdir(parents=True)
-    net = factory.init_random_(Wav2Vec2Encoder(CONFIGS["vec768l12"]), torch.Generator().manual_seed(1))
-    torch.save({"model": net.state_dict()}, work / "pretrain" / "checkpoint_best_legacy_500.pt")
+    write_encoder_checkpoint("vec768l12", work / "pretrain" / "checkpoint_best_legacy_500.pt", seed=1)
     wav = song(sr, (5.5, 5.5), seed=60)
     wavfile.write(work / "song.wav", sr, (wav * 32767).astype(np.int16))
     cwd = os.getcwd()
@@ -2010,6 +2292,7 @@ def main() -> None:
         slice32, slice16 = phase_slice(Path(tmp), svc, svc16)
         configs32, configs16 = phase_configs(Path(tmp), svc, svc16)
         diffusion32, diffusion16 = phase_diffusion(Path(tmp), svc, svc16)
+        frontend = phase_frontend(Path(tmp), svc)
         del svc16
         train, hps = phase_train(Path(tmp), svc.encoder)
         fused_tail = phase_train_fused_tail(hps)
@@ -2021,7 +2304,8 @@ def main() -> None:
     paths = {
         "rel_attention": {"infer": infer["rel_attention"], "slice": slice32["rel_attention"],
                           "configs": configs32["rel_attention"],
-                          "diffusion": diffusion32["rel_attention"], "train": train["rel_attention"],
+                          "diffusion": diffusion32["rel_attention"], "frontend": frontend["rel_attention"],
+                          "train": train["rel_attention"],
                           "train_fused_tail": fused_tail["rel_attention"]},
         "rel_attention_bf16": {"infer_bf16": infer_bf16["rel_attention_bf16"],
                                "slice_bf16": slice16["rel_attention_bf16"],
@@ -2033,7 +2317,7 @@ def main() -> None:
         "resblock_trio": {"infer": infer["resblock_trio"], "slice": slice32["resblock_trio"],
                           "configs": configs32["resblock_trio"],
                           "diffusion": diffusion32["resblock_trio"],
-                          "diffusion_bf16": diffusion16["resblock_trio"],
+                          "diffusion_bf16": diffusion16["resblock_trio"], "frontend": frontend["resblock_trio"],
                           "train_fused_tail": fused_tail["resblock_trio"]},
         "resblock_trio_bf16": {"infer_bf16": infer_bf16["resblock_trio_bf16"],
                                "slice_bf16": slice16["resblock_trio_bf16"],

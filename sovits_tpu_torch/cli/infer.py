@@ -11,9 +11,11 @@ another device. ``-shd`` refines each chunk by shallow diffusion (``-dm``
 the diffusion model, ``-dc`` its config, ``-ks`` the depth, ``-se`` a second
 encoding of the synthesizer's audio), ``-od`` diffuses from the input alone,
 ``-eh`` re-vocodes through the NSF-HiFiGAN enhancer (``-eak`` its key).
-Flags for what the port does not run (cluster and feature retrieval, the f0
-nets, the sequence-sharded decode) stop the program, naming the flag,
-before any model loads.
+``-f0p crepe/rmvpe/fcpe`` reach ``get_f0_predictor`` as in the JAX CLI,
+which has no flag for their weights: without them the first chunk raises
+FileNotFoundError. Flags for what the port does not run (cluster and
+feature retrieval, the sequence-sharded decode) stop the program, naming
+the flag, before any model loads.
 """
 
 from __future__ import annotations
@@ -76,7 +78,6 @@ def unsupported(args) -> list[str]:
         ("-cm/--cluster_model_path", bool(args.cluster_model_path)
          and Path(args.cluster_model_path).exists()),
         ("-cr/--cluster_infer_ratio", args.cluster_infer_ratio != 0),
-        (f"-f0p/--f0_predictor {args.f0_predictor}", args.f0_predictor in ("crepe", "rmvpe", "fcpe")),
         ("-ss/--seq_shard", args.seq_shard != 0),
     ]
     return [flag for flag, on in asked if on]

@@ -8,8 +8,10 @@ multi_period_discriminator`` (weight-normed); ``unit2mel`` of
 ``from_torch.py::unit2mel`` (the diffusion model), and ``generator`` with no
 ``cond`` of ``nsf_hifigan_generator`` for a standalone vocoder. ``wav2vec2`` is the
 inverse of ``sovits_tpu/encoders/convert.py::from_fairseq_hubert``: flax
-Wav2Vec2Encoder params -> a fairseq HuBERT state_dict. Values come back as
-numpy arrays; load them with ``{k: torch.from_numpy(v)}``.
+Wav2Vec2Encoder params -> a fairseq HuBERT state_dict. ``rmvpe``, ``fcpe``
+and ``crepe`` are the inverses of the JAX f0 nets' ``convert_*_state_dict``:
+flax params (and batch stats) -> the published checkpoints' state_dicts.
+Values come back as numpy arrays; load them with ``{k: torch.from_numpy(v)}``.
 
 Layout maps (flax -> torch):
 - Conv1d        kernel (kw, in, out)  -> weight (out, in, kw)
@@ -324,4 +326,106 @@ def wav2vec2(params: dict, cfg) -> dict:
             sd[pre + f"{torch_name}.bias"] = _np(lp[name]["bias"])
     if "final_proj" in params:
         _put(sd, "final_proj.", linear(params["final_proj"]))
+    return sd
+
+
+def _conv2d(p: dict) -> dict:
+    """Conv2d kernel (kh, kw, in, out) -> weight (out, in, kh, kw)."""
+    out = {"weight": _np(np.transpose(p["kernel"], (3, 2, 0, 1)))}
+    if "bias" in p:
+        out["bias"] = _np(p["bias"])
+    return out
+
+
+def _batch_norm(p: dict, s: dict) -> dict:
+    return {"weight": _np(p["scale"]), "bias": _np(p["bias"]), "running_mean": _np(s["mean"]),
+            "running_var": _np(s["var"])}
+
+
+def rmvpe(variables: dict) -> dict:
+    """flax RmvpeNet params and batch stats -> the published rmvpe.pt
+    state_dict (numpy; the inverse of ``sovits_tpu/f0/rmvpe.py::
+    convert_rmvpe_state_dict``). The transposed convs' ``up_kernel`` (kh,
+    kw, in, out), which the JAX module flips as it runs, becomes the
+    ConvTranspose2d weight (in, out, kh, kw), unflipped. BatchNorm's
+    ``num_batches_tracked`` is left out: torch fills it on load."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: dict = {}
+
+    def conv_block(prefix: str, bp: dict, bs: dict) -> None:
+        _put(sd, prefix + "conv.0.", _conv2d(bp["conv1"]))
+        _put(sd, prefix + "conv.1.", _batch_norm(bp["bn1"], bs["bn1"]))
+        _put(sd, prefix + "conv.3.", _conv2d(bp["conv2"]))
+        _put(sd, prefix + "conv.4.", _batch_norm(bp["bn2"], bs["bn2"]))
+        if "shortcut" in bp:
+            _put(sd, prefix + "shortcut.", _conv2d(bp["shortcut"]))
+
+    _put(sd, "unet.encoder.bn.", _batch_norm(p["in_bn"], s["in_bn"]))
+    for stem, where in (("enc_", "unet.encoder.layers."), ("inter_", "unet.intermediate.layers.")):
+        for i in range(_count(p, stem)):
+            lp, ls = p[f"{stem}{i}"], s[f"{stem}{i}"]
+            for j in range(_count(lp, "block_")):
+                conv_block(f"{where}{i}.conv.{j}.", lp[f"block_{j}"], ls[f"block_{j}"])
+    for i in range(_count(p, "dec_")):
+        lp, ls, pre = p[f"dec_{i}"], s[f"dec_{i}"], f"unet.decoder.layers.{i}."
+        sd[pre + "conv1.0.weight"] = _np(np.transpose(lp["up_kernel"], (2, 3, 0, 1)))
+        _put(sd, pre + "conv1.1.", _batch_norm(lp["bn1"], ls["bn1"]))
+        for j in range(_count(lp, "block_")):
+            conv_block(f"{pre}conv2.{j}.", lp[f"block_{j}"], ls[f"block_{j}"])
+    _put(sd, "cnn.", _conv2d(p["cnn"]))
+    gru = p["gru"]
+    for direction, suffix in (("fwd", ""), ("bwd", "_reverse")):
+        for name in ("w_ih", "w_hh", "b_ih", "b_hh"):
+            torch_name = ("weight_" if name[0] == "w" else "bias_") + name[2:]
+            sd[f"fc.0.gru.{torch_name}_l0{suffix}"] = _np(gru[f"{name}_{direction}"])
+    _put(sd, "fc.1.", linear(p["fc"]))
+    return sd
+
+
+def fcpe(params: dict, f0_min: float = 32.70, f0_max: float = 1975.5) -> dict:
+    """flax FcpeNet params -> the published fcpe.pt state_dict (numpy; the
+    inverse of ``sovits_tpu/f0/fcpe.py::convert_fcpe_state_dict``), with the
+    reference's ``cent_table`` and ``gaussian_blurred_cent_mask`` buffers,
+    which the JAX converter does not read."""
+    from ..f0.fcpe import cent_table
+
+    sd: dict = {}
+    _put(sd, "stack.0.", conv1d(params["stack0"]))
+    sd["stack.1.weight"], sd["stack.1.bias"] = _np(params["stack_gn"]["scale"]), _np(params["stack_gn"]["bias"])
+    _put(sd, "stack.3.", conv1d(params["stack3"]))
+    sd["norm.weight"], sd["norm.bias"] = _np(params["norm"]["scale"]), _np(params["norm"]["bias"])
+    sd["dense_out.weight_v"] = _np(np.transpose(params["out_v"], (1, 0)))
+    sd["dense_out.weight_g"] = _np(np.asarray(params["out_g"]).reshape(-1, 1))
+    sd["dense_out.bias"] = _np(params["out_b"])
+    n_out = sd["dense_out.bias"].shape[0]
+    sd["cent_table"] = cent_table(f0_min, f0_max, n_out)
+    sd["gaussian_blurred_cent_mask"] = np.asarray(1200.0 * np.log2(f0_max / 10.0), np.float32)
+    for i in range(_count(params, "layer_")):
+        lp, pre = params[f"layer_{i}"], f"decoder._layers.{i}."
+        sd[pre + "norm.weight"], sd[pre + "norm.bias"] = _np(lp["norm"]["scale"]), _np(lp["norm"]["bias"])
+        att = lp["attn"]
+        for name in ("to_q", "to_k", "to_v", "to_out"):
+            _put(sd, f"{pre}attn.{name}.", linear(att[name]))
+        sd[pre + "attn.fast_attention.projection_matrix"] = _np(att["projection_matrix"])
+        conf, cpre = lp["conformer"], pre + "conformer.net."
+        sd[cpre + "0.weight"], sd[cpre + "0.bias"] = _np(conf["norm"]["scale"]), _np(conf["norm"]["bias"])
+        _put(sd, cpre + "2.", conv1x1_from_dense(conf["pw1"]))
+        sd[cpre + "4.conv.weight"] = _np(np.transpose(conf["dw_kernel"], (2, 1, 0)))
+        sd[cpre + "4.conv.bias"] = _np(conf["dw_bias"])
+        _put(sd, cpre + "6.", conv1x1_from_dense(conf["pw2"]))
+    return sd
+
+
+def crepe(variables: dict) -> dict:
+    """flax CrepeNet params and batch stats -> a torchcrepe state_dict
+    (numpy; the inverse of ``sovits_tpu/f0/crepe.py::
+    convert_crepe_state_dict``): conv kernels (kw, in, out) -> Conv2d
+    weights (out, in, kw, 1)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: dict = {}
+    for i in range(1, 7):
+        sd[f"conv{i}.weight"] = _np(np.transpose(p[f"conv{i}"]["kernel"], (2, 1, 0))[..., None])
+        sd[f"conv{i}.bias"] = _np(p[f"conv{i}"]["bias"])
+        _put(sd, f"conv{i}_BN.", _batch_norm(p[f"bn{i}"], s[f"bn{i}"]))
+    _put(sd, "classifier.", linear(p["classifier"]))
     return sd

@@ -1,5 +1,7 @@
-"""Slaney mel filterbank, identical to ``librosa.filters.mel`` (counterpart
-of ``sovits_tpu/dsp/mel.py``). ``dsp/stft.py`` projects spectrograms with it."""
+"""Mel filterbanks, identical to ``librosa.filters.mel`` (counterpart of
+``sovits_tpu/dsp/mel.py``): the Slaney mel scale by default, the HTK scale
+with ``htk=True`` (RMVPE's front end); Slaney area normalisation in both.
+``dsp/stft.py`` projects spectrograms with it."""
 
 from __future__ import annotations
 
@@ -24,11 +26,21 @@ def _mel_to_hz(m):
     return np.where(m >= _MIN_LOG_MEL, _MIN_LOG_HZ * np.exp(_LOGSTEP * (m - _MIN_LOG_MEL)), _F_SP * m)
 
 
+def _hz_to_mel_htk(f):
+    return 2595.0 * np.log10(1.0 + np.asanyarray(f, dtype=np.float64) / 700.0)
+
+
+def _mel_to_hz_htk(m):
+    return 700.0 * (10.0 ** (np.asanyarray(m, dtype=np.float64) / 2595.0) - 1.0)
+
+
 @functools.lru_cache(maxsize=None)
-def mel_filterbank(sample_rate: int, n_fft: int, n_mels: int, fmin: float, fmax: float) -> np.ndarray:
-    """Slaney triangular filterbank [n_freqs, n_mels], float32."""
+def mel_filterbank(sample_rate: int, n_fft: int, n_mels: int, fmin: float, fmax: float,
+                   htk: bool = False) -> np.ndarray:
+    """Triangular filterbank [n_freqs, n_mels], float32."""
     fftfreqs = np.linspace(0.0, sample_rate / 2.0, 1 + n_fft // 2)
-    edges = _mel_to_hz(np.linspace(_hz_to_mel(fmin), _hz_to_mel(fmax), n_mels + 2))
+    to_mel, to_hz = (_hz_to_mel_htk, _mel_to_hz_htk) if htk else (_hz_to_mel, _mel_to_hz)
+    edges = to_hz(np.linspace(to_mel(fmin), to_mel(fmax), n_mels + 2))
     fdiff = np.diff(edges)
     ramps = edges[:, None] - fftfreqs[None, :]
     weights = np.maximum(0.0, np.minimum(-ramps[:-2] / fdiff[:-1, None], ramps[2:] / fdiff[1:, None]))

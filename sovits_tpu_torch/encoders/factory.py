@@ -2,7 +2,11 @@
 
 Encoders expose ``encode(wav16k: np.ndarray [L]) -> np.ndarray [T, H]`` at
 16 kHz and a 320-sample hop, and ``encode_async`` which launches the work
-and returns a zero-argument function that waits for the result.
+and returns a zero-argument function that waits for the result. The four
+wav2vec2-family encoders share one topology (``wav2vec2.py``): vec768l12,
+vec256l9 (9 layers and a 256-wide final projection), hubertsoft (bshall's
+checkpoint layout, a 256-wide projection, 40 samples of padding either
+side) and cnhubertlarge (d 1024, 24 layers, 16 heads, FFN 4096).
 """
 
 from __future__ import annotations
@@ -12,20 +16,38 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .convert import from_bshall_hubert
 from .wav2vec2 import Wav2Vec2Config, Wav2Vec2Encoder
 
-CONFIGS = {"vec768l12": Wav2Vec2Config(output_layer=12)}
+CONFIGS = {
+    "vec768l12": Wav2Vec2Config(output_layer=12),
+    "vec256l9": Wav2Vec2Config(output_layer=9, final_proj_dim=256),
+    "hubertsoft": Wav2Vec2Config(final_proj_dim=256),
+    "cnhubertlarge": Wav2Vec2Config(d_model=1024, n_layers=24, n_heads=16, ffn_dim=4096),
+}
+BSHALL = {"hubertsoft"}  # checkpoints in bshall's HuBERT-soft layout; the rest are fairseq's
+INPUT_PAD = {"hubertsoft": (400 - 320) // 2}  # samples either side (hubert_model.py:70)
+CHECKPOINTS = {
+    "vec768l12": "pretrain/checkpoint_best_legacy_500.pt",
+    "vec256l9": "pretrain/checkpoint_best_legacy_500.pt",
+    "hubertsoft": "pretrain/hubert-soft-0d54a1f4.pt",
+    "cnhubertlarge": "pretrain/chinese-hubert-large-fairseq-ckpt.pt",
+}
 
 
 class SpeechEncoder:
-    def __init__(self, name: str, net: Wav2Vec2Encoder, device: torch.device | str):
+    """``net`` on ``device``; ``pad`` zero samples go on either side of the
+    16 kHz input before it is bucketed."""
+
+    def __init__(self, name: str, net: Wav2Vec2Encoder, device: torch.device | str, pad: int = 0):
         self.name = name
         self.device = torch.device(device)
         self.net = net.to(self.device).eval()
         self.hidden_dim = net.cfg.final_proj_dim or net.cfg.d_model
+        self.pad = pad
 
     def encode_async(self, wav16k: np.ndarray):
-        wav = np.asarray(wav16k, dtype=np.float32)
+        wav = np.pad(np.asarray(wav16k, dtype=np.float32), self.pad)
         n_frames = (len(wav) - 400) // 320 + 1
         # pad to a whole number of seconds, as the JAX package buckets: the
         # padding is part of what the group norm and attention see, so the
@@ -41,7 +63,8 @@ class SpeechEncoder:
 
 
 def load_fairseq_state_dict(path: str | Path) -> dict[str, torch.Tensor]:
-    """The model state_dict of a fairseq checkpoint ({'model': ...})."""
+    """The model state_dict of a fairseq checkpoint ({'model': ...}) or of a
+    plain one, float32, without a ``module.`` prefix."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(ckpt, dict) and isinstance(ckpt.get("model"), dict):
         ckpt = ckpt["model"]
@@ -50,19 +73,25 @@ def load_fairseq_state_dict(path: str | Path) -> dict[str, torch.Tensor]:
 
 def get_speech_encoder(name: str, checkpoint_path: str | Path | None = None,
                        device: torch.device | str = "cuda") -> SpeechEncoder:
-    """Build ``name`` from a fairseq HuBERT/ContentVec checkpoint.
+    """Build ``name`` from its checkpoint (``CHECKPOINTS[name]`` when None):
+    fairseq's layout, or bshall's for hubertsoft.
 
     The checkpoint's keys that the encoder does not use (``mask_emb``,
-    ``label_embs_concat``, ``final_proj``, deeper layers) are ignored;
-    every key the encoder has must be present.
+    ``label_embs_concat``, an unused ``final_proj``, deeper layers) are
+    ignored; every key the encoder has must be present. A missing file
+    raises FileNotFoundError; the JAX package's other encoders
+    (whisper-ppg, wavlmbase+, dphubert, the onnx variants) raise
+    NotImplementedError.
     """
     if name not in CONFIGS:
         raise NotImplementedError(f"speech encoder {name!r} is not supported by the port "
                                   f"(available: {sorted(CONFIGS)})")
-    checkpoint_path = Path(checkpoint_path or "pretrain/checkpoint_best_legacy_500.pt")
+    checkpoint_path = Path(checkpoint_path or CHECKPOINTS[name])
     if not checkpoint_path.exists():
         raise FileNotFoundError(f"speech-encoder checkpoint not found: {checkpoint_path}")
     net = Wav2Vec2Encoder(CONFIGS[name])
     sd = load_fairseq_state_dict(checkpoint_path)
+    if name in BSHALL:
+        sd = from_bshall_hubert(sd)
     net.load_state_dict({k: sd[k] for k in net.state_dict() if k in sd}, strict=True)
-    return SpeechEncoder(name, net, device)
+    return SpeechEncoder(name, net, device, INPUT_PAD.get(name, 0))

@@ -7,6 +7,8 @@ unvoiced gaps linearly interpolated, plus a voiced flag track.
 from __future__ import annotations
 
 import numpy as np
+import torch
+from torch import nn
 
 from ..dsp.f0 import interpolate_unvoiced
 
@@ -42,16 +44,34 @@ class F0Predictor:
         return self._postprocess(self.raw_f0(wav, p_len), p_len)
 
 
+def load_net(net: nn.Module, weights: dict | None, device: torch.device, what: str) -> nn.Module:
+    """``net`` with ``weights`` loaded strictly, in eval mode on ``device``.
+
+    ``weights`` is a state_dict in the published checkpoint's key names
+    (tensors or numpy arrays); without it FileNotFoundError, as the JAX
+    predictors raise: no checkpoint is looked up on disk."""
+    if weights is None:
+        raise FileNotFoundError(f"{what} weights not provided: pass weights=, the published "
+                                "checkpoint's state_dict")
+    net.load_state_dict({k: v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
+                         for k, v in weights.items()}, strict=True)
+    return net.to(device).eval()
+
+
 def get_f0_predictor(name: str, hop_length: int, sampling_rate: int, **kwargs) -> F0Predictor:
-    """dio, harvest, pm and yin are ported; the f0 nets (crepe, rmvpe, fcpe)
-    and unknown names raise."""
+    """All seven predictors of so-vits-svc (utils.py:88-109). The nets
+    (crepe, rmvpe, fcpe) take ``weights=`` and ``device=`` (default
+    "cuda"); the host predictors accept ``device`` and ignore it."""
+    from .crepe import CrepeF0Predictor
     from .dio import DioF0Predictor, HarvestF0Predictor
+    from .fcpe import FcpeF0Predictor
     from .praat import ParselmouthF0Predictor
+    from .rmvpe import RmvpeF0Predictor
     from .yin import YinF0Predictor
 
     registry = {"dio": DioF0Predictor, "harvest": HarvestF0Predictor,
-                "pm": ParselmouthF0Predictor, "yin": YinF0Predictor}
+                "pm": ParselmouthF0Predictor, "yin": YinF0Predictor, "crepe": CrepeF0Predictor,
+                "rmvpe": RmvpeF0Predictor, "fcpe": FcpeF0Predictor}
     if name not in registry:
-        raise NotImplementedError(f"f0 predictor {name!r} is not supported by the port "
-                                  f"(use one of {sorted(registry)})")
+        raise ValueError(f"unknown f0 predictor: {name}")
     return registry[name](hop_length=hop_length, sampling_rate=sampling_rate, **kwargs)

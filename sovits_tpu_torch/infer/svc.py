@@ -1,8 +1,10 @@
 """Svc -- voice conversion (counterpart of ``sovits_tpu/infer/svc.py``).
 
 Per clip: resample to the model rate -> launch the speech encoder on the
-16 kHz copy -> f0 on the host while the card works (``f0_predictor``: pm, the
-JAX package's default, dio, harvest or yin) -> units stretched to the f0
+16 kHz copy -> f0 (``f0_predictor``: pm, the JAX package's default, dio,
+harvest or yin on the host while the card works; the nets crepe, rmvpe and
+fcpe on the card in float32, from the weights of a predictor the caller
+sets as ``f0_predictor_object``) -> units stretched to the f0
 frames -> synthesizer (prior, flow, NSF-HiFiGAN) -> audio -> optional
 loudness-envelope mix. Inputs are padded to the same length buckets as the
 JAX package's, and same-bucket chunks run as one batch padded to a power of
@@ -164,9 +166,11 @@ class Svc:
             raise NotImplementedError("cluster_infer_ratio != 0 (cluster / feature retrieval) "
                                       "is not supported by the port")
         if self.f0_predictor_object is None or self.f0_predictor_object.name != f0_predictor:
+            # an f0 net without weights raises FileNotFoundError here, as in
+            # the JAX package: a caller with weights sets f0_predictor_object
             self.f0_predictor_object = get_f0_predictor(
                 f0_predictor, hop_length=self.hop_size, sampling_rate=self.target_sample,
-                threshold=cr_threshold,
+                threshold=cr_threshold, device=self.device,
             )
         # launch the encoder first; the f0 predictor's host work then overlaps the card's
         wav16k = resample(wav, self.target_sample, 16000)

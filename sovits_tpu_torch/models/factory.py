@@ -54,7 +54,10 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     starts with conv_k equal to conv_q (so-vits-svc's proximal_init).
     What the reference starts at zero is drawn too, so that a random model
     runs every path: the flows' ``post`` convs take the uniform draw, and
-    Snake's log-scale alpha and beta N(0, 0.1)."""
+    Snake's log-scale alpha and beta N(0, 0.1). The f0 nets' parts: GRUs
+    and transposed convs take torch's uniform draw, BatchNorm scale
+    N(1, 0.1), shift and running mean N(0, 0.1), running variance U(0.5,
+    1.5), FCPE's performer projections N(0, 1)."""
 
     def fill(p: torch.Tensor, sample: torch.Tensor) -> None:
         p.copy_(sample.to(p.dtype))
@@ -86,6 +89,19 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             uniform(weight, fan_in**-0.5)
             if mod.bias is not None:
                 uniform(mod.bias, fan_in**-0.5)
+        elif isinstance(mod, nn.ConvTranspose2d):  # weight (in, out, kh, kw): fan-in out x kh x kw
+            uniform(mod.weight, mod.weight[0].numel() ** -0.5)
+        elif isinstance(mod, nn.GRU):
+            for p in mod.parameters():
+                uniform(p, mod.hidden_size**-0.5)
+        elif isinstance(mod, nn.BatchNorm2d):
+            normal(mod.weight, 0.1)
+            mod.weight += 1.0
+            normal(mod.bias, 0.1)
+            normal(mod.running_mean, 0.1)
+            fill(mod.running_var, 0.5 + torch.rand(mod.running_var.shape, generator=generator))
+        elif hasattr(mod, "projection_matrix"):
+            normal(mod.projection_matrix, 1.0)
         elif isinstance(mod, nn.Embedding):
             normal(mod.weight, 1.0)
         elif isinstance(mod, (LayerNorm, nn.LayerNorm, nn.GroupNorm)):

@@ -600,3 +600,128 @@ def test_enhancer_cuda_matches_cpu(cuda, tmp_path, adaptive_key):
     assert sr_got == sr_want == 44100 and got.shape == want.shape
     err = np.abs(got - want).max()
     assert np.isfinite(got).all() and err <= 1e-4 * np.abs(want).max(), err
+
+
+# the f0 nets at small widths (their published topologies, narrower)
+F0_SMALL = {"rmvpe": ("RmvpeNet", dict(n_blocks=1, en_out_channels=4, gru_hidden=16)),
+            "fcpe": ("FcpeNet", dict(n_layers=2)), "crepe": ("CrepeNet", {})}
+
+
+def _small_f0_nets(monkeypatch):
+    """Each f0 predictor builds its net at the small width of F0_SMALL
+    (CREPE "tiny")."""
+    import functools
+
+    from sovits_tpu_torch.f0 import crepe, fcpe, rmvpe
+
+    for module, (cls, kw) in zip((rmvpe, fcpe, crepe), F0_SMALL.values()):
+        if module is crepe:
+            monkeypatch.setattr(crepe, "CrepeNet", lambda capacity="full", net=crepe.CrepeNet: net("tiny"))
+        else:
+            monkeypatch.setattr(module, cls, functools.partial(getattr(module, cls), **kw))
+
+
+@pytest.mark.parametrize("kind", list(F0_SMALL))
+def test_f0_net_cuda_matches_cpu(cuda, monkeypatch, kind):
+    """The predictor's salience of a 1.5 s 44.1 kHz clip on the card against
+    its CPU copy (same seeded weights), and its f0 track on the card."""
+    import numpy as np
+
+    from sovits_tpu_torch.dsp.audio import resample
+    from sovits_tpu_torch.f0.base import get_f0_predictor
+
+    _small_f0_nets(monkeypatch)
+    from sovits_tpu_torch.f0 import crepe, fcpe, rmvpe
+
+    net = {"rmvpe": rmvpe.RmvpeNet, "fcpe": fcpe.FcpeNet, "crepe": crepe.CrepeNet}[kind]()
+    sd = factory.init_random_(net, _g(12)).state_dict()
+    card, host = (get_f0_predictor(kind, 512, 44100, weights=sd, device=d) for d in (cuda, "cpu"))
+    assert next(card.net.parameters()).device.type == "cuda"
+    wav = bench_signal(1.5, 44100, seed=2)
+    if kind == "crepe":
+        got, want = (p.salience(wav, len(wav) // 512) for p in (card, host))
+    else:
+        got, want = (p.salience(resample(wav, 44100, 16000)) for p in (card, host))
+    assert got.shape == want.shape and got.shape[1] == 360
+    assert np.abs(got - want).max() <= 1e-4
+    f0, uv = card.compute_f0_uv(wav)
+    assert f0.shape == uv.shape == (len(wav) // 512,) and np.isfinite(f0).all()
+
+
+# the encoders at tiny widths, each keeping what sets it apart
+ENCODER_SMALL = {
+    "vec256l9": dict(output_layer=1, final_proj_dim=16),
+    "hubertsoft": dict(final_proj_dim=16),
+    "cnhubertlarge": dict(d_model=96, n_heads=6, ffn_dim=192),
+}
+TINY_CONVS = ((32, 10, 5),) + ((32, 3, 2),) * 4 + ((32, 2, 2),) * 2
+
+
+def _tiny_encoder_config(name):
+    from sovits_tpu_torch.encoders.wav2vec2 import Wav2Vec2Config
+
+    fields = dict(d_model=64, n_layers=2, n_heads=4, ffn_dim=128, pos_conv_kernel=16, pos_conv_groups=4,
+                  conv_layers=TINY_CONVS)
+    return Wav2Vec2Config(**{**fields, **ENCODER_SMALL.get(name, {})})
+
+
+@pytest.mark.parametrize("name", list(ENCODER_SMALL))
+def test_encoder_cuda_matches_cpu(cuda, tmp_path, monkeypatch, name):
+    """A tiny seeded checkpoint in the encoder's layout (bshall's for
+    hubertsoft) through get_speech_encoder on the card and on the CPU."""
+    import numpy as np
+
+    from chip_smoke import write_encoder_checkpoint
+    from sovits_tpu_torch.encoders import factory as enc_factory
+
+    cfg = _tiny_encoder_config(name)
+    monkeypatch.setitem(enc_factory.CONFIGS, name, cfg)
+    write_encoder_checkpoint(name, tmp_path / "enc.pt", cfg=cfg)
+    card, host = (enc_factory.get_speech_encoder(name, tmp_path / "enc.pt", device=d)
+                  for d in (cuda, "cpu"))
+    wav = bench_signal(1.2, 16000, seed=3)
+    got, want = card.encode(wav), host.encode(wav)
+    assert got.shape == want.shape == ((len(wav) + 2 * card.pad - 400) // 320 + 1, card.hidden_dim)
+    assert np.abs(got - want).max() <= 1e-4 * max(1.0, np.abs(want).max())
+
+
+def test_cli_rmvpe_with_a_preset_predictor_on_card(cuda, tmp_path, monkeypatch):
+    """``cli.infer -f0p rmvpe`` on the card, its Svc given an RMVPE predictor
+    (small seeded net) as f0_predictor_object: the song is written, and the
+    predictor that ran is the card's."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    from chip_smoke import song, write_encoder_checkpoint
+    from sovits_tpu_torch.cli import infer as cli
+    from sovits_tpu_torch.encoders import factory as enc_factory
+    from sovits_tpu_torch.f0 import rmvpe
+    from sovits_tpu_torch.infer.svc import Svc
+
+    _small_f0_nets(monkeypatch)
+    cfg = _tiny_encoder_config("vec768l12")
+    monkeypatch.setitem(enc_factory.CONFIGS, "vec768l12", cfg)
+    write_encoder_checkpoint("vec768l12", tmp_path / "pretrain" / "checkpoint_best_legacy_500.pt", cfg=cfg)
+    hps = scfg.default_config(**{"model.ssl_dim": cfg.d_model})
+    scfg.save_config(hps, tmp_path / "config.json")
+    model = factory.init_random_(factory.build_synthesizer(hps, "cpu", fused_tail=True), _g(13))
+    torch.save({"model": model.state_dict(), "iteration": 0}, tmp_path / "G_0.pth")
+    wav = song(44100, (2.5, 2.5), seed=14)
+    wavfile.write(tmp_path / "song.wav", 44100, (wav * 32767).astype(np.int16))
+    sd = factory.init_random_(rmvpe.RmvpeNet(), _g(15)).state_dict()
+    predictor = rmvpe.RmvpeF0Predictor(hop_length=512, sampling_rate=44100, weights=sd, device=cuda)
+    used = []
+
+    class PresetSvc(Svc):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.f0_predictor_object = predictor
+            used.append(self)
+
+    monkeypatch.setattr(cli, "Svc", PresetSvc)
+    monkeypatch.chdir(tmp_path)
+    cli.main(["-m", "G_0.pth", "-c", "config.json", "-n", "song.wav", "-f0p", "rmvpe"])
+    (svc,) = used
+    assert svc.f0_predictor_object is predictor and svc.device.type == "cuda"
+    sr, audio = wavfile.read(tmp_path / "results" / "song_0key_0_sovits_rmvpe.wav")
+    assert sr == 44100 and abs(len(audio) - len(wav)) <= 2 * 512 and np.abs(audio).max() > 0

@@ -18,7 +18,8 @@
 (d) yin and harvest against the JAX package; the native Harvest stages
     against their numpy oracles.
 (e) The infer CLI on the CPU, and every flag it rejects (its diffusion
-    and enhancer flags: test_torch_diffusion.py).
+    and enhancer flags: test_torch_diffusion.py; -f0p naming an f0 net:
+    test_torch_f0nets.py).
 """
 
 import functools
@@ -370,9 +371,6 @@ def test_cli_infer_writes_result(cli_dir, capsys):
     (["-fr"], "--feature_retrieval"),
     (["-cm", "kmeans.pt"], "--cluster_model_path"),
     (["-cr", "0.5"], "--cluster_infer_ratio"),
-    (["-f0p", "crepe"], "crepe"),
-    (["-f0p", "rmvpe"], "rmvpe"),
-    (["-f0p", "fcpe"], "fcpe"),
     (["-ss", "4"], "--seq_shard"),
 ], ids=lambda v: v if isinstance(v, str) else "_".join(v))
 def test_cli_rejects_unsupported_flag(tmp_path, monkeypatch, flags, named):
