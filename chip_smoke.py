@@ -26,13 +26,19 @@ launches checked and its stages timed, held against the CPU, 10
 ``[frontend]``: the f0 nets (RMVPE, FCPE, CREPE "full") and the vec256l9,
 hubertsoft and cnhubertlarge encoders at their published widths with seeded
 weights, each held against a CPU copy and run in 10 s requests through Svc,
-11 training (a feature dataset made by the port itself, six full-width GAN
-steps through ``train``, a resume, a profiled step), 12 three GAN steps with
-the fused tail against the same steps without it, 13 the bf16 GAN step at
-bench.py's training configuration (batch 6 x 512 frames, bf16 synthesizer
-and discriminator; its first step against the same step through fp32
-nets), 14 the trio staging microbench at its defaults, 15 kernel times
-beside their bounds. Any failure raises, so the script exits non-zero; the
+11 ``[encoders]``: whisper-ppg (medium), whisper-ppg-large (large-v2),
+wavlmbase+ and dphubert the same way, each written in its published
+checkpoint layout, 12 ``[cluster]``: k-means (10 000 centers, 50 steps) over
+an hour of one speaker's units (180 000 x 768) and a retrieval bank of the
+same rows on the card, the blends card against CPU, 10 s requests through
+Svc at cluster ratio 0.5 (k-means .npz, kmeans_10000.pt, retrieval), the
+train_cluster and infer CLIs, 13 training (a feature dataset made by the
+port itself, six full-width GAN steps through ``train``, a resume, a
+profiled step), 14 three GAN steps with the fused tail against the same
+steps without it, 15 the bf16 GAN step at bench.py's training
+configuration (batch 6 x 512 frames, bf16 synthesizer and discriminator;
+its first step against the same step through fp32 nets), 16 the trio
+staging microbench at its defaults, 17 kernel times beside their bounds. Any failure raises, so the script exits non-zero; the
 last line is the JSON result the caller reads. Needs a CUDA card; without
 one (or without the repository around it) it fails before printing a result.
 """
@@ -1571,6 +1577,90 @@ def write_encoder_checkpoint(name: str, path: Path, seed: int = 11, cfg=None) ->
         torch.save({"model": sd}, path)
 
 
+# [encoders]: whisper-ppg, whisper-ppg-large, wavlmbase+ and dphubert at
+# their published widths. DPHuBERT's published per-layer widths are not in
+# the repository: HuBERT-base's outer widths (768, 12 layers, 512-wide convs,
+# head_dim 64) with per-layer heads and FFN widths that vary, layer 3
+# without attention and layer 8 without its FFN
+PPG_ENCODERS = ("whisper-ppg", "whisper-ppg-large", "wavlmbase+", "dphubert")
+ENCODERS_LIMIT_S = 420  # the phase's hard time limit (SIGALRM)
+DPHUBERT_CFG = dict(
+    extractor_mode="group_norm",
+    extractor_conv_layer_config=[(512, 10, 5)] + [(512, 3, 2)] * 4 + [(512, 2, 2)] * 2,
+    extractor_conv_bias=False, encoder_embed_dim=768, encoder_projection_dropout=0.0,
+    encoder_pos_conv_kernel=128, encoder_pos_conv_groups=16, encoder_num_layers=12,
+    encoder_use_attention=[i != 3 for i in range(12)],
+    encoder_use_feed_forward=[i != 8 for i in range(12)],
+    encoder_num_heads=[12, 10, 9, 0, 8, 8, 7, 6, 6, 5, 4, 4], encoder_head_dim=64,
+    encoder_attention_dropout=0.0,
+    encoder_ff_interm_features=[3072, 2900, 2600, 2400, 2200, 2000, 1800, 1500, 0, 1200, 1000, 800],
+    encoder_ff_interm_dropout=0.0, encoder_dropout=0.0, encoder_layer_norm_first=False,
+    encoder_layer_drop=0.0, normalize_waveform=False,
+)
+# openai-whisper's text-decoder fields of ``dims`` (medium's), which the
+# encoder does not read
+WHISPER_TEXT_DIMS = dict(n_vocab=51865, n_text_ctx=448, n_text_state=1024, n_text_head=16,
+                         n_text_layer=24)
+
+
+def seeded_encoder(net: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """``factory.init_random_`` from ``seed``, then every LayerNorm and
+    GroupNorm scale 1 + N(0, 0.1) and shift N(0, 0.1), and WavLM's grep_a
+    U(0.5, 1.5): no parameter keeps a constant value."""
+    from sovits_tpu_torch.models import factory
+
+    generator = torch.Generator().manual_seed(seed)
+    factory.init_random_(net, generator)
+    with torch.no_grad():
+        for module in net.modules():
+            if isinstance(module, (torch.nn.LayerNorm, torch.nn.GroupNorm)):
+                module.weight.copy_(1.0 + 0.1 * torch.randn(module.weight.shape, generator=generator))
+                module.bias.copy_(0.1 * torch.randn(module.bias.shape, generator=generator))
+            if hasattr(module, "grep_a"):
+                module.grep_a.copy_(0.5 + torch.rand(module.grep_a.shape, generator=generator))
+    return net
+
+
+def write_ppg_checkpoint(name: str, path: Path, seed: int = 13, dims=None) -> None:
+    """A seeded ``name`` encoder (``dims``: WhisperDims, WavLMDims or a
+    DPHuBERT config; the published widths by default) saved in its
+    checkpoint's layout: openai-whisper's {"dims", "model_state_dict"} with
+    the stored positional embedding and a decoder entry, WavLM's {"cfg",
+    "model"} with ``mask_emb``, DPHuBERT's {"config", "state_dict"} with
+    ``aux_num_out`` and an auxiliary head. What the encoder does not use is
+    there to be ignored."""
+    import dataclasses
+
+    from sovits_tpu_torch.encoders import dphubert, wavlm, whisper
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if name.startswith("whisper-ppg"):
+        dims = dims or whisper.WHISPER_CONFIGS[name]
+        sd = dict(seeded_encoder(whisper.WhisperEncoder(dims), seed).state_dict())
+        sd["encoder.positional_embedding"] = torch.from_numpy(
+            whisper.sinusoids(dims.n_audio_ctx, dims.n_audio_state))
+        sd["decoder.ln.weight"] = torch.ones(dims.n_audio_state)
+        ckpt = {"dims": dict(WHISPER_TEXT_DIMS, **dataclasses.asdict(dims)), "model_state_dict": sd}
+    elif name == "wavlmbase+":
+        dims = dims or wavlm.WavLMDims()
+        sd = dict(seeded_encoder(wavlm.WavLMEncoder(dims), seed).state_dict())
+        sd["mask_emb"] = torch.zeros(dims.d_model)
+        cfg = {"encoder_embed_dim": dims.d_model, "encoder_layers": dims.n_layers,
+               "encoder_attention_heads": dims.n_heads, "encoder_ffn_embed_dim": dims.ffn_dim,
+               "num_buckets": dims.num_buckets, "max_distance": dims.max_distance,
+               "normalize": dims.normalize_input, "conv_pos": 128, "conv_pos_groups": 16,
+               "relative_position_embedding": True, "gru_rel_pos": True}
+        ckpt = {"cfg": cfg, "model": sd}
+    elif name == "dphubert":
+        cfg = dims or DPHUBERT_CFG
+        sd = dict(seeded_encoder(dphubert.DPHubertEncoder(cfg), seed).state_dict())
+        sd["aux.weight"] = torch.zeros(4, cfg["encoder_embed_dim"])
+        ckpt = {"config": dict(cfg, aux_num_out=None), "state_dict": sd}
+    else:
+        raise ValueError(f"not a whisper, WavLM or DPHuBERT encoder: {name}")
+    torch.save(ckpt, path)
+
+
 def _gflop(fn) -> float:
     """The FLOPs torch's FlopCounterMode counts in one call of fn (convs,
     matmuls; not the GRU's cuDNN kernel), in GFLOP."""
@@ -1636,22 +1726,24 @@ def _timed(fn):
     return time.perf_counter() - t0, out
 
 
-def _frontend_request(svc, wav: np.ndarray, what: str, f0_predictor: str) -> dict:
-    """One Svc.infer on the card: wall, RTF and its K1/K3 launches (6 and 4)."""
+def _frontend_request(svc, wav: np.ndarray, what: str, f0_predictor: str, phase: str = "frontend",
+                      **kw) -> dict:
+    """One Svc.infer on the card (``kw``: more of its arguments): wall, RTF
+    and its K1/K3 launches (6 and 4)."""
     before = _counts()
     wall, (audio, n_samples, n_frames) = _timed(
-        lambda: svc.infer(0, 0, wav, sr=svc.target_sample, f0_predictor=f0_predictor))
+        lambda: svc.infer(0, 0, wav, sr=svc.target_sample, f0_predictor=f0_predictor, **kw))
     got = {k: v - before[k] for k, v in _counts().items()}
     seconds = len(wav) / svc.target_sample
     ok = (n_samples == n_frames * svc.hop_size == len(wav) // svc.hop_size * svc.hop_size
           and np.isfinite(audio).all() and float(np.abs(audio).max()) > 1e-4
           and got["rel_attention"] == 6 and got["resblock_trio"] == 4
           and all(v == 0 for k, v in got.items() if k not in ("rel_attention", "resblock_trio")))
-    log("frontend", request=repr(what), f0=f0_predictor, encoder=svc.encoder.name, frames=n_frames,
+    log(phase, request=repr(what), f0=f0_predictor, encoder=svc.encoder.name, frames=n_frames,
         wall_s=f"{wall:.4f}", rtf=f"{wall / seconds:.5f}", rel_attention=got["rel_attention"],
         resblock_trio=got["resblock_trio"], peak=f"{np.abs(audio).max():.4f}", ok=ok)
     if not ok:
-        raise AssertionError(f"[frontend] {what}: bad output or launches {got} (want 6 and 4)")
+        raise AssertionError(f"[{phase}] {what}: bad output or launches {got} (want 6 and 4)")
     return {"wall_s": wall, "rtf": wall / seconds}
 
 
@@ -1707,84 +1799,346 @@ def frontend_f0_nets(svc) -> None:
         torch.cuda.empty_cache()
 
 
-def frontend_encoders(tmp: Path) -> None:
-    """Each new encoder at its full width, seeded, written in its
-    checkpoint's layout and loaded by get_speech_encoder on the card and on
-    the CPU: the units of a 3 s clip card against CPU (UNITS_REL of their
-    peak) and the encode seconds of 10 s; then a full-width default model
-    with the encoder's ssl_dim: a warm-up and a 10 s request (K1/K3 6/4),
-    and a 3 s request card against CPU with noise off (log-mel L1 < 1e-3)."""
+def encoder_checks(tmp: Path, name: str, write, phase: str) -> dict:
+    """One encoder at its full width, seeded and written by ``write(name,
+    path)`` in its checkpoint's layout, loaded by get_speech_encoder on the
+    card and on the CPU: the units of a 3 s clip card against CPU
+    (UNITS_REL of their peak) and the encode seconds of 10 s (after a
+    warm-up), with the net's GFLOP on that input beside the fp32 bound;
+    then a full-width default model with the encoder's ssl_dim: a warm-up
+    and a 10 s request (K1/K3 6/4), and a 3 s request card against CPU with
+    noise off (log-mel L1 < 1e-3). Returns the 10 s request's numbers."""
     from sovits_tpu_torch import config as scfg
     from sovits_tpu_torch.dsp.audio import resample
     from sovits_tpu_torch.dsp.stft import mel_spectrogram
     from sovits_tpu_torch.encoders.factory import get_speech_encoder
 
+    work = tmp / phase / name
+    path = work / f"{name}.pt"
+    t0 = time.perf_counter()
+    write(name, path)
+    card, host = (get_speech_encoder(name, path, device=d) for d in ("cuda", "cpu"))
+    load_s = time.perf_counter() - t0
+    path.unlink()
+    hps = scfg.default_config(**{"model.ssl_dim": card.hidden_dim, "model.speech_encoder": name})
+    sr = hps.data.sampling_rate
+    clip3, long_clip = bench_signal(3.0, sr, seed=5), bench_signal(SECONDS, sr)
+    wav16 = resample(clip3, sr, 16000)
+    t0 = time.perf_counter()
+    units = [e.encode(wav16) for e in (card, host)]
+    units_s = time.perf_counter() - t0
+    rel = float(np.abs(units[0] - units[1]).max() / np.abs(units[1]).max())
+    long16 = resample(long_clip, sr, 16000)
+    card.encode(long16)
+    encode_s, _ = _timed(lambda: card.encode(long16))
+    net_input = torch.from_numpy(card.prepare(long16)[0][None]).cuda()
+    net_s, _ = _timed(lambda: card.net(net_input))
+    gflop = _gflop(lambda: card.net(net_input))
+    frames = len(wav16) // 320 if name.startswith("whisper") else (len(wav16) + 2 * card.pad - 400) // 320 + 1
+    ok = units[0].shape == (frames, card.hidden_dim) and np.isfinite(units[0]).all() and rel <= UNITS_REL
+    log(phase, encoder=name, params_m=f"{sum(p.numel() for p in card.net.parameters()) / 1e6:.1f}",
+        write_and_load_s=f"{load_s:.2f}", units_shape=units[0].shape, units_rel_max_abs=f"{rel:.3e}",
+        limit=UNITS_REL, card_and_cpu_3s_s=f"{units_s:.2f}", encode_10s_s=f"{encode_s:.4f}",
+        net_s=f"{net_s:.4f}", gflop=f"{gflop:.1f}", fp32_bound_ms=f"{gflop * 1e12 / FP32_FLOPS:.2f}",
+        ok=ok)
+    if not ok:
+        raise AssertionError(f"[{phase}] {name}: units {units[0].shape}, card vs CPU {rel}")
+    svc = build_svc(work, "cuda", encoder=card, hps=hps)
+    if svc.model.pre.in_channels != card.hidden_dim:
+        raise AssertionError(f"[{phase}] {name}: the synthesizer takes {svc.model.pre.in_channels}")
+    _frontend_request(svc, long_clip, "10s warm-up", "dio", phase)
+    request = _frontend_request(svc, long_clip, "10s", "dio", phase)
+    cpu_svc = build_svc(work, "cpu", encoder=host)
+    outs = [s._run_synth_batch([s._prepare_chunk(0, 0, clip3, sr, 0.0, False, "dio", 0.05)], 0.0,
+                               False, 52468, sample_noise=False)[0] for s in (svc, cpu_svc)]
+    mels = [mel_spectrogram(torch.from_numpy(a)[None]) for a in outs]
+    l1 = (mels[0] - mels[1]).abs().mean().item()
+    log(phase, encoder=name, what="3 s request card vs CPU (encoder and synthesizer), noise off",
+        max_abs=f"{np.abs(outs[0] - outs[1]).max():.3e}", mel_l1=f"{l1:.3e}", limit=1e-3, ok=l1 < 1e-3)
+    if not l1 < 1e-3:
+        raise AssertionError(f"[{phase}] {name}: card and CPU disagree: log-mel L1 {l1}")
+    del svc, cpu_svc, card, host
+    torch.cuda.empty_cache()
+    return dict(request, encode_s=encode_s)
+
+
+def frontend_encoders(tmp: Path) -> None:
+    """``encoder_checks`` for each new wav2vec2-family encoder."""
     for name in NEW_ENCODERS:
-        work = tmp / "frontend" / name
-        path = work / f"{name}.pt"
-        t0 = time.perf_counter()
-        write_encoder_checkpoint(name, path)
-        card, host = (get_speech_encoder(name, path, device=d) for d in ("cuda", "cpu"))
-        load_s = time.perf_counter() - t0
-        hps = scfg.default_config(**{"model.ssl_dim": card.hidden_dim, "model.speech_encoder": name})
-        sr = hps.data.sampling_rate
-        clip3, long_clip = bench_signal(3.0, sr, seed=5), bench_signal(SECONDS, sr)
-        wav16 = resample(clip3, sr, 16000)
-        units = [e.encode(wav16) for e in (card, host)]
-        rel = float(np.abs(units[0] - units[1]).max() / np.abs(units[1]).max())
-        long16 = resample(long_clip, sr, 16000)
-        card.encode(long16)
-        encode_s, _ = _timed(lambda: card.encode(long16))
-        ok = units[0].shape == ((len(wav16) + 2 * card.pad - 400) // 320 + 1, card.hidden_dim) and rel <= UNITS_REL
-        log("frontend", encoder=name, params_m=f"{sum(p.numel() for p in card.net.parameters()) / 1e6:.1f}",
-            write_and_load_s=f"{load_s:.2f}", units_shape=units[0].shape,
-            units_rel_max_abs=f"{rel:.3e}", limit=UNITS_REL, encode_10s_s=f"{encode_s:.4f}", ok=ok)
-        if not ok:
-            raise AssertionError(f"[frontend] {name}: units {units[0].shape}, card vs CPU {rel}")
-        svc = build_svc(work, "cuda", encoder=card, hps=hps)
-        if svc.model.pre.in_channels != card.hidden_dim:
-            raise AssertionError(f"[frontend] {name}: the synthesizer takes {svc.model.pre.in_channels}")
-        _frontend_request(svc, long_clip, "10s warm-up", "dio")
-        _frontend_request(svc, long_clip, "10s", "dio")
-        cpu_svc = build_svc(work, "cpu", encoder=host)
-        outs = [s._run_synth_batch([s._prepare_chunk(0, 0, clip3, sr, 0.0, False, "dio", 0.05)], 0.0,
-                                   False, 52468, sample_noise=False)[0] for s in (svc, cpu_svc)]
-        mels = [mel_spectrogram(torch.from_numpy(a)[None]) for a in outs]
-        l1 = (mels[0] - mels[1]).abs().mean().item()
-        log("frontend", encoder=name, what="3 s request card vs CPU (encoder and synthesizer), noise off",
-            max_abs=f"{np.abs(outs[0] - outs[1]).max():.3e}", mel_l1=f"{l1:.3e}", limit=1e-3,
-            ok=l1 < 1e-3)
-        if not l1 < 1e-3:
-            raise AssertionError(f"[frontend] {name}: card and CPU disagree: log-mel L1 {l1}")
-        del svc, cpu_svc, card, host
-        torch.cuda.empty_cache()
+        encoder_checks(tmp, name, write_encoder_checkpoint, "frontend")
 
 
 def phase_frontend(tmp: Path, svc) -> dict:
     """The front end of a request on the card (``frontend_f0_nets``, then
     ``frontend_encoders``) under a hard time limit of FRONTEND_LIMIT_S.
     Returns the K1/K3 launches of the phase's requests."""
-    import signal
-
-    def over(*_):
-        raise TimeoutError(f"[frontend] over its {FRONTEND_LIMIT_S} s limit")
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_phase = time.perf_counter()
-    previous = signal.signal(signal.SIGALRM, over)
-    signal.alarm(FRONTEND_LIMIT_S)
-    try:
+
+    def run():
         _reset_counts()
         frontend_f0_nets(svc)
         f0_s = time.perf_counter() - t_phase
         frontend_encoders(tmp)
-        counts = _counts()
+        return _counts(), f0_s
+
+    counts, f0_s = _limited("frontend", FRONTEND_LIMIT_S, run)
+    log("frontend", phase_s=f"{time.perf_counter() - t_phase:.1f}", f0_nets_s=f"{f0_s:.1f}",
+        limit_s=FRONTEND_LIMIT_S, launches=counts)
+    return counts
+
+
+def _limited(phase: str, limit_s: int, fn):
+    """fn() under a hard time limit (SIGALRM): a phase over it raises."""
+    import signal
+
+    def over(*_):
+        raise TimeoutError(f"[{phase}] over its {limit_s} s limit")
+
+    previous = signal.signal(signal.SIGALRM, over)
+    signal.alarm(limit_s)
+    try:
+        return fn()
     finally:
         signal.alarm(0)
         signal.signal(signal.SIGALRM, previous)
-    log("frontend", phase_s=f"{time.perf_counter() - t_phase:.1f}", f0_nets_s=f"{f0_s:.1f}",
-        limit_s=FRONTEND_LIMIT_S, launches=counts)
+
+
+def phase_encoders(tmp: Path) -> dict:
+    """whisper-ppg, whisper-ppg-large, wavlmbase+ and dphubert at their
+    published widths (``encoder_checks``; DPHuBERT's widths: DPHUBERT_CFG)
+    under a hard limit of ENCODERS_LIMIT_S. Returns the K1/K3 launches of
+    the phase's requests."""
+    t_phase = time.perf_counter()
+
+    def run():
+        _reset_counts()
+        for name in PPG_ENCODERS:
+            encoder_checks(tmp, name, write_ppg_checkpoint, "encoders")
+        return _counts()
+
+    counts = _limited("encoders", ENCODERS_LIMIT_S, run)
+    log("encoders", phase_s=f"{time.perf_counter() - t_phase:.1f}", limit_s=ENCODERS_LIMIT_S,
+        launches=counts)
+    return counts
+
+
+# [cluster]: one speaker's hour of units at 50 frames/s, so-vits-svc's
+# train_cluster.py defaults (10 000 centers, 50 iterations)
+CLUSTER_N, CLUSTER_D, CLUSTER_K, CLUSTER_ITERS = 180_000, 768, 10_000, 50
+CLUSTER_LIMIT_S = 300
+NEAREST_REL = 1e-5  # a point's distance to its assigned center over its float64 nearest, excess / (|x|^2 + |c|^2)
+INERTIA_REL = 1e-6  # a Lloyd step's inertia may exceed the last one's by summation order only
+TIE_REL = 1e-5  # a deciding gap narrower than this x the row's distance scale is a near-tie
+
+
+def cluster_units(seed: int = 3) -> torch.Tensor:
+    """[CLUSTER_N, CLUSTER_D] seeded units on the card: 2000 gaussian
+    clusters (centers N(0, 1), spread 0.5), with unit-scale rows as
+    LayerNorm-ed encoder units have."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    modes = torch.randn(2000, CLUSTER_D, generator=g, device="cuda")
+    pick = torch.randint(2000, (CLUSTER_N,), generator=g, device="cuda")
+    return modes[pick] + 0.5 * torch.randn(CLUSTER_N, CLUSTER_D, generator=g, device="cuda")
+
+
+def _float64_dists(x: torch.Tensor, centers: torch.Tensor, rows: int = 20_000):
+    """Yields (first row, the float64 squared distances of ``rows`` rows of
+    x to every center) over x."""
+    c = centers.double()
+    c2 = (c * c).sum(1)
+    for start in range(0, x.shape[0], rows):
+        xs = x[start : start + rows].double()
+        yield start, (xs * xs).sum(1, keepdim=True) + c2[None] - 2.0 * xs @ c.T
+
+
+def _decided(d64: torch.Tensor, rank: int) -> torch.Tensor:
+    """Rows whose rank-th and (rank+1)-th smallest float64 distances lie more
+    than TIE_REL x the row's largest distance apart."""
+    s = torch.topk(d64, rank + 1, dim=1, largest=False).values
+    return s[:, rank] - s[:, rank - 1] > TIE_REL * d64.abs().amax(1)
+
+
+def cluster_fit(x: torch.Tensor) -> torch.Tensor:
+    """kmeans_fit's two stages on the card, timed, with their GFLOP; checks
+    that every point is assigned to its nearest final center (float64) and
+    that the inertia never rises."""
+    from sovits_tpu_torch.cluster import kmeans
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    init_s, init = _timed(lambda: kmeans.kmeans_plus_plus_init(x, CLUSTER_K, gen))
+    lloyd_s, (centers, inertia) = _timed(lambda: kmeans.lloyd(x, init, CLUSTER_ITERS))
+    n, d, k = CLUSTER_N, CLUSTER_D, CLUSTER_K
+    init_gflop = 2 * n * d * k / 1e9  # a matrix-vector product a seed
+    lloyd_gflop = CLUSTER_ITERS * 2 * n * d * k / 1e9  # one [N, D] x [D, K] product a step
+    assign = kmeans.kmeans_predict(x, centers)
+    worst, moved = 0.0, 0
+    for start, d64 in _float64_dists(x, centers):
+        a = assign[start : start + d64.shape[0]]
+        excess = d64.gather(1, a[:, None])[:, 0] - d64.amin(1)
+        scale = (x[start : start + d64.shape[0]].double() ** 2).sum(1) + (centers[a].double() ** 2).sum(1)
+        worst = max(worst, float((excess / scale).max()))
+        moved += int((excess > 0).sum())
+    inertia = inertia.cpu().numpy()
+    rises = np.diff(inertia) / inertia[:-1]
+    ok = (worst <= NEAREST_REL and rises.max() <= INERTIA_REL and bool(torch.isfinite(centers).all()))
+    log("cluster", what=f"kmeans_fit N {n} D {d} K {k}, {CLUSTER_ITERS} Lloyd steps, fp32 (TF32 off)",
+        init_s=f"{init_s:.3f}", init_gflop=f"{init_gflop:.1f}", lloyd_s=f"{lloyd_s:.3f}",
+        lloyd_gflop=f"{lloyd_gflop:.1f}", lloyd_tflops=f"{lloyd_gflop / lloyd_s / 1e3:.2f}",
+        lloyd_fp32_bound_s=f"{lloyd_gflop * 1e9 / FP32_FLOPS:.3f}",
+        empty_clusters=int((torch.bincount(assign, minlength=k) == 0).sum()),
+        inertia_first=f"{inertia[0]:.6e}", inertia_last=f"{inertia[-1]:.6e}",
+        inertia_max_rise_rel=f"{rises.max():.3e}", inertia_limit=INERTIA_REL,
+        assigned_not_float64_nearest=moved, worst_excess_rel=f"{worst:.3e}", limit=NEAREST_REL, ok=ok)
+    if not ok:
+        raise AssertionError(f"[cluster] k-means: nearest {worst}, inertia rise {rises.max()}")
+    return centers
+
+
+def cluster_blends_card_vs_cpu(units: np.ndarray, centers: torch.Tensor, bank: torch.Tensor) -> None:
+    """nearest_centers and blend_retrieval of a 10 s request's units, card
+    against CPU: indices equal on the rows whose deciding gap is not a
+    near-tie (float64 distances), the blend within UNITS_REL of its peak."""
+    from sovits_tpu_torch.cluster import kmeans, store
+
+    u = torch.from_numpy(units).cuda()
+    for kind, table, rank in (("kmeans", centers, 1), ("retrieval", bank, 8)):
+        (d64,) = [d for _, d in _float64_dists(u, table, rows=len(units))]
+        decided = _decided(d64, rank).cpu().numpy()
+        if kind == "kmeans":
+            got = [kmeans.kmeans_predict(u, table).cpu().numpy(),
+                   kmeans.kmeans_predict(u.cpu(), table.cpu()).numpy()]
+            out = [kmeans.nearest_centers(u, table).cpu().numpy(),
+                   kmeans.nearest_centers(u.cpu(), table.cpu()).numpy()]
+        else:
+            got = [torch.topk(kmeans._sq_dists(v, t), 8, dim=1, largest=False).indices.sort(1).values
+                   .cpu().numpy() for v, t in ((u, table), (u.cpu(), table.cpu()))]
+            out = [store.blend_retrieval(u, table).cpu().numpy(),
+                   store.blend_retrieval(u.cpu(), table.cpu()).numpy()]
+        same = (got[0] == got[1]).reshape(len(units), -1).all(1)
+        rel = float(np.abs(out[0] - out[1])[decided].max() / np.abs(out[1]).max())
+        blend_s, _ = _timed(lambda: (kmeans.nearest_centers(u, table) if kind == "kmeans"
+                                     else store.blend_retrieval(u, table)))
+        ok = bool(same[decided].all()) and rel <= UNITS_REL
+        log("cluster", what=f"{kind} replacement of a 10 s request's units, card vs CPU",
+            rows=len(units), near_ties_excluded=int((~decided).sum()), indices_equal=int(same[decided].sum()),
+            rel_max_abs=f"{rel:.3e}", limit=UNITS_REL, card_s=f"{blend_s:.4f}", ok=ok)
+        if not ok:
+            raise AssertionError(f"[cluster] {kind}: card and CPU disagree off near-ties ({rel})")
+
+
+def cluster_train_cli(tmp: Path) -> None:
+    """``python -m sovits_tpu_torch.cli.train_cluster`` on the card over a
+    small dataset of two speakers' .soft.npy units ([H, T])."""
+    from sovits_tpu_torch.cli import train_cluster
+    from sovits_tpu_torch.cluster import load_cluster_model
+
+    rng = np.random.default_rng(4)
+    data = tmp / "cluster" / "dataset"
+    for spk in ("alto", "tenor"):
+        (data / spk).mkdir(parents=True)
+        for i in range(3):
+            np.save(data / spk / f"clip{i}.wav.soft.npy", rng.standard_normal((CLUSTER_D, 400)).astype(np.float32))
+    out = tmp / "cluster" / "kmeans_64.npz"
+    wall, _ = _timed(lambda: train_cluster.main(["--dataset", str(data), "--output", str(out),
+                                                 "--n_clusters", "64"]))
+    model = load_cluster_model(out, device="cpu")
+    ok = (not model.retrieval and set(model.per_speaker) == {"alto", "tenor"}
+          and all(v.shape == (64, CLUSTER_D) and bool(torch.isfinite(v).all()) for v in model.per_speaker.values()))
+    log("cluster", what="train_cluster CLI, 2 speakers x 1200 frames, 64 centers", wall_s=f"{wall:.2f}", ok=ok)
+    if not ok:
+        raise AssertionError("[cluster] train_cluster wrote a bad model")
+
+
+def cluster_cli(tmp: Path, model_path: Path) -> None:
+    """The infer CLI with -cm -cr 0.5 -fr, from the directory phase_cli
+    prepared (its encoder checkpoint and 12 s song)."""
+    import os
+
+    from scipy.io import wavfile
+
+    from sovits_tpu_torch.cli import infer as cli
+
+    work = tmp / "cli"
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        wall, _ = _timed(lambda: cli.main(["-m", str(tmp / "G_0.pth"), "-c", str(tmp / "config.json"),
+                                           "-n", "song.wav", "-f0p", "dio", "-cm", str(model_path),
+                                           "-cr", "0.5", "-fr"]))
+    finally:
+        os.chdir(cwd)
+    out_sr, audio = wavfile.read(work / "results" / "song_0key_0_sovits_dio.wav")
+    ok = len(audio) > 0 and np.abs(audio).max() > 0
+    log("cluster", what="infer CLI -cm -cr 0.5 -fr", samples=len(audio), wall_s=f"{wall:.2f}", ok=ok)
+    if not ok:
+        raise AssertionError("[cluster] the CLI with a cluster model wrote no audio")
+
+
+def phase_cluster(tmp: Path, svc) -> dict:
+    """k-means and retrieval at so-vits-svc's size for one speaker, on the
+    card: ``cluster_fit``; a retrieval bank of the same rows; the blends
+    card against CPU; 10 s requests through Svc at ratio 0.5 on the k-means
+    .npz, on a kmeans_10000.pt dict and by retrieval (K1/K3 6/4, the
+    blend's seconds); a 3 s request card against CPU, noise off; the
+    train_cluster and infer CLIs. Under CLUSTER_LIMIT_S. Returns the K1/K3
+    launches of the phase's requests."""
+    from sovits_tpu_torch.cluster import ClusterModel
+    from sovits_tpu_torch.cluster.store import save_cluster_model
+    from sovits_tpu_torch.dsp.stft import mel_spectrogram
+
+    t_phase = time.perf_counter()
+
+    def run():
+        work = tmp / "cluster"
+        work.mkdir(parents=True, exist_ok=True)
+        x = cluster_units()
+        centers = cluster_fit(x)
+        files = {"kmeans.npz": work / "kmeans_10000.npz", "kmeans_10000.pt": work / "kmeans_10000.pt",
+                 "retrieval.npz": work / "retrieval.npz"}
+        save_cluster_model(ClusterModel({"0": centers}, False), files["kmeans.npz"])
+        torch.save({"0": {"cluster_centers_": centers.cpu().numpy()}}, files["kmeans_10000.pt"])
+        save_cluster_model(ClusterModel({"0": x}, True), files["retrieval.npz"])
+        sr = svc.target_sample
+        long_clip, clip3 = bench_signal(SECONDS, sr), bench_signal(3.0, sr, seed=5)
+        units, _, _ = svc.get_unit_f0(long_clip, 0, 0.0, 0, f0_predictor="dio")
+        cluster_blends_card_vs_cpu(units, centers, x)
+        del x
+        _reset_counts()
+        for what, path, retrieval in (("k-means .npz", files["kmeans.npz"], False),
+                                      ("kmeans_10000.pt", files["kmeans_10000.pt"], False),
+                                      ("retrieval .npz", files["retrieval.npz"], True)):
+            csvc = build_svc(tmp, "cuda", encoder=svc.encoder, cluster_model_path=str(path),
+                             feature_retrieval=retrieval)
+            csvc.f0_predictor_object = svc.f0_predictor_object
+            _frontend_request(csvc, long_clip, f"10s warm-up, {what}", "dio", "cluster", cluster_infer_ratio=0.5)
+            _frontend_request(csvc, long_clip, f"10s, {what}", "dio", "cluster", cluster_infer_ratio=0.5)
+            blend_s, _ = _timed(lambda: csvc.cluster.blend(units, 0, 0.5, csvc.spk2id, retrieval=retrieval))
+            log("cluster", what=f"blend of the 10 s request's units, {what}", rows=len(units),
+                bank_rows=csvc.cluster.per_speaker["0"].shape[0], blend_s=f"{blend_s:.4f}")
+            if what == "retrieval .npz":
+                cpu_svc = build_svc(tmp, "cpu", encoder=svc.encoder, cluster_model_path=str(path),
+                                    feature_retrieval=True)
+                outs = [s._run_synth_batch([s._prepare_chunk(0, 0, clip3, sr, 0.5, False, "dio", 0.05)],
+                                           0.0, False, 52468, sample_noise=False)[0] for s in (csvc, cpu_svc)]
+                mels = [mel_spectrogram(torch.from_numpy(a)[None]) for a in outs]
+                l1 = (mels[0] - mels[1]).abs().mean().item()
+                log("cluster", what="3 s request at ratio 0.5 by retrieval, card vs CPU, noise off",
+                    max_abs=f"{np.abs(outs[0] - outs[1]).max():.3e}", mel_l1=f"{l1:.3e}", limit=1e-3,
+                    ok=l1 < 1e-3)
+                if not l1 < 1e-3:
+                    raise AssertionError(f"[cluster] card and CPU disagree: log-mel L1 {l1}")
+                del cpu_svc
+            del csvc
+            torch.cuda.empty_cache()
+        cluster_cli(tmp, files["retrieval.npz"])
+        counts = _counts()
+        cluster_train_cli(tmp)
+        return counts
+
+    counts = _limited("cluster", CLUSTER_LIMIT_S, run)
+    log("cluster", phase_s=f"{time.perf_counter() - t_phase:.1f}", limit_s=CLUSTER_LIMIT_S, launches=counts)
     return counts
 
 
@@ -2282,6 +2636,7 @@ KERNELS = {  # JSON name: (source, TPU kernel it replaces)
 
 
 def main() -> None:
+    t_smoke = time.perf_counter()
     name = phase_device()
     phase_build()
     errs = phase_parity()
@@ -2293,6 +2648,8 @@ def main() -> None:
         configs32, configs16 = phase_configs(Path(tmp), svc, svc16)
         diffusion32, diffusion16 = phase_diffusion(Path(tmp), svc, svc16)
         frontend = phase_frontend(Path(tmp), svc)
+        encoders = phase_encoders(Path(tmp))
+        cluster = phase_cluster(Path(tmp), svc)
         del svc16
         train, hps = phase_train(Path(tmp), svc.encoder)
         fused_tail = phase_train_fused_tail(hps)
@@ -2305,6 +2662,7 @@ def main() -> None:
         "rel_attention": {"infer": infer["rel_attention"], "slice": slice32["rel_attention"],
                           "configs": configs32["rel_attention"],
                           "diffusion": diffusion32["rel_attention"], "frontend": frontend["rel_attention"],
+                          "encoders": encoders["rel_attention"], "cluster": cluster["rel_attention"],
                           "train": train["rel_attention"],
                           "train_fused_tail": fused_tail["rel_attention"]},
         "rel_attention_bf16": {"infer_bf16": infer_bf16["rel_attention_bf16"],
@@ -2318,6 +2676,7 @@ def main() -> None:
                           "configs": configs32["resblock_trio"],
                           "diffusion": diffusion32["resblock_trio"],
                           "diffusion_bf16": diffusion16["resblock_trio"], "frontend": frontend["resblock_trio"],
+                          "encoders": encoders["resblock_trio"], "cluster": cluster["resblock_trio"],
                           "train_fused_tail": fused_tail["resblock_trio"]},
         "resblock_trio_bf16": {"infer_bf16": infer_bf16["resblock_trio_bf16"],
                                "slice_bf16": slice16["resblock_trio_bf16"],
@@ -2326,6 +2685,7 @@ def main() -> None:
         **{key: {"microbench": r["launches"]} for key, r in k4.items()},
     }
     bound = bounds()
+    log("smoke", seconds=f"{time.perf_counter() - t_smoke:.1f}")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(paths[k].values()), "launches_by_path": paths[k], "max_abs_err": errs[k],

@@ -13,9 +13,10 @@ encoding of the synthesizer's audio), ``-od`` diffuses from the input alone,
 ``-eh`` re-vocodes through the NSF-HiFiGAN enhancer (``-eak`` its key).
 ``-f0p crepe/rmvpe/fcpe`` reach ``get_f0_predictor`` as in the JAX CLI,
 which has no flag for their weights: without them the first chunk raises
-FileNotFoundError. Flags for what the port does not run (cluster and
-feature retrieval, the sequence-sharded decode) stop the program, naming
-the flag, before any model loads.
+FileNotFoundError. ``-cm`` names a cluster model (``-cr`` the blend ratio,
+``-fr`` feature retrieval), passed to ``Svc`` as the JAX CLI passes it. The
+one flag for what the port does not run, the sequence-sharded decode
+(``-ss``), stops the program before any model loads.
 """
 
 from __future__ import annotations
@@ -73,14 +74,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def unsupported(args) -> list[str]:
     """The flags in ``args`` that ask for what the port does not run."""
-    asked = [
-        ("-fr/--feature_retrieval", args.feature_retrieval),
-        ("-cm/--cluster_model_path", bool(args.cluster_model_path)
-         and Path(args.cluster_model_path).exists()),
-        ("-cr/--cluster_infer_ratio", args.cluster_infer_ratio != 0),
-        ("-ss/--seq_shard", args.seq_shard != 0),
-    ]
-    return [flag for flag, on in asked if on]
+    return ["-ss/--seq_shard"] if args.seq_shard != 0 else []
 
 
 def main(argv=None):
@@ -91,7 +85,8 @@ def main(argv=None):
         raise SystemExit("not supported by the port: " + ", ".join(bad))
 
     diffusion = args.shallow_diffusion or args.only_diffusion
-    svc = Svc(args.model_path, args.config_path, shallow_diffusion=args.shallow_diffusion,
+    svc = Svc(args.model_path, args.config_path, cluster_model_path=args.cluster_model_path or None,
+              feature_retrieval=args.feature_retrieval, shallow_diffusion=args.shallow_diffusion,
               only_diffusion=args.only_diffusion,
               diffusion_model_path=args.diffusion_model_path if diffusion else None,
               diffusion_config_path=args.diffusion_config_path, nsf_hifigan_enhance=args.enhance,

@@ -8,7 +8,10 @@ multi_period_discriminator`` (weight-normed); ``unit2mel`` of
 ``from_torch.py::unit2mel`` (the diffusion model), and ``generator`` with no
 ``cond`` of ``nsf_hifigan_generator`` for a standalone vocoder. ``wav2vec2`` is the
 inverse of ``sovits_tpu/encoders/convert.py::from_fairseq_hubert``: flax
-Wav2Vec2Encoder params -> a fairseq HuBERT state_dict. ``rmvpe``, ``fcpe``
+Wav2Vec2Encoder params -> a fairseq HuBERT state_dict; ``whisper``, ``wavlm``
+and ``dphubert`` are the inverses of the JAX encoders' converters
+(``convert_whisper_encoder``, ``convert_wavlm_state_dict``,
+``convert_dphubert_state_dict``) into each checkpoint's names. ``rmvpe``, ``fcpe``
 and ``crepe`` are the inverses of the JAX f0 nets' ``convert_*_state_dict``:
 flax params (and batch stats) -> the published checkpoints' state_dicts.
 Values come back as numpy arrays; load them with ``{k: torch.from_numpy(v)}``.
@@ -326,6 +329,94 @@ def wav2vec2(params: dict, cfg) -> dict:
             sd[pre + f"{torch_name}.bias"] = _np(lp[name]["bias"])
     if "final_proj" in params:
         _put(sd, "final_proj.", linear(params["final_proj"]))
+    return sd
+
+
+def _ln(p: dict) -> dict:
+    return {"weight": _np(p["scale"]), "bias": _np(p["bias"])}
+
+
+def _pos_conv(kernel, g, bias) -> dict:
+    """A weight-normed positional conv, norm over dim 2: g (kw,) -> (1, 1, kw)."""
+    return {"weight_v": _np(np.transpose(kernel, (2, 1, 0))),
+            "weight_g": _np(np.asarray(g).reshape(1, 1, -1)), "bias": _np(bias)}
+
+
+def whisper(params: dict) -> dict:
+    """flax WhisperAudioEncoder params -> openai-whisper's ``encoder.*``
+    state_dict (numpy; the inverse of ``sovits_tpu/encoders/whisper.py::
+    convert_whisper_encoder``), without the positional embedding, which
+    both packages recompute."""
+    sd: dict = {}
+    for name in ("conv1", "conv2"):
+        _put(sd, f"encoder.{name}.", conv1d(params[name]))
+    _put(sd, "encoder.ln_post.", _ln(params["ln_post"]))
+    for i in range(_count(params, "block_")):
+        bp, pre = params[f"block_{i}"], f"encoder.blocks.{i}."
+        for name in ("query", "key", "value", "out"):
+            _put(sd, f"{pre}attn.{name}.", linear(bp["attn"][name]))
+        _put(sd, pre + "attn_ln.", _ln(bp["attn_ln"]))
+        _put(sd, pre + "mlp_ln.", _ln(bp["mlp_ln"]))
+        _put(sd, pre + "mlp.0.", linear(bp["fc1"]))
+        _put(sd, pre + "mlp.2.", linear(bp["fc2"]))
+    return sd
+
+
+def wavlm(params: dict, dims) -> dict:
+    """flax WavLMEncoder params -> a WavLM ``model`` state_dict (numpy; the
+    inverse of ``sovits_tpu/encoders/wavlm.py::convert_wavlm_state_dict``):
+    fairseq's trunk names, ``self_attn.grep_linear`` / ``grep_a`` per layer
+    and layer 0's ``relative_attention_bias``."""
+    fe = params["feature_extractor"]
+    sd: dict = {}
+    for i in range(_count(fe, "conv_")):
+        sd[f"feature_extractor.conv_layers.{i}.0.weight"] = _np(np.transpose(fe[f"conv_{i}"]["kernel"], (2, 1, 0)))
+    _put(sd, "feature_extractor.conv_layers.0.2.", _ln(fe["group_norm"]))
+    _put(sd, "layer_norm.", _ln(params["feat_norm"]))
+    _put(sd, "post_extract_proj.", linear(params["feat_proj"]))
+    pc = params["pos_conv"]
+    _put(sd, "encoder.pos_conv.0.", _pos_conv(pc["kernel"], pc["g_k"], pc["bias"]))
+    _put(sd, "encoder.layer_norm.", _ln(params["encoder_norm"]))
+    sd["encoder.layers.0.self_attn.relative_attention_bias.weight"] = _np(params["rel_attn_bias"])
+    for i in range(dims.n_layers):
+        lp, pre = params[f"layer_{i}"], f"encoder.layers.{i}."
+        att = lp["self_attn"]
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj", "grep_linear"):
+            _put(sd, f"{pre}self_attn.{name}.", linear(att[name]))
+        sd[pre + "self_attn.grep_a"] = _np(att["grep_a"])
+        for name in ("self_attn_layer_norm", "final_layer_norm"):
+            _put(sd, f"{pre}{name}.", _ln(lp[name]))
+        _put(sd, pre + "fc1.", linear(lp["fc1"]))
+        _put(sd, pre + "fc2.", linear(lp["fc2"]))
+    return sd
+
+
+def dphubert(params: dict, cfg: dict) -> dict:
+    """flax DPHubertEncoder params -> a DPHuBERT ``state_dict`` (numpy; the
+    inverse of ``sovits_tpu/encoders/dphubert.py::convert_dphubert_state_dict``):
+    torchaudio's wav2vec2 names, a pruned layer without its attention or
+    feed-forward entries."""
+    sd: dict = {}
+    for i in range(len(cfg["extractor_conv_layer_config"])):
+        _put(sd, f"feature_extractor.conv_layers.{i}.conv.", conv1d(params[f"conv_{i}"]))
+    if "group_norm" in params:
+        _put(sd, "feature_extractor.conv_layers.0.layer_norm.", _ln(params["group_norm"]))
+    _put(sd, "encoder.feature_projection.layer_norm.", _ln(params["proj_norm"]))
+    _put(sd, "encoder.feature_projection.projection.", linear(params["proj"]))
+    _put(sd, "encoder.transformer.pos_conv_embed.conv.",
+         _pos_conv(params["pos_kernel"], params["pos_g"], params["pos_bias"]))
+    _put(sd, "encoder.transformer.layer_norm.", _ln(params["encoder_norm"]))
+    for i in range(cfg["encoder_num_layers"]):
+        pre = f"encoder.transformer.layers.{i}."
+        if f"l{i}_q" in params:
+            for name, torch_name in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                                     ("out", "out_proj")):
+                _put(sd, f"{pre}attention.{torch_name}.", linear(params[f"l{i}_{name}"]))
+        _put(sd, pre + "layer_norm.", _ln(params[f"l{i}_ln1"]))
+        if f"l{i}_fc1" in params:
+            _put(sd, pre + "feed_forward.intermediate_dense.", linear(params[f"l{i}_fc1"]))
+            _put(sd, pre + "feed_forward.output_dense.", linear(params[f"l{i}_fc2"]))
+        _put(sd, pre + "final_layer_norm.", _ln(params[f"l{i}_ln2"]))
     return sd
 
 

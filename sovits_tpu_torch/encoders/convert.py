@@ -5,6 +5,14 @@ The port's encoder carries fairseq HuBERT names, so a fairseq checkpoint
 (ContentVec vec768l12 / vec256l9, chinese-hubert-large) loads as it is.
 ``from_bshall_hubert`` renames a bshall HuBERT-soft state_dict (the
 hubertsoft checkpoint, vencoder/hubert/hubert_model.py) onto those names.
+
+The other layouts need no renaming, only filtering: ``whisper.py``,
+``wavlm.py`` and ``dphubert.py`` carry openai-whisper's, WavLM's and
+torchaudio's names, and their loaders take the entries the encoder has
+from ``model_state_dict``, ``model`` and ``state_dict``. What they leave:
+whisper's decoder and its stored ``encoder.positional_embedding`` (both
+packages recompute it), WavLM's ``mask_emb`` and the like, DPHuBERT's
+auxiliary head.
 """
 
 from __future__ import annotations

@@ -6,7 +6,9 @@ and returns a zero-argument function that waits for the result. The four
 wav2vec2-family encoders share one topology (``wav2vec2.py``): vec768l12,
 vec256l9 (9 layers and a 256-wide final projection), hubertsoft (bshall's
 checkpoint layout, a 256-wide projection, 40 samples of padding either
-side) and cnhubertlarge (d 1024, 24 layers, 16 heads, FFN 4096).
+side) and cnhubertlarge (d 1024, 24 layers, 16 heads, FFN 4096). The
+other families have a module each: ``whisper.py`` (whisper-ppg, medium;
+whisper-ppg-large, large-v2), ``wavlm.py`` (wavlmbase+) and ``dphubert.py``.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch import nn
 
 from .convert import from_bshall_hubert
 from .wav2vec2 import Wav2Vec2Config, Wav2Vec2Encoder
@@ -32,28 +35,37 @@ CHECKPOINTS = {
     "vec256l9": "pretrain/checkpoint_best_legacy_500.pt",
     "hubertsoft": "pretrain/hubert-soft-0d54a1f4.pt",
     "cnhubertlarge": "pretrain/chinese-hubert-large-fairseq-ckpt.pt",
+    "whisper-ppg": "pretrain/medium.pt",
+    "whisper-ppg-large": "pretrain/large-v2.pt",
+    "wavlmbase+": "pretrain/WavLM-Base+.pt",
+    "dphubert": "pretrain/DPHuBERT-sp0.75.pth",
 }
 
 
 class SpeechEncoder:
     """``net`` on ``device``; ``pad`` zero samples go on either side of the
-    16 kHz input before it is bucketed."""
+    16 kHz input before it is bucketed. ``net.hidden_dim`` is the units'
+    width."""
 
-    def __init__(self, name: str, net: Wav2Vec2Encoder, device: torch.device | str, pad: int = 0):
+    def __init__(self, name: str, net: nn.Module, device: torch.device | str, pad: int = 0):
         self.name = name
         self.device = torch.device(device)
         self.net = net.to(self.device).eval()
-        self.hidden_dim = net.cfg.final_proj_dim or net.cfg.d_model
+        self.hidden_dim = net.hidden_dim
         self.pad = pad
 
-    def encode_async(self, wav16k: np.ndarray):
-        wav = np.pad(np.asarray(wav16k, dtype=np.float32), self.pad)
+    def prepare(self, wav: np.ndarray) -> tuple[np.ndarray, int]:
+        """The net's input for a float32 16 kHz clip, and the frames to keep."""
+        wav = np.pad(wav, self.pad)
         n_frames = (len(wav) - 400) // 320 + 1
         # pad to a whole number of seconds, as the JAX package buckets: the
         # padding is part of what the group norm and attention see, so the
         # units only match with the same padding
         bucket = int(np.ceil(len(wav) / 16000)) * 16000
-        wav = np.pad(wav, (0, bucket - len(wav)))
+        return np.pad(wav, (0, bucket - len(wav))), n_frames
+
+    def encode_async(self, wav16k: np.ndarray):
+        wav, n_frames = self.prepare(np.asarray(wav16k, dtype=np.float32))
         with torch.no_grad():
             out = self.net(torch.from_numpy(wav[None]).to(self.device))
         return lambda: out[0, :n_frames].float().cpu().numpy()
@@ -73,22 +85,38 @@ def load_fairseq_state_dict(path: str | Path) -> dict[str, torch.Tensor]:
 
 def get_speech_encoder(name: str, checkpoint_path: str | Path | None = None,
                        device: torch.device | str = "cuda") -> SpeechEncoder:
-    """Build ``name`` from its checkpoint (``CHECKPOINTS[name]`` when None):
-    fairseq's layout, or bshall's for hubertsoft.
+    """Build ``name`` from its checkpoint (``CHECKPOINTS[name]`` when None),
+    every encoder the JAX package builds: the wav2vec2 family (fairseq's
+    layout, or bshall's for hubertsoft), whisper-ppg and whisper-ppg-large
+    (openai-whisper's), wavlmbase+ (WavLM's) and dphubert (DPHuBERT's).
 
     The checkpoint's keys that the encoder does not use (``mask_emb``,
-    ``label_embs_concat``, an unused ``final_proj``, deeper layers) are
-    ignored; every key the encoder has must be present. A missing file
-    raises FileNotFoundError; the JAX package's other encoders
-    (whisper-ppg, wavlmbase+, dphubert, the onnx variants) raise
-    NotImplementedError.
+    ``label_embs_concat``, an unused ``final_proj``, deeper layers, whisper's
+    decoder) are ignored; every key the encoder has must be present. A
+    missing file raises FileNotFoundError, an ``-onnx`` variant
+    NotImplementedError and an unknown name ValueError, as in the JAX
+    package.
     """
-    if name not in CONFIGS:
-        raise NotImplementedError(f"speech encoder {name!r} is not supported by the port "
-                                  f"(available: {sorted(CONFIGS)})")
+    if name.endswith("-onnx"):
+        raise NotImplementedError(f"onnx encoder variants are not supported; use "
+                                  f"'{name.removesuffix('-onnx')}'")
+    if name not in CHECKPOINTS:
+        raise ValueError(f"unknown speech encoder {name!r} (available: {sorted(CHECKPOINTS)})")
     checkpoint_path = Path(checkpoint_path or CHECKPOINTS[name])
     if not checkpoint_path.exists():
         raise FileNotFoundError(f"speech-encoder checkpoint not found: {checkpoint_path}")
+    if name.startswith("whisper-ppg"):
+        from .whisper import load_whisper_encoder
+
+        return load_whisper_encoder(name, checkpoint_path, device)
+    if name == "wavlmbase+":
+        from .wavlm import load_wavlm_encoder
+
+        return load_wavlm_encoder(checkpoint_path, device)
+    if name == "dphubert":
+        from .dphubert import load_dphubert_encoder
+
+        return load_dphubert_encoder(checkpoint_path, device)
     net = Wav2Vec2Encoder(CONFIGS[name])
     sd = load_fairseq_state_dict(checkpoint_path)
     if name in BSHALL:

@@ -147,6 +147,7 @@ class Wav2Vec2Encoder(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
+        self.hidden_dim = cfg.final_proj_dim or cfg.d_model
         feat = cfg.conv_layers[-1][0]
         self.feature_extractor = FeatureExtractor(cfg.conv_layers)
         self.layer_norm = LayerNorm(feat, eps=1e-5)

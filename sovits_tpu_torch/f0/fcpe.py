@@ -153,17 +153,26 @@ class FcpeNet(nn.Module):
                  n_chans: int = 512, f0_min: float = 32.70, f0_max: float = 1975.5):
         super().__init__()
         self.f0_min, self.f0_max = f0_min, f0_max
-        # the reference's buffers, kept for the checkpoint's keys; the
-        # decoder uses cent_table() as the JAX package does
-        self.register_buffer("cent_table", torch.from_numpy(cent_table(f0_min, f0_max, out_dims)))
-        self.register_buffer("gaussian_blurred_cent_mask",
-                             torch.tensor(1200.0 * math.log2(f0_max / 10.0), dtype=torch.float32))
+        # the reference's buffers, kept for the checkpoint's keys. They follow
+        # f0_min and f0_max: a loaded state_dict cannot put back a table for
+        # other limits (the JAX package computes its table from the
+        # arguments and never reads the checkpoint's)
+        self.register_buffer("cent_table", torch.empty(out_dims))
+        self.register_buffer("gaussian_blurred_cent_mask", torch.empty(()))
+        self._set_range_buffers()
+        self.register_load_state_dict_post_hook(lambda module, _keys: module._set_range_buffers())
         self.stack = nn.Sequential(nn.Conv1d(input_channel, n_chans, 3, padding=1),
                                    nn.GroupNorm(4, n_chans, eps=1e-5), nn.LeakyReLU(0.01),
                                    nn.Conv1d(n_chans, n_chans, 3, padding=1))
         self.decoder = PCmer(n_layers, n_chans)
         self.norm = nn.LayerNorm(n_chans, eps=1e-5)
         self.dense_out = WNLinear(n_chans, out_dims)
+
+    @torch.no_grad()
+    def _set_range_buffers(self) -> None:
+        self.cent_table.copy_(torch.from_numpy(cent_table(self.f0_min, self.f0_max,
+                                                          self.cent_table.shape[0])))
+        self.gaussian_blurred_cent_mask.fill_(1200.0 * math.log2(self.f0_max / 10.0))
 
     @torch.no_grad()
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
@@ -202,12 +211,14 @@ class FcpeF0Predictor(F0Predictor):
     name = "fcpe"
 
     def __init__(self, *args, weights: dict | None = None, threshold: float = 0.05,
+                 f0_min_model: float = 32.70, f0_max_model: float = 1975.5,
                  device: torch.device | str = "cuda", **kwargs):
         super().__init__(*args, **kwargs)
         self.device = torch.device(device)
-        self.net = load_net(FcpeNet(), weights, self.device, "FCPE")
+        self.net = load_net(FcpeNet(f0_min=f0_min_model, f0_max=f0_max_model), weights,
+                            self.device, "FCPE")
         self.threshold = threshold
-        self.table = cent_table(self.net.f0_min, self.net.f0_max, self.net.dense_out.bias.shape[0])
+        self.table = self.net.cent_table.cpu().numpy()
 
     def salience(self, wav16k: np.ndarray) -> np.ndarray:
         """16 kHz audio -> salience [T, 360] on the 10 ms grid."""

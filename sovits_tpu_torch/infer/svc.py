@@ -23,8 +23,10 @@ enhancer (``nsf_hifigan_enhance``), then mixes in the input's loudness
 envelope; ``only_diffusion`` skips the synthesizer and diffuses from the
 input's own mel.
 
-Not ported: cluster / feature retrieval and ``infer_seq_parallel``. Asking
-for them raises NotImplementedError naming the argument.
+With a cluster model (``cluster_model_path``) and a ``cluster_infer_ratio``
+other than 0, the units are blended toward the speaker's k-means centers or,
+with ``feature_retrieval``, toward their nearest stored features, on the
+Svc's device. Not ported: ``infer_seq_parallel``.
 """
 
 from __future__ import annotations
@@ -98,16 +100,11 @@ class Svc:
         FileNotFoundError. ``nsf_hifigan_enhance`` builds the enhancer from
         ``enhancer_ckpt`` unless shallow diffusion supersedes it. The refiner
         and the enhancer compute in float32 whatever ``dtype`` is. An
-        existing ``cluster_model_path`` and ``feature_retrieval`` raise
-        NotImplementedError; a ``cluster_model_path`` that does not exist is
-        ignored, as the JAX package ignores it."""
-        asked = {
-            "cluster_model_path": bool(cluster_model_path) and Path(cluster_model_path).exists(),
-            "feature_retrieval": feature_retrieval,
-        }
-        for name, on in asked.items():
-            if on:
-                raise NotImplementedError(f"{name} is not supported by the port")
+        existing ``cluster_model_path`` (an ``.npz`` of either package or
+        so-vits-svc's ``kmeans_10000.pt``) loads the cluster model onto
+        ``device``; one that does not exist is ignored, as the JAX package
+        ignores it. ``feature_retrieval`` blends by retrieval in place of
+        the nearest centers."""
         self.device = torch.device(device)
         self.hps = scfg.load_config(config_path)
         self.target_sample = self.hps.data.sampling_rate
@@ -120,6 +117,13 @@ class Svc:
         self.f0_predictor_object = None
         self._encoder = encoder
         self._encoder_name = self.hps.model.speech_encoder or "vec768l12"
+
+        self.cluster = None
+        self.feature_retrieval = feature_retrieval
+        if cluster_model_path and Path(cluster_model_path).exists():
+            from ..cluster import load_cluster_model
+
+            self.cluster = load_cluster_model(cluster_model_path, feature_retrieval, self.device)
 
         self.diffusion = None
         self.only_diffusion = only_diffusion
@@ -161,10 +165,10 @@ class Svc:
     # ------------------------------------------------------------------
     def get_unit_f0(self, wav: np.ndarray, tran: int, cluster_infer_ratio: float, speaker,
                     f0_filter: bool = False, f0_predictor: str = "pm", cr_threshold: float = 0.05):
-        """f0 + units aligned to the f0 frames."""
-        if cluster_infer_ratio != 0:
-            raise NotImplementedError("cluster_infer_ratio != 0 (cluster / feature retrieval) "
-                                      "is not supported by the port")
+        """f0 + units aligned to the f0 frames; with a cluster model and a
+        ratio other than 0 the units are blended (in float32 on the Svc's
+        device, whatever the synthesizer's dtype); without a model the
+        ratio is ignored, as in the JAX package."""
         if self.f0_predictor_object is None or self.f0_predictor_object.name != f0_predictor:
             # an f0 net without weights raises FileNotFoundError here, as in
             # the JAX package: a caller with weights sets f0_predictor_object
@@ -181,6 +185,9 @@ class Svc:
         f0 = f0 * 2 ** (tran / 12)
         units = torch.from_numpy(pending())
         units = repeat_expand(units, len(f0), self.unit_interpolate_mode).numpy()
+        if cluster_infer_ratio != 0 and self.cluster is not None:
+            units = self.cluster.blend(units, speaker, cluster_infer_ratio, self.spk2id,
+                                       retrieval=self.feature_retrieval)
         return units, f0, uv
 
     def _prepare_chunk(self, speaker, tran, wav, sr, cluster_infer_ratio, f0_filter,

@@ -368,3 +368,45 @@ def test_f0_net_stays_float32_in_a_bf16_svc(svc_pair, tmp_path):
     np.testing.assert_array_equal(item["uv"], uv)
     audio = svc._run_synth_batch([item], 0.0, False, 52468, sample_noise=False)[0]
     assert np.isfinite(audio).all() and np.abs(audio).max() > 1e-4
+
+
+# --------------------------------------------- (h) FCPE's model range
+FCPE_RANGE = dict(f0_min_model=50.0, f0_max_model=1000.0)
+
+
+def test_fcpe_model_range_matches_jax():
+    """f0_min_model / f0_max_model (50 / 1000 Hz) in both packages: the cent
+    table the decoder uses is the JAX one, and the decoded f0 agrees on the
+    frames whose salience has its top two bins clear (as in (d))."""
+    sd, variables = _weights("fcpe")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jfcpe, "FcpeNet", functools.partial(jfcpe.FcpeNet, **FCPE_SMALL))
+        mp.setattr(tfcpe, "FcpeNet", functools.partial(tfcpe.FcpeNet, **FCPE_SMALL))
+        jp = jbase.get_f0_predictor("fcpe", HOP, SR, weights=variables, **F0_RANGE, **FCPE_RANGE)
+        tp = tbase.get_f0_predictor("fcpe", HOP, SR, weights=sd, device="cpu", **F0_RANGE, **FCPE_RANGE)
+    np.testing.assert_array_equal(tp.table, jp.net.cent_table)
+    np.testing.assert_array_equal(tp.net.cent_table.numpy(), jp.net.cent_table)
+    assert tp.table[0] == pytest.approx(1200 * np.log2(5.0)) and tp.table[-1] == pytest.approx(1200 * np.log2(100.0))
+    wav = _wav(1.5, SR, seed=3)
+    jf0, juv, jsal = _jax_run(jp, wav)
+    tf0, tuv = tp.compute_f0_uv(wav)
+    p_len = int(1.5 * SR) // HOP
+    i = np.floor(np.arange(p_len) * HOP / SR / 0.01 + 1e-9).astype(int)
+    clear = _clear(jsal)
+    fed_by_clear = clear[i] & clear[np.minimum(i + 1, len(clear) - 1)]
+    np.testing.assert_array_equal(tuv[fed_by_clear], juv[fed_by_clear])
+    compared = fed_by_clear & (juv > 0)
+    assert (clear.sum(), compared.sum()) == CLEAR_AND_COMPARED["fcpe"]
+    np.testing.assert_allclose(tf0[compared], jf0[compared], rtol=1e-5)
+    assert tf0[compared].min() >= 50.0 and tf0[compared].max() <= 1000.0
+
+
+def test_fcpe_state_dict_cannot_put_back_another_range():
+    """A state_dict written for the default range (the published fcpe.pt's
+    buffers) loaded into a 50-1000 Hz net: the buffers follow the net's range."""
+    sd, _ = _weights("fcpe")
+    net = tfcpe.FcpeNet(**FCPE_SMALL, f0_min=50.0, f0_max=1000.0)
+    assert not np.array_equal(sd["cent_table"], tfcpe.cent_table(50.0, 1000.0, 360))
+    net.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
+    np.testing.assert_array_equal(net.cent_table.numpy(), tfcpe.cent_table(50.0, 1000.0, 360))
+    assert net.gaussian_blurred_cent_mask.item() == pytest.approx(1200 * np.log2(100.0))

@@ -725,3 +725,83 @@ def test_cli_rmvpe_with_a_preset_predictor_on_card(cuda, tmp_path, monkeypatch):
     assert svc.f0_predictor_object is predictor and svc.device.type == "cuda"
     sr, audio = wavfile.read(tmp_path / "results" / "song_0key_0_sovits_rmvpe.wav")
     assert sr == 44100 and abs(len(audio) - len(wav)) <= 2 * 512 and np.abs(audio).max() > 0
+
+
+def _ppg_small():
+    """whisper-ppg, wavlmbase+ and dphubert at tiny widths."""
+    from chip_smoke import DPHUBERT_CFG
+    from sovits_tpu_torch.encoders.wavlm import WavLMDims
+    from sovits_tpu_torch.encoders.whisper import WhisperDims
+
+    dph = dict(DPHUBERT_CFG, encoder_embed_dim=48, encoder_num_layers=3, encoder_head_dim=12,
+               encoder_use_attention=[True, False, True], encoder_use_feed_forward=[True, True, False],
+               encoder_num_heads=[4, 0, 2], encoder_ff_interm_features=[96, 64, 0],
+               encoder_pos_conv_kernel=16, encoder_pos_conv_groups=4,
+               extractor_conv_layer_config=[(64, 10, 5), (64, 3, 2), (64, 2, 2)])
+    return {"whisper-ppg": WhisperDims(n_audio_state=64, n_audio_head=4, n_audio_layer=2),
+            "wavlmbase+": WavLMDims(d_model=64, n_layers=2, n_heads=4, ffn_dim=128, num_buckets=32,
+                                    max_distance=64),
+            "dphubert": dph}
+
+
+@pytest.mark.parametrize("name", ["whisper-ppg", "wavlmbase+", "dphubert"])
+def test_ppg_encoder_cuda_matches_cpu(cuda, tmp_path, name):
+    """A tiny seeded checkpoint in the encoder's published layout through
+    get_speech_encoder on the card and on the CPU."""
+    import numpy as np
+
+    from chip_smoke import write_ppg_checkpoint
+    from sovits_tpu_torch.encoders.factory import get_speech_encoder
+
+    write_ppg_checkpoint(name, tmp_path / "enc.pt", dims=_ppg_small()[name])
+    card, host = (get_speech_encoder(name, tmp_path / "enc.pt", device=d) for d in (cuda, "cpu"))
+    wav = bench_signal(1.2, 16000, seed=3)
+    got, want = card.encode(wav), host.encode(wav)
+    frames = len(wav) // 320 if name == "whisper-ppg" else (len(wav) - 400) // 320 + 1
+    assert got.shape == want.shape == (frames, card.hidden_dim)
+    assert np.abs(got - want).max() <= 1e-4 * max(1.0, np.abs(want).max())
+
+
+def test_cluster_cuda_matches_cpu(cuda):
+    """kmeans_fit on the card (inertia never rises past summation order;
+    every point at its nearest final center), and the nearest centers and
+    the retrieval blend of card against CPU on rows without near-ties."""
+    from sovits_tpu_torch.cluster import kmeans, store
+
+    g = _g(5)
+    x = torch.randn(4000, 64, generator=g)
+    init = kmeans.kmeans_plus_plus_init(x.to(cuda), 100, torch.Generator(device=cuda).manual_seed(0))
+    centers, inertia = kmeans.lloyd(x.to(cuda), init, 10)
+    inertia = inertia.cpu()
+    assert (inertia[1:] - inertia[:-1] <= 1e-6 * inertia[:-1]).all()
+    d64 = kmeans._sq_dists(x.double(), centers.cpu().double())
+    excess = d64.gather(1, kmeans.kmeans_predict(x.to(cuda), centers).cpu()[:, None])[:, 0] - d64.amin(1)
+    assert (excess <= 1e-5 * d64.abs().amax(1)).all()
+    units, bank = torch.randn(300, 64, generator=g), torch.randn(2000, 64, generator=g)
+    for table, rank in ((centers.cpu(), 1), (bank, 8)):
+        top = torch.topk(kmeans._sq_dists(units.double(), table.double()), rank + 1, dim=1, largest=False).values
+        decided = top[:, rank] - top[:, rank - 1] > 1e-5 * top[:, rank].abs()
+        assert decided.float().mean() > 0.9
+        if rank == 1:
+            got, want = (kmeans.nearest_centers(u, t) for u, t in ((units.to(cuda), table.to(cuda)), (units, table)))
+        else:
+            got, want = (store.blend_retrieval(u, t) for u, t in ((units.to(cuda), table.to(cuda)), (units, table)))
+        torch.testing.assert_close(got.cpu()[decided], want[decided], rtol=0, atol=1e-4)
+
+
+def test_fcpe_model_range_on_card(cuda, monkeypatch):
+    """f0_min_model / f0_max_model reach the card's FCPE: its table and its
+    decoded f0 lie in the range."""
+    import numpy as np
+
+    from sovits_tpu_torch.f0 import fcpe
+    from sovits_tpu_torch.f0.base import get_f0_predictor
+
+    _small_f0_nets(monkeypatch)
+    sd = factory.init_random_(fcpe.FcpeNet(), _g(12)).state_dict()
+    pred = get_f0_predictor("fcpe", 512, 44100, weights=sd, device=cuda, f0_min_model=50.0,
+                            f0_max_model=1000.0, f0_min=30.0, f0_max=2100.0)
+    np.testing.assert_array_equal(pred.table, fcpe.cent_table(50.0, 1000.0, 360))
+    np.testing.assert_array_equal(pred.net.cent_table.cpu().numpy(), pred.table)
+    f0, _ = pred.compute_f0_uv(bench_signal(1.5, 44100, seed=2))
+    assert np.isfinite(f0).all() and f0.max() <= 1000.0 and f0[f0 > 0].min() >= 50.0

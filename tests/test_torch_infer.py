@@ -17,7 +17,7 @@
 (c) The port's batched dispatch against its per-chunk dispatch.
 (d) yin and harvest against the JAX package; the native Harvest stages
     against their numpy oracles.
-(e) The infer CLI on the CPU, and every flag it rejects (its diffusion
+(e) The infer CLI on the CPU, the flag it rejects and the cluster flags it passes on (its diffusion
     and enhancer flags: test_torch_diffusion.py; -f0p naming an f0 net:
     test_torch_f0nets.py).
 """
@@ -321,15 +321,33 @@ def test_native_harvest_stage_matches_numpy(stage):
 
 
 @pytest.mark.parametrize("kwarg", ["cluster_model_path", "feature_retrieval"])
-def test_svc_rejects_what_it_does_not_run(tmp_path, kwarg):
-    """The JAX package's Svc arguments that ask for cluster retrieval raise,
-    naming themselves, before anything loads (diffusion and the enhancer:
-    test_torch_diffusion.py)."""
-    (tmp_path / "kmeans.pt").write_bytes(b"")
-    value = str(tmp_path / "kmeans.pt") if kwarg == "cluster_model_path" else True
-    with pytest.raises(NotImplementedError, match=kwarg):
-        tsvc_mod.Svc(str(tmp_path / "G_0.pth"), str(tmp_path / "config.json"), device="cpu",
-                     **{kwarg: value})
+def test_svc_rejects_what_it_does_not_run(svc_pair, tmp_path, kwarg):
+    """The Svc arguments for cluster retrieval (ported; test_torch_cluster.py
+    holds the blend against the JAX package): an existing cluster model path
+    is read at once, so a file that is no cluster model is rejected as the
+    JAX package's loader rejects it, before any request; feature_retrieval
+    without a cluster model loads nothing and leaves a request unchanged."""
+    from sovits_tpu import cluster as jcluster
+    from sovits_tpu_torch import config as tcfg
+
+    _jsvc, tsvc = svc_pair
+    tcfg.save_config(tsvc.hps, tmp_path / "config.json")
+    torch.save({"model": tsvc.model.state_dict(), "iteration": 0}, tmp_path / "G_0.pth")
+    args = (str(tmp_path / "G_0.pth"), str(tmp_path / "config.json"))
+    if kwarg == "cluster_model_path":
+        (tmp_path / "kmeans.pt").write_bytes(b"")
+        with pytest.raises(Exception) as jax_error:
+            jcluster.load_cluster_model(str(tmp_path / "kmeans.pt"))
+        with pytest.raises(type(jax_error.value)):
+            tsvc_mod.Svc(*args, encoder=tsvc.encoder, device="cpu", cluster_model_path=str(tmp_path / "kmeans.pt"))
+        return
+    svc = tsvc_mod.Svc(*args, encoder=tsvc.encoder, device="cpu", feature_retrieval=True)
+    assert svc.cluster is None and svc.feature_retrieval
+    svc.f0_predictor_object = tsvc.f0_predictor_object
+    wav = _voiced(0.5, svc.target_sample, 0)
+    want, *_ = svc.infer(0, 0, wav, f0_predictor="dio")
+    got, *_ = svc.infer(0, 0, wav, f0_predictor="dio", cluster_infer_ratio=0.5)
+    np.testing.assert_array_equal(got, want)
 
 
 # ------------------------------------------------------------------ (e) CLI
@@ -374,15 +392,39 @@ def test_cli_infer_writes_result(cli_dir, capsys):
     (["-ss", "4"], "--seq_shard"),
 ], ids=lambda v: v if isinstance(v, str) else "_".join(v))
 def test_cli_rejects_unsupported_flag(tmp_path, monkeypatch, flags, named):
+    """-ss (the sequence-sharded decode) stops the program before any model
+    loads; the cluster flags, ported, reach Svc and slice_inference as the
+    JAX CLI passes them (the CLI run with a cluster model:
+    test_torch_cluster.py)."""
     from sovits_tpu_torch.cli import infer as cli
 
     monkeypatch.chdir(tmp_path)
-    (tmp_path / "kmeans.pt").write_bytes(b"")  # -cm counts only when the path exists
-    loaded = []
-    monkeypatch.setattr(cli, "Svc", lambda *a, **k: loaded.append(a))
-    with pytest.raises(SystemExit, match=named):
-        cli.main(["-m", "G_0.pth", "-n", "song.wav", *flags])
-    assert not loaded
+    (tmp_path / "kmeans.pt").write_bytes(b"")
+    wavfile.write(tmp_path / "song.wav", 8000, np.zeros(800, np.int16))
+    loaded, sliced = [], []
+
+    class FakeSvc:
+        target_sample = 8000
+
+        def __init__(self, *a, **k):
+            loaded.append(k)
+
+        def slice_inference(self, *a, **k):
+            sliced.append(k)
+            return np.zeros(8, np.float32)
+
+    monkeypatch.setattr(cli, "Svc", FakeSvc)
+    argv = ["-m", "G_0.pth", "-n", "song.wav", *flags]
+    if named == "--seq_shard":
+        with pytest.raises(SystemExit, match=named):
+            cli.main(argv)
+        assert not loaded
+        return
+    cli.main(argv)
+    (kw,) = loaded
+    assert kw["cluster_model_path"] == ("kmeans.pt" if "-cm" in flags else None)
+    assert kw["feature_retrieval"] == ("-fr" in flags)
+    assert sliced[0]["cluster_infer_ratio"] == (0.5 if "-cr" in flags else 0.0)
 
 
 def test_cli_ignores_a_cluster_path_that_does_not_exist(tmp_path, monkeypatch):
@@ -396,8 +438,11 @@ def test_cli_ignores_a_cluster_path_that_does_not_exist(tmp_path, monkeypatch):
 
 
 def test_svc_ignores_a_cluster_path_that_does_not_exist(cli_dir):
-    """As the JAX Svc: a missing cluster model loads nothing; a cluster ratio
-    that would need one raises, naming itself."""
+    """As the JAX Svc: a missing cluster model loads nothing, and a cluster
+    ratio without a model is ignored."""
     svc = tsvc_mod.Svc("G_0.pth", "config.json", cluster_model_path="none.pt", device="cpu")
-    with pytest.raises(NotImplementedError, match="cluster_infer_ratio"):
-        svc.infer(0, 0, _voiced(0.5, svc.target_sample, 0), cluster_infer_ratio=0.5)
+    assert svc.cluster is None
+    wav = _voiced(0.5, svc.target_sample, 0)
+    want, *_ = svc.infer(0, 0, wav, f0_predictor="yin")
+    got, *_ = svc.infer(0, 0, wav, f0_predictor="yin", cluster_infer_ratio=0.5)
+    np.testing.assert_array_equal(got, want)

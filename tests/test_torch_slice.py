@@ -4,7 +4,7 @@
 (b) Svc: one G_0.pth and one tiny encoder in both packages; DIO f0, units
     and audio over two clips in different length buckets.
 (c) The port runs in a fresh process without importing jax or flax.
-(d) Speech encoders the port does not implement raise NotImplementedError.
+(d) The onnx speech encoders, which neither package runs, raise NotImplementedError.
 """
 
 import json
@@ -224,11 +224,12 @@ def test_svc_matches_jax(svc_pair):
 # ----------------------------------------------------- (d) unsupported
 @pytest.mark.parametrize("name", ["whisper-ppg", "wavlmbase+", "dphubert"])
 def test_unsupported_front_ends_raise(name):
-    """The JAX package's encoders that the port does not run yet (every f0
-    predictor is ported: test_torch_f0nets.py)."""
+    """Every encoder of the JAX package is ported (test_torch_ppg_encoders.py),
+    as is every f0 predictor (test_torch_f0nets.py); the onnx variants, which
+    neither package runs, raise NotImplementedError naming the encoder."""
     import re
 
     from sovits_tpu_torch.encoders.factory import get_speech_encoder
 
     with pytest.raises(NotImplementedError, match=re.escape(name)):
-        get_speech_encoder(name, device="cpu")
+        get_speech_encoder(f"{name}-onnx", device="cpu")
