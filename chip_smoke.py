@@ -32,13 +32,19 @@ checkpoint layout, 12 ``[cluster]``: k-means (10 000 centers, 50 steps) over
 an hour of one speaker's units (180 000 x 768) and a retrieval bank of the
 same rows on the card, the blends card against CPU, 10 s requests through
 Svc at cluster ratio 0.5 (k-means .npz, kmeans_10000.pt, retrieval), the
-train_cluster and infer CLIs, 13 training (a feature dataset made by the
-port itself, six full-width GAN steps through ``train``, a resume, a
-profiled step), 14 three GAN steps with the fused tail against the same
-steps without it, 15 the bf16 GAN step at bench.py's training
-configuration (batch 6 x 512 frames, bf16 synthesizer and discriminator;
-its first step against the same step through fp32 nets), 16 the trio
-staging microbench at its defaults, 17 kernel times beside their bounds. Any failure raises, so the script exits non-zero; the
+train_cluster and infer CLIs, 13 ``[pipeline]``: a user's training path
+through its CLIs (2 speakers x 6 seeded 48 kHz stereo clips resampled,
+filelists and config, features with --use_diff, four GAN steps at the
+default config with two evaluations, compress and mix, 200 diffusion steps
+at so-vits-svc's template (one profiled) and a resume, one diffusion step
+held against the CPU, the trained model served with shallow diffusion),
+14 training (a feature dataset made by the port itself, six full-width GAN
+steps through ``train``, a resume, a profiled step), 15 three GAN steps
+with the fused tail against the same steps without it, 16 the bf16 GAN
+step at bench.py's training configuration (batch 6 x 512 frames, bf16
+synthesizer and discriminator; its first step against the same step
+through fp32 nets), 17 the trio staging microbench at its defaults, 18
+kernel times beside their bounds. Any failure raises, so the script exits non-zero; the
 last line is the JSON result the caller reads. Needs a CUDA card; without
 one (or without the repository around it) it fails before printing a result.
 """
@@ -542,6 +548,10 @@ def _time(fn, iters=10) -> float:
     return start.elapsed_time(end) / iters
 
 
+# profiler windows _device_ms_each takes before it fails for a window without
+# kernel records: late in the smoke CUPTI once lost every record of two windows
+# in a row, and part of many (PERF.md §7)
+PROFILER_TRIES = 4
 # a kernel launch's attributes in torch.profiler's trace, as the [times] lines name them
 LAUNCH_ARGS = {"grid": "grid", "block": "block", "shared memory": "smem_bytes",
                "registers per thread": "registers", "blocks per SM": "blocks_per_sm"}
@@ -556,15 +566,16 @@ def _device_ms_each(fn, keys: tuple[str, ...], iters: int = 20) -> dict[str, tup
     microseconds time the wrapper's host work as well: this is the card's own
     time, printed beside the events' and used nowhere else. After many
     windows in one process CUPTI loses kernel records on an H100: whole
-    windows (such a window is taken once more before this fails) or part of
-    one (K4's window late in the smoke kept 14 of 20 launches, PERF.md). So the
+    windows (such a window is taken again, PROFILER_TRIES windows in all,
+    before this fails) or part of one (K4's window late in the smoke kept
+    14 of 20 launches, PERF.md). So the
     time is the mean of the records seen times the launches per call, the
     records over the calls rounded up: exact for a key of one kernel
     launched once a call (every kernel key here); for "" (all of a call's
     kernels) a lost record can still lower it."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for _ in range(PROFILER_TRIES):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -2142,6 +2153,416 @@ def phase_cluster(tmp: Path, svc) -> dict:
     return counts
 
 
+# [pipeline]: a user's path from raw recordings to a released model, through
+# the CLIs: 2 speakers x 6 clips of 3-8 s recorded at 48 kHz in stereo;
+# so-vits-svc's default config (GAN) and diffusion template (DIFFUSION_DEFAULTS)
+PIPELINE_LIMIT_S = 300
+PIPELINE_SPEAKERS = {"alto": 190.0, "tenor": 130.0}  # speaker: base pitch (Hz)
+PIPELINE_CLIP_S = (3.0, 4.0, 5.0, 6.0, 7.0, 8.0)
+PIPELINE_GAN_STEPS, PIPELINE_EVAL_INTERVAL = 4, 2
+DIFF_STEPS, DIFF_RESUME_STEPS = 200, 210
+DIFF_PROFILED_STEP = 151  # no log, save or validation follows it
+DIFF_CARD_BATCH = 4
+DIFF_LOSS_REL = 1e-5  # one diffusion step, card against CPU, fp32 with TF32 off
+DIFF_GRAD_REL = 1e-4  # each gradient's max-abs error over its tensor's peak |value|
+
+
+def _launched(before: dict) -> dict:
+    now = _counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def pipeline_corpus(raw: Path) -> float:
+    """The raw recordings: 48 kHz stereo 16-bit, left and right a little
+    apart. Returns their seconds."""
+    from scipy.io import wavfile
+
+    total = 0.0
+    for s, (spk, hz) in enumerate(PIPELINE_SPEAKERS.items()):
+        (raw / spk).mkdir(parents=True)
+        for i, seconds in enumerate(PIPELINE_CLIP_S):
+            left = bench_signal(seconds, 48000, seed=70 + 10 * s + i, base_hz=hz + 9.0 * i)
+            right = 0.9 * left + 0.01 * np.random.default_rng(90 + 10 * s + i).standard_normal(len(left))
+            stereo = np.clip(np.stack([left, right], 1), -1, 1)
+            wavfile.write(raw / spk / f"take{i}.wav", 48000, (stereo * 32767).astype(np.int16))
+            total += seconds
+    return total
+
+
+def pipeline_features(work: Path, tmp: Path) -> dict:
+    """preprocess_flist_config, then preprocess_features --use_diff with
+    DIO on two spawned workers and the smoke's seeded vec768l12 checkpoint;
+    every artifact's shape checked against its wav's frames."""
+    from scipy.io import wavfile
+
+    from sovits_tpu_torch.cli import preprocess_features, preprocess_flist_config
+    from sovits_tpu_torch.train.diffusion import DIFFUSION_DEFAULTS
+    from sovits_tpu_torch.train.data import load_filelist
+
+    lists = {"train": work / "filelists" / "train.txt", "val": work / "filelists" / "val.txt"}
+    config = work / "configs" / "config.json"
+    preprocess_flist_config.main(["--source_dir", str(work / "dataset" / "44k"), "--train_list",
+                                  str(lists["train"]), "--val_list", str(lists["val"]),
+                                  "--config_out", str(config)])
+    cfg = json.loads(config.read_text())
+    train, val = (load_filelist(lists[k]) for k in ("train", "val"))
+    ok = len(train) == 8 and len(val) == 4 and cfg["spk"] == {"alto": 0, "tenor": 1}
+    log("pipeline", what="filelists and config", train=len(train), val=len(val), spk=cfg["spk"],
+        ssl_dim=cfg["model"]["ssl_dim"], n_speakers=cfg["model"]["n_speakers"], ok=ok)
+    if not ok:
+        raise AssertionError(f"[pipeline] filelists {len(train)}/{len(val)}, speakers {cfg['spk']}")
+
+    diff = json.loads(json.dumps(DIFFUSION_DEFAULTS))
+    diff["data"].update(training_files=str(lists["train"]), validation_files=str(lists["val"]))
+    diff["model"]["n_spk"] = len(cfg["spk"])
+    diff["train"].update(interval_log=10, interval_val=100, interval_force_save=100)
+    diff["vocoder"]["ckpt"] = str(tmp / "diffusion" / "nsf_hifigan" / "model")  # [diffusion]'s seeded vocoder
+    diff["env"]["expdir"] = str(work / "logs" / "44k" / "diffusion")
+    diff["spk"] = cfg["spk"]
+    (work / "configs" / "diffusion.yaml").write_text(json.dumps(diff))  # JSON text is valid YAML
+
+    t0 = time.perf_counter()
+    seconds = preprocess_features.main([
+        "-c", str(config), "--diffusion_config", str(work / "configs" / "diffusion.yaml"), "--use_diff",
+        "--f0_predictor", "dio", "--encoder_checkpoint",
+        str(tmp / "cli" / "pretrain" / "checkpoint_best_legacy_500.pt"),  # [slice]'s seeded vec768l12
+        "--workers", "2", "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    paths = train + val
+    d, mels = cfg["data"], json.loads(Path(diff["vocoder"]["ckpt"]).with_name("config.json").read_text())["num_mels"]
+    bad = []
+    for p in paths:
+        sr, wav = wavfile.read(p)
+        t = len(wav) // d["hop_length"]
+        f0, uv = np.load(p + ".f0.npy", allow_pickle=True)
+        mel = np.load(p + ".mel.npy")
+        aug, key = np.load(p + ".aug_mel.npy", allow_pickle=True)
+        shapes = {"soft": (np.load(p + ".soft.npy").shape[0], cfg["model"]["ssl_dim"]), "f0": (f0.shape, (t,)),
+                  "uv": (uv.shape, (t,)), "spec": (np.load(p + ".spec.npy").shape, (d["filter_length"] // 2 + 1, t)),
+                  "vol": (np.load(p + ".vol.npy").shape, (t,)), "mel": (mel.shape[1], mels),
+                  "mel_frames": (abs(mel.shape[0] - t) <= 1, True), "aug_mel": (np.asarray(aug).shape[1], mels),
+                  "aug_vol": (np.load(p + ".aug_vol.npy").shape, (t,)), "sr": (sr, d["sampling_rate"])}
+        bad += [(Path(p).name, k, got, want) for k, (got, want) in shapes.items() if got != want]
+        if not (np.isfinite(mel).all() and np.isfinite(np.asarray(aug, np.float32)).all() and -5 <= key <= 5):
+            bad.append((Path(p).name, "mel values", float(np.abs(mel).max()), key))
+    log("pipeline", what="preprocess_features --use_diff, dio on 2 workers", files=len(paths),
+        wall_s=f"{wall:.2f}", s_per_file=f"{wall / len(paths):.3f}",
+        **{f"{k}_s": f"{v:.3f}" for k, v in seconds.items()}, shapes_ok=not bad)
+    if bad:
+        raise AssertionError(f"[pipeline] artifacts of the wrong shape: {bad}")
+    return seconds
+
+
+def pipeline_gan(work: Path) -> None:
+    """cli.train at the default config (MPD + MSD, batch 6, TF32 off) for
+    PIPELINE_GAN_STEPS steps, evaluating every PIPELINE_EVAL_INTERVAL: each
+    step's wall and K1/K2 launches, each evaluation's wall and K1 launches
+    (6 a clip, 2 clips)."""
+    import os
+
+    from sovits_tpu_torch.cli import train as cli_train
+    from sovits_tpu_torch.train import trainer
+
+    config = work / "configs" / "config.json"
+    cfg = json.loads(config.read_text())
+    cfg["train"].update(eval_interval=PIPELINE_EVAL_INTERVAL, log_interval=1)
+    config.write_text(json.dumps(cfg, indent=2))
+    steps, evals = [], []
+
+    def spied(fn, record):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            before, t0 = _counts(), time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            record.append((time.perf_counter() - t0, _launched(before)))
+            return out
+        return run
+
+    real = trainer.train_step, trainer._evaluate
+    trainer.train_step, trainer._evaluate = spied(real[0], steps), spied(real[1], evals)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        cli_train.main(["-c", "configs/config.json", "-m", "44k", "--max-steps", str(PIPELINE_GAN_STEPS),
+                        "--device", "cuda"])
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        trainer.train_step, trainer._evaluate = real
+    model_dir = work / "logs" / "44k"
+    records = [json.loads(ln) for ln in (model_dir / "metrics.jsonl").read_text().splitlines()]
+    mel_l1 = {(r["step"], k): r[k] for r in records for k in r if k.startswith("eval/")}
+    for i, (s, c) in enumerate(steps, 1):
+        log("pipeline", what="GAN step", step=i, wall_s=f"{s:.4f}", rel_attention=c["rel_attention"],
+            rel_attention_bwd=c["rel_attention_bwd"])
+    for i, (s, c) in enumerate(evals):
+        log("pipeline", what="evaluation", step=PIPELINE_EVAL_INTERVAL * (i + 1), wall_s=f"{s:.4f}",
+            rel_attention=c["rel_attention"], resblock_trio=c["resblock_trio"])
+    tb = sorted(p.name for p in model_dir.glob("events.out.tfevents*"))
+    ckpts = sorted(p.name for p in model_dir.glob("*.pth"))
+    want_evals = {(s, f"eval/mel_l1_{i}") for s in (2, 4) for i in (0, 1)}
+    ok = (len(steps) == PIPELINE_GAN_STEPS and len(evals) == 2
+          and all(c["rel_attention"] > 0 and c["rel_attention_bwd"] > 0 for _, c in steps)
+          and all(c["rel_attention"] == 12 and c["resblock_trio"] == 0 for _, c in evals)
+          and set(mel_l1) == want_evals and all(np.isfinite(v) for v in mel_l1.values())
+          and ckpts == ["D_2.pth", "D_4.pth", "G_2.pth", "G_4.pth"])
+    log("pipeline", what="cli.train", steps=len(steps), wall_s=f"{wall:.2f}",
+        eval_mel_l1={f"{s}:{k[5:]}": f"{v:.4f}" for (s, k), v in sorted(mel_l1.items())},
+        tensorboard_events=len(tb), checkpoints=ckpts, ok=ok)
+    if not ok:
+        raise AssertionError(f"[pipeline] GAN training: steps {steps}, evaluations {evals}, "
+                             f"mel L1 {mel_l1}, checkpoints {ckpts}")
+
+
+def pipeline_release(work: Path, encoder) -> None:
+    """tools compress --half on G_4.pth, served by Svc (K1/K3 6/4) beside
+    the uncompressed model in fp32 (log-mel L1 printed, not barred: the
+    bf16 cast moves it); tools mix of G_2 and G_4 at 50/50 against their
+    mean."""
+    from sovits_tpu_torch.cli import tools
+    from sovits_tpu_torch.dsp.stft import mel_spectrogram
+    from sovits_tpu_torch.infer.svc import Svc
+
+    model_dir, config = work / "logs" / "44k", str(work / "configs" / "config.json")
+    release = tools.main(["compress", "-i", str(model_dir / "G_4.pth"), "-o", str(work / "release.pth"),
+                          "--half"])
+    sr = json.loads(Path(config).read_text())["data"]["sampling_rate"]
+    clip = bench_signal(3.0, sr, seed=83, base_hz=180.0)
+    audio, counts = {}, {}
+    for name, path in (("compressed", release), ("G_4", model_dir / "G_4.pth")):
+        svc = Svc(str(path), config, encoder=encoder, device="cuda")
+        before = _counts()
+        audio[name] = svc.infer("alto", 0, clip, sr=sr, f0_predictor="dio")[0]
+        counts[name] = _launched(before)
+        del svc
+    mels = [mel_spectrogram(torch.from_numpy(audio[k])[None]) for k in ("compressed", "G_4")]
+    l1 = (mels[0] - mels[1]).abs().mean().item()
+    ok = (counts["compressed"]["rel_attention"] == 6 and counts["compressed"]["resblock_trio"] == 4
+          and np.isfinite(audio["compressed"]).all())
+    log("pipeline", what="compress --half, 3 s request", size_mb=f"{release.stat().st_size / 1e6:.1f}",
+        g4_mb=f"{(model_dir / 'G_4.pth').stat().st_size / 1e6:.1f}",
+        rel_attention=counts["compressed"]["rel_attention"],
+        resblock_trio=counts["compressed"]["resblock_trio"],
+        mel_l1_vs_fp32_g4=f"{l1:.4e}", ok=ok)
+    if not ok:
+        raise AssertionError(f"[pipeline] the compressed model's request: {counts}")
+    mixed = tools.main(["mix", "-i", str(model_dir / "G_2.pth"), str(model_dir / "G_4.pth"),
+                        "-r", "50", "50", "-o", str(work / "mix.pth")])
+    sds = [torch.load(p, map_location="cpu", weights_only=False)["model"]
+           for p in (mixed, model_dir / "G_2.pth", model_dir / "G_4.pth")]
+    err = max(((sds[0][k].double() - (sds[1][k].double() + sds[2][k].double()) / 2).abs().max()
+               / sds[0][k].double().abs().max().clamp_min(1e-30)).item() for k in sds[0])
+    ok = set(sds[0]) == set(sds[1]) and err <= 1e-6
+    log("pipeline", what="mix G_2 G_4 at 50/50 against their mean", tensors=len(sds[0]),
+        max_rel_err=f"{err:.3e}", ok=ok)
+    if not ok:
+        raise AssertionError(f"[pipeline] mix is not the mean: {err}")
+
+
+def pipeline_diffusion(work: Path) -> Path:
+    """cli.train_diff at the template for DIFF_STEPS steps, then a resume to
+    DIFF_RESUME_STEPS: steps/s after 10 warm-up steps, peak memory, the
+    logged losses, val_rtf, the kept checkpoints, and step
+    DIFF_PROFILED_STEP under the profiler (from its loss to the next
+    step's: forward, backward, AdamW, the loss read back, the next batch
+    assembled) with its wall, device-busy share and top 5 kernels; every
+    loss finite, the last 20 steps' mean loss below the first 20's, the
+    resumed run on steps 201-210 only. Returns model_200.pt."""
+    from sovits_tpu_torch.cli import train_diff
+    from sovits_tpu_torch.train import diffusion as tdiff
+    from sovits_tpu_torch.train.checkpoint import checkpoint_paths
+
+    config = str(work / "configs" / "diffusion.yaml")
+    args = tdiff.load_diffusion_config(config)
+    expdir = Path(args.env.expdir)
+    steps, window = [], {}
+    real = tdiff._loss
+
+    def loss_spy(model, batch, generator):
+        if model.training and len(steps) + 1 == DIFF_PROFILED_STEP:
+            window["started"] = _profile_start()
+        elif model.training and len(steps) == DIFF_PROFILED_STEP:
+            window["result"] = _profile_stop(window.pop("started"))
+        t = time.perf_counter()
+        loss = real(model, batch, generator)
+        if model.training:
+            steps.append((t, loss.detach()))
+        return loss
+
+    tdiff._loss = loss_spy
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        train_diff.main(["-c", config, "--max-steps", str(DIFF_STEPS), "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        n_first = len(steps)
+        before = len((expdir / "metrics.jsonl").read_text().splitlines())
+        t0 = time.perf_counter()
+        train_diff.main(["-c", config, "--max-steps", str(DIFF_RESUME_STEPS), "--device", "cuda"])
+        resume_wall = time.perf_counter() - t0
+    finally:
+        tdiff._loss = real
+        if "started" in window:
+            window.pop("started")[0].stop()
+    losses = [float(v) for _, v in steps]
+    records = [json.loads(ln) for ln in (expdir / "metrics.jsonl").read_text().splitlines()]
+    resumed = sorted({r["step"] for r in records[before:]})
+    rate = (100 - 11) / (steps[99][0] - steps[10][0])  # steps 11-100: no save or validation between
+    kept = [p.name for p in checkpoint_paths(expdir, "model", ".pt")]
+    log("pipeline", what="cli.train_diff", steps=n_first, wall_s=f"{wall:.2f}",
+        steps_per_s_after_10=f"{rate:.3f}", peak_mem_gb=f"{peak / 1e9:.3f}",
+        batch=args.train.batch_size, frames=int(args.data.duration * args.data.sampling_rate / args.data.block_size),
+        layers=args.model.n_layers, chans=args.model.n_chans)
+    wall_s, busy, dev = window["result"]
+    log("pipeline", what=f"train_diffusion's step {DIFF_PROFILED_STEP} profiled", wall_ms=f"{1e3 * wall_s:.2f}",
+        device_busy_ms=f"{busy:.2f}", busy_share=f"{busy / (1e3 * wall_s):.4f}")
+    for key, us in sorted(dev.items(), key=lambda kv: -kv[1])[:5]:
+        print(f"    device {us / 1e3:9.3f} ms  {key[:110]}", flush=True)
+    log("pipeline", what="diffusion losses",
+        logged={r["step"]: f"{r['loss/diffusion']:.4f}" for r in records if "loss/diffusion" in r},
+        val={r["step"]: (f"{r['loss/val_diffusion']:.4f}", f"{r['val_rtf']:.5f}")
+             for r in records if "val_rtf" in r},
+        mean_1_20=f"{np.mean(losses[:20]):.4f}", mean_181_200=f"{np.mean(losses[180:200]):.4f}")
+    ok = (n_first == DIFF_STEPS and len(steps) == DIFF_RESUME_STEPS and np.isfinite(losses).all()
+          and np.mean(losses[180:200]) < np.mean(losses[:20]) and resumed and min(resumed) > DIFF_STEPS
+          and max(resumed) == DIFF_RESUME_STEPS
+          and kept == ["model_100.pt", "model_200.pt", "model_210.pt"])
+    log("pipeline", what="resume", resumed_steps=len(steps) - n_first, logged_steps=resumed,
+        resume_wall_s=f"{resume_wall:.2f}", checkpoints=kept, ok=ok)
+    if not ok:
+        raise AssertionError(f"[pipeline] diffusion training: {n_first} + {len(steps) - n_first} steps, "
+                             f"losses {losses[:3]}...{losses[-3:]}, resumed {resumed}, kept {kept}")
+    return expdir / f"model_{DIFF_STEPS}.pt"
+
+
+def _mels(args) -> int:
+    from sovits_tpu_torch.models.diffusion.vocoder import NsfHifiGANVocoder
+
+    return NsfHifiGANVocoder(str(args.vocoder.ckpt), device="cpu", weights=False).dimension
+
+
+def _relu_branches(model, sides: dict | None = None) -> tuple[dict, list]:
+    """Forward hooks on the inputs of the denoiser's two ReLUs (after
+    input_projection and skip_projection, wavenet.py). Without ``sides``
+    they record which elements are > 0. With another device's record they
+    move each element that lies on the other side of 0 to that side (value
+    0 or the smallest normal float, gradient passed on as is), so that both
+    devices take the same branch, and record per ReLU how many moved and
+    the largest |value| among them over the input's peak |value|. Returns
+    (the record, the hooks' handles)."""
+    record, handles = {}, []
+
+    def hook(name):
+        def run(module, args, out):
+            if sides is None:
+                record[name] = out > 0
+                return None
+            want = sides[name].to(out.device)
+            moved = want != (out > 0)
+            record[name] = (int(moved.sum()),
+                            ((out.abs() * moved).max() / out.abs().max().clamp_min(1e-30)).item())
+            target = torch.where(want, torch.finfo(out.dtype).tiny, 0.0)
+            return torch.where(moved, target + (out - out.detach()), out)  # the value target, d/dout 1
+        return run
+
+    for name in ("input_projection", "skip_projection"):
+        handles.append(model.decoder["denoise_fn"].get_submodule(name).register_forward_hook(hook(name)))
+    return record, handles
+
+
+def diffusion_card_vs_cpu(config: str, ckpt: Path) -> None:
+    """One diffusion step at batch DIFF_CARD_BATCH on the card and on the
+    CPU: the same examples, steps and noise (one CPU generator seed) and the
+    same ReLU branches (the CPU takes the card's, ``_relu_branches``), fp32
+    with TF32 off. An element within rounding of 0 can fall on the other
+    side of a ReLU on each device, and then one side's gradient carries it
+    and the other's does not (PERF.md §7). Loss within DIFF_LOSS_REL
+    relative, every gradient within DIFF_GRAD_REL of its tensor's peak,
+    every moved element within DIFF_GRAD_REL of its ReLU input's peak."""
+    from sovits_tpu_torch.train import diffusion as tdiff
+
+    args = tdiff.load_diffusion_config(config)
+    ds = tdiff.DiffusionDataset(args.data.training_files, args)
+    rng = np.random.default_rng(4)
+    examples = [ds.example(i, rng) for i in range(DIFF_CARD_BATCH)]
+    out, record = {}, None
+    for dev in ("cuda", "cpu"):  # record: the card's sides, then what the CPU moved
+        model = tdiff.load_torch_unit2mel(ckpt, args, _mels(args), dev).train()
+        record, handles = _relu_branches(model, record)
+        loss = tdiff._loss(model, tdiff._batch(examples, torch.device(dev)), torch.Generator().manual_seed(9))
+        loss.backward()
+        for h in handles:
+            h.remove()
+        out[dev] = (loss.item(), {k: p.grad.cpu() for k, p in model.named_parameters()})
+    card = out["cuda"]
+    loss_rel = abs(card[0] - out["cpu"][0]) / abs(out["cpu"][0])
+    worst = sorted((((g - out["cpu"][1][k]).abs().max() / out["cpu"][1][k].abs().max().clamp_min(1e-30)).item(),
+                    k, out["cpu"][1][k].abs().max().item()) for k, g in card[1].items())[::-1]
+    grad_rel = worst[0][0]
+    ok = (loss_rel <= DIFF_LOSS_REL and grad_rel <= DIFF_GRAD_REL
+          and all(v <= DIFF_GRAD_REL for _, v in record.values()))
+    log("pipeline", what=f"diffusion step, batch {DIFF_CARD_BATCH}, card vs CPU", loss=f"{out['cpu'][0]:.6f}",
+        loss_rel=f"{loss_rel:.3e}", grad_rel_max=f"{grad_rel:.3e}",
+        worst={k: (f"{r:.3e}", f"peak {peak:.3e}") for r, k, peak in worst[:3]},
+        relu_moved={k: (n, f"{v:.2e}") for k, (n, v) in record.items()},
+        limits=f"loss<={DIFF_LOSS_REL}, grad<={DIFF_GRAD_REL}, moved<={DIFF_GRAD_REL}", ok=ok)
+    if not ok:
+        raise AssertionError(f"[pipeline] diffusion step card vs CPU: loss {loss_rel}, grad {grad_rel}, "
+                             f"moved {record}")
+
+
+def phase_pipeline(tmp: Path, svc) -> dict:
+    """The training pipeline through its CLIs, as a user runs it: resample
+    (48 kHz stereo -> 44.1 kHz mono), filelists and config, features with
+    --use_diff, GAN training with evaluation, release (compress, mix),
+    diffusion training (one step profiled) and a resume, one diffusion step
+    held against the CPU, and the trained diffusion model served by Svc with
+    shallow diffusion (K1/K3 6/8). Under PIPELINE_LIMIT_S. Returns the
+    phase's K1/K2/K3 launches."""
+    from sovits_tpu_torch.cli import resample
+    from sovits_tpu_torch.infer.svc import Svc
+
+    t_phase = time.perf_counter()
+
+    def run():
+        work = tmp / "pipeline"
+        _reset_counts()
+        audio_s = pipeline_corpus(work / "dataset_raw")
+        t0 = time.perf_counter()
+        n = resample.main(["--in_dir", str(work / "dataset_raw"), "--out_dir2", str(work / "dataset" / "44k"),
+                           "--sr2", str(svc.target_sample), "--workers", "2"])
+        log("pipeline", what="resample 48 kHz stereo -> 44.1 kHz mono", files=n, audio_s=f"{audio_s:.1f}",
+            wall_s=f"{time.perf_counter() - t0:.2f}")
+        pipeline_features(work, tmp)
+        pipeline_gan(work)
+        pipeline_release(work, svc.encoder)
+        config = str(work / "configs" / "diffusion.yaml")
+        ckpt = pipeline_diffusion(work)
+        diffusion_card_vs_cpu(config, ckpt)
+        shallow = Svc(str(work / "logs" / "44k" / "G_4.pth"), str(work / "configs" / "config.json"),
+                      encoder=svc.encoder, device="cuda", shallow_diffusion=True,
+                      diffusion_model_path=str(ckpt), diffusion_config_path=config)
+        before = _counts()
+        sr = svc.target_sample
+        audio = shallow.infer("tenor", 0, bench_signal(3.0, sr, seed=84, base_hz=140.0), sr=sr,
+                              f0_predictor="dio", k_step=K_STEP)[0]
+        c = _launched(before)
+        ok = np.isfinite(audio).all() and c["rel_attention"] == 6 and c["resblock_trio"] == 8
+        log("pipeline", what=f"model_{DIFF_STEPS}.pt served, shallow diffusion k_step {K_STEP}, 3 s",
+            samples=len(audio), peak=f"{np.abs(audio).max():.4f}", rel_attention=c["rel_attention"],
+            resblock_trio=c["resblock_trio"], ok=ok)
+        if not ok:
+            raise AssertionError(f"[pipeline] shallow diffusion with the trained model: {c}")
+        return _counts()
+
+    counts = _limited("pipeline", PIPELINE_LIMIT_S, run)
+    log("pipeline", phase_s=f"{time.perf_counter() - t_phase:.1f}", limit_s=PIPELINE_LIMIT_S, launches=counts)
+    return counts
+
+
 def phase_cli_diffusion(tmp: Path, files: dict) -> None:
     """``python -m sovits_tpu_torch.cli.infer -shd`` on the card, from the
     directory ``phase_cli`` prepared (its encoder checkpoint and 12 s song)."""
@@ -2340,22 +2761,36 @@ def phase_train(tmp: Path, encoder) -> dict:
     return total, hps
 
 
-def _profiled(fn):
-    """(wall s, device busy ms, {kernel: device us}) of one call of fn under
-    torch.profiler, ending in a synchronize."""
+def _profile_start():
+    """A torch.profiler window opened after a synchronize, and its start."""
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    prof.start()
+    return prof, time.perf_counter()
+
+
+def _profile_stop(started):
+    """(wall s, device busy ms, {kernel: device us}) of the window that
+    _profile_start opened, closed after a synchronize."""
+    prof, t0 = started
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof.stop()
     dev = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0) or 0
         if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
             dev[e.key] = us
     return wall, sum(dev.values()) / 1e3, dev
+
+
+def _profiled(fn):
+    """(wall s, device busy ms, {kernel: device us}) of one call of fn under
+    torch.profiler, ending in a synchronize."""
+    started = _profile_start()
+    fn()
+    return _profile_stop(started)
 
 
 def phase_train_fused_tail(hps) -> dict:
@@ -2650,6 +3085,7 @@ def main() -> None:
         frontend = phase_frontend(Path(tmp), svc)
         encoders = phase_encoders(Path(tmp))
         cluster = phase_cluster(Path(tmp), svc)
+        pipeline = phase_pipeline(Path(tmp), svc)
         del svc16
         train, hps = phase_train(Path(tmp), svc.encoder)
         fused_tail = phase_train_fused_tail(hps)
@@ -2663,21 +3099,21 @@ def main() -> None:
                           "configs": configs32["rel_attention"],
                           "diffusion": diffusion32["rel_attention"], "frontend": frontend["rel_attention"],
                           "encoders": encoders["rel_attention"], "cluster": cluster["rel_attention"],
-                          "train": train["rel_attention"],
+                          "pipeline": pipeline["rel_attention"], "train": train["rel_attention"],
                           "train_fused_tail": fused_tail["rel_attention"]},
         "rel_attention_bf16": {"infer_bf16": infer_bf16["rel_attention_bf16"],
                                "slice_bf16": slice16["rel_attention_bf16"],
                                "configs_bf16": configs16["rel_attention_bf16"],
                                "diffusion_bf16": diffusion16["rel_attention_bf16"],
                                "train_bf16": train_bf16["rel_attention_bf16"]},
-        "rel_attention_bwd": {"train": train["rel_attention_bwd"]},
+        "rel_attention_bwd": {"pipeline": pipeline["rel_attention_bwd"], "train": train["rel_attention_bwd"]},
         "rel_attention_bwd_bf16": {"train_bf16": train_bf16["rel_attention_bwd_bf16"]},
         "resblock_trio": {"infer": infer["resblock_trio"], "slice": slice32["resblock_trio"],
                           "configs": configs32["resblock_trio"],
                           "diffusion": diffusion32["resblock_trio"],
                           "diffusion_bf16": diffusion16["resblock_trio"], "frontend": frontend["resblock_trio"],
                           "encoders": encoders["resblock_trio"], "cluster": cluster["resblock_trio"],
-                          "train_fused_tail": fused_tail["resblock_trio"]},
+                          "pipeline": pipeline["resblock_trio"], "train_fused_tail": fused_tail["resblock_trio"]},
         "resblock_trio_bf16": {"infer_bf16": infer_bf16["resblock_trio_bf16"],
                                "slice_bf16": slice16["resblock_trio_bf16"],
                                "configs_bf16": configs16["resblock_trio_bf16"],

@@ -1,0 +1,36 @@
+"""Diffusion training CLI (counterpart of ``sovits_tpu/cli/train_diff.py``;
+so-vits-svc ``train_diff.py``):
+
+    python -m sovits_tpu_torch.cli.train_diff -c configs/diffusion.yaml
+
+The mel width is the vocoder's (``vocoder.config``, else the config.json
+beside ``vocoder.ckpt``, else the 44.1 kHz NSF-HiFiGAN's 128), as
+so-vits-svc reads it from its vocoder. Runs on the CUDA card unless
+``--device`` says otherwise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+from ..models.diffusion.vocoder import NsfHifiGANVocoder
+from ..train.diffusion import load_diffusion_config, train_diffusion
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-c", "--config", default="./configs/diffusion.yaml")
+    parser.add_argument("--max-steps", type=int, default=None)
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    cfg = load_diffusion_config(args.config)
+    voc = cfg.vocoder
+    mels = NsfHifiGANVocoder(str(voc.ckpt), voc.config.to_dict() if voc.config else None,
+                             args.device, weights=False).dimension
+    return train_diffusion(cfg, max_steps=args.max_steps, vocoder_dim=mels, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

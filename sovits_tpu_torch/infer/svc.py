@@ -156,11 +156,12 @@ class Svc:
 
             tree = from_jax.unflatten_params(dict(np.load(p)))
             sd = {k: torch.from_numpy(v) for k, v in from_jax.synthesizer(tree, self.hps).items()}
-            # a compressed release model drops enc_q, which inference never runs
-            fresh = {k: v for k, v in self.model.state_dict().items() if k.startswith("enc_q.")}
-            return {**fresh, **sd}
-        ckpt = torch.load(p, map_location="cpu", weights_only=False)
-        return {k: v.float() for k, v in ckpt["model"].items()}
+        else:
+            sd = {k: v.float() for k, v in torch.load(p, map_location="cpu", weights_only=False)["model"].items()}
+        # a compressed release model (either package's tools) drops enc_q,
+        # which inference never runs
+        fresh = {k: v for k, v in self.model.state_dict().items() if k.startswith("enc_q.")}
+        return {**fresh, **sd}
 
     # ------------------------------------------------------------------
     def get_unit_f0(self, wav: np.ndarray, tran: int, cluster_infer_ratio: float, speaker,

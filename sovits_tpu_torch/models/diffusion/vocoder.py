@@ -95,15 +95,16 @@ class NsfHifiGANVocoder:
     ``config`` overrides both (vdecoder/nsf_hifigan/models.py:17-36). The
     weights load on first use: ``extract`` needs only the config. A missing
     checkpoint raises FileNotFoundError, as in so-vits-svc (the JAX package
-    falls back to a fresh init instead)."""
+    falls back to a fresh init instead), unless ``weights`` is False: the
+    mel analysis alone, for preprocessing, which needs no weights file."""
 
     def __init__(self, ckpt_path: str | None, config: dict | None = None,
-                 device: torch.device | str = "cuda"):
-        if not ckpt_path or not Path(ckpt_path).is_file():
+                 device: torch.device | str = "cuda", weights: bool = True):
+        if weights and (not ckpt_path or not Path(ckpt_path).is_file()):
             raise FileNotFoundError(f"no vocoder checkpoint at {ckpt_path}")
         self.h = dict(DEFAULT_NSF_CONFIG)
-        cfg = Path(ckpt_path).parent / "config.json"
-        if cfg.exists():
+        cfg = Path(ckpt_path).parent / "config.json" if ckpt_path else None
+        if cfg is not None and cfg.exists():
             self.h.update(json.loads(cfg.read_text()))
         if config:
             self.h.update(config)

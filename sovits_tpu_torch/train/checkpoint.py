@@ -18,11 +18,11 @@ import torch
 logger = logging.getLogger(__name__)
 
 
-def checkpoint_paths(model_dir: str | Path, prefix: str) -> list[Path]:
-    """``{prefix}_{step}.pth`` files in ``model_dir``, by step."""
+def checkpoint_paths(model_dir: str | Path, prefix: str, suffix: str = ".pth") -> list[Path]:
+    """``{prefix}_{step}{suffix}`` files in ``model_dir``, by step."""
     found = []
-    for p in Path(model_dir).glob(f"{prefix}_*.pth"):
-        m = re.fullmatch(rf"{prefix}_(\d+)\.pth", p.name)
+    for p in Path(model_dir).glob(f"{prefix}_*{suffix}"):
+        m = re.fullmatch(rf"{prefix}_(\d+){re.escape(suffix)}", p.name)
         if m:
             found.append((int(m.group(1)), p))
     return [p for _, p in sorted(found)]

@@ -41,14 +41,16 @@ def load_wav(path: str) -> tuple[np.ndarray, int]:
 
 
 class FeatureDataset:
-    """One utterance's aligned features per index."""
+    """One utterance's aligned features per index. ``spk_map`` (speaker
+    directory -> id) and ``vol_aug`` override the config's."""
 
-    def __init__(self, filelist: str, hps):
+    def __init__(self, filelist: str, hps, spk_map: dict[str, int] | None = None,
+                 vol_aug: bool | None = None):
         self.paths = load_filelist(filelist)
         self.hps = hps
         self.hop = hps.data.hop_length
-        self.spk_map = dict(hps.spk.items())
-        self.vol_aug = hps.train.vol_aug
+        self.spk_map = spk_map if spk_map is not None else dict(hps.spk.items())
+        self.vol_aug = hps.train.vol_aug if vol_aug is None else vol_aug
         self.pad_frames = hps.data.pad_to_frames or 800
         self.interp_mode = hps.data.unit_interpolate_mode or "nearest"
         self._cache = [self.load_utterance(p) for p in self.paths] if hps.train.all_in_mem else None

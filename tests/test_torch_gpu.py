@@ -805,3 +805,85 @@ def test_fcpe_model_range_on_card(cuda, monkeypatch):
     np.testing.assert_array_equal(pred.net.cent_table.cpu().numpy(), pred.table)
     f0, _ = pred.compute_f0_uv(bench_signal(1.5, 44100, seed=2))
     assert np.isfinite(f0).all() and f0.max() <= 1000.0 and f0[f0 > 0].min() >= 50.0
+
+
+def _diffusion_run(root, n_layers=2, n_chans=64):
+    """A small diffusion config over 4 clips' seeded artifacts (8 kHz, hop
+    64, 16-frame crops, 16 mels, 32-wide units)."""
+    import json
+
+    import numpy as np
+
+    from sovits_tpu_torch.train import diffusion as tdiff
+
+    rng = np.random.default_rng(0)
+    paths = []
+    for i in range(4):
+        p = root / f"spk{i % 2}" / f"c{i}.wav"
+        p.parent.mkdir(parents=True, exist_ok=True)
+        n = 24 + 4 * i
+        np.save(str(p) + ".f0.npy", np.array([rng.uniform(120, 320, n).astype(np.float32),
+                                              np.ones(n, np.float32)], dtype=object), allow_pickle=True)
+        np.save(str(p) + ".vol.npy", np.abs(rng.standard_normal(n)).astype(np.float32) * 0.1)
+        np.save(str(p) + ".mel.npy", (rng.standard_normal((n, 16)) * 2 - 6).astype(np.float32))
+        np.save(str(p) + ".soft.npy", rng.standard_normal((32, n)).astype(np.float32))
+        paths.append(str(p))
+    (root / "train.txt").write_text("\n".join(paths) + "\n")
+    cfg = {"data": {"sampling_rate": 8000, "block_size": 64, "duration": 0.128, "encoder_out_channels": 32,
+                    "training_files": str(root / "train.txt"), "validation_files": str(root / "train.txt")},
+           "model": {"n_layers": n_layers, "n_chans": n_chans, "n_hidden": 24, "timesteps": 50,
+                     "k_step_max": 0, "n_spk": 2, "use_pitch_aug": True},
+           "train": {"batch_size": 4, "interval_log": 1, "interval_val": 100, "lr": 1e-3},
+           "infer": {"speedup": 5, "method": "dpm-solver++"}, "spk": {"spk0": 0, "spk1": 1}}
+    (root / "diffusion.yaml").write_text(json.dumps(cfg))
+    return tdiff.load_diffusion_config(root / "diffusion.yaml")
+
+
+def test_diffusion_train_step_cuda_matches_cpu(cuda, tmp_path):
+    """One Unit2Mel training step's loss and gradients, card against CPU:
+    the same batch, steps and noise (one CPU generator seed), and the same
+    ReLU branches (``chip_smoke._relu_branches``: the CPU takes the card's;
+    each element it moves lies within 1e-4 of its input's peak of 0)."""
+    import numpy as np
+
+    from chip_smoke import _relu_branches
+    from sovits_tpu_torch.train import diffusion as tdiff
+
+    args = _diffusion_run(tmp_path)
+    ds = tdiff.DiffusionDataset(args.data.training_files, args)
+    rng = np.random.default_rng(3)
+    examples = [ds.example(i, rng) for i in range(4)]
+    sd = factory.init_random_(tdiff.build_unit2mel(args, 16, "cpu"), _g(7)).state_dict()
+    out, record = {}, None
+    for dev in (cuda, torch.device("cpu")):
+        model = tdiff.build_unit2mel(args, 16, dev).train()
+        model.load_state_dict(sd)
+        record, handles = _relu_branches(model, record)
+        loss = tdiff._loss(model, tdiff._batch(examples, dev), torch.Generator().manual_seed(9))
+        loss.backward()
+        for h in handles:
+            h.remove()
+        out[dev.type] = (loss.item(), {k: p.grad.cpu() for k, p in model.named_parameters()})
+    assert all(v <= 1e-4 for _, v in record.values()), record
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    for k, g in out["cuda"][1].items():
+        want = out["cpu"][1][k]
+        assert (g - want).abs().max() <= 1e-4 * want.abs().max(), k
+
+
+def test_train_diffusion_on_card_resumes(cuda, tmp_path):
+    """train_diffusion on the card for 3 steps, then a resume to 5: finite
+    losses, the model on the card, so-vits-svc's checkpoint."""
+    import json
+
+    from sovits_tpu_torch.train import diffusion as tdiff
+
+    args = _diffusion_run(tmp_path)
+    model = tdiff.train_diffusion(args, expdir=tmp_path / "exp", max_steps=3, vocoder_dim=16, device=cuda)
+    assert next(model.parameters()).device.type == "cuda"
+    tdiff.train_diffusion(args, expdir=tmp_path / "exp", max_steps=5, vocoder_dim=16, device=cuda)
+    records = [json.loads(line) for line in (tmp_path / "exp" / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in records if "loss/diffusion" in r] == [1, 2, 3, 4, 5]
+    assert all(torch.isfinite(torch.tensor(v)) for r in records for v in r.values())
+    ckpt = torch.load(tmp_path / "exp" / "model_5.pt", weights_only=False)
+    assert ckpt["global_step"] == 5 and ckpt["optimizer"]["state"][0]["step"] == 5
