@@ -38,12 +38,21 @@ filelists and config, features with --use_diff, four GAN steps at the
 default config with two evaluations, compress and mix, 200 diffusion steps
 at so-vits-svc's template (one profiled) and a resume, one diffusion step
 held against the CPU, the trained model served with shallow diffusion),
-14 training (a feature dataset made by the port itself, six full-width GAN
-steps through ``train``, a resume, a profiled step), 15 three GAN steps
-with the fused tail against the same steps without it, 16 the bf16 GAN
+14 ``[surfaces]``: the HTTP API on 127.0.0.1 answering the 10 s clip raw
+and through RealTimeVC and the song, each twice, each response against the
+direct call, with the server's stage times, 15 ``[export]``: the full-width synthesizer by torch.export, saved,
+loaded and run with K1 and K3 as the sovits operators against the live
+one, the ONNX synthesizer through the port's runtime on the card, the
+diffusion ONNX artifacts with the PLMS loop replayed through them, the
+operators' dispatch cost, and the 10 s request through the operators
+against direct launches, 16 training (a feature dataset made by the port
+itself, six full-width GAN steps through ``train``, a resume, a profiled
+step), 17 three GAN steps with the fused tail against the same steps
+without it, 18 ``[learning]``: tests/test_learning.py's GAN learning proof
+(300 steps on one batch, then train() with a resume), 19 the bf16 GAN
 step at bench.py's training configuration (batch 6 x 512 frames, bf16
 synthesizer and discriminator; its first step against the same step
-through fp32 nets), 17 the trio staging microbench at its defaults, 18
+through fp32 nets), 20 the trio staging microbench at its defaults, 21
 kernel times beside their bounds. Any failure raises, so the script exits non-zero; the
 last line is the JSON result the caller reads. Needs a CUDA card; without
 one (or without the repository around it) it fails before printing a result.
@@ -51,6 +60,7 @@ one (or without the repository around it) it fails before printing a result.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import subprocess
@@ -2563,6 +2573,652 @@ def phase_pipeline(tmp: Path, svc) -> dict:
     return counts
 
 
+# [surfaces], [export], [learning]: the HTTP API over a socket, the exported
+# programs (torch.export .pt2, the ONNX synthesizer and diffusion artifacts),
+# and the GAN learning proof (tests/test_learning.py's twin)
+SURFACES_LIMIT_S = 240
+EXPORT_LIMIT_S = 300
+LEARNING_LIMIT_S = 300
+DAW_RATE = 48000  # /voiceChangeModel answers at the caller's rate: a resample
+EXPORT_FRAMES = 512
+ONNX_FRAMES = 96
+PT2_TOL = dict(rtol=1e-5, atol=1e-6)  # the loaded .pt2 against the live synthesizer, fp32
+ONNX_MEL_L1 = 1e-3  # tests/test_onnx_export.py::test_onnx_fullsize_parity_mel_l1's bar
+PLMS_TOL = dict(rtol=5e-4, atol=5e-4)  # tests/test_onnx_diffusion.py's PLMS replay bar
+DISPATCH_CALLS = 2000
+DISPATCH_ROUNDS = 10
+
+
+def _noise_off():
+    """Svc's synthesizer dispatch with the noise off (the tests' patch); returns its undo."""
+    import functools
+
+    from sovits_tpu_torch.infer.svc import Svc
+
+    original = Svc._run_synth_batch
+    Svc._run_synth_batch = functools.partialmethod(original, sample_noise=False)
+    return lambda: setattr(Svc, "_run_synth_batch", original)
+
+
+def _wav_bytes(wav: np.ndarray, sr: int) -> bytes:
+    import io
+
+    from scipy.io import wavfile
+
+    buf = io.BytesIO()
+    wavfile.write(buf, sr, (np.clip(wav, -1, 1) * 32767).astype(np.int16))
+    return buf.getvalue()
+
+
+def _int16(data: bytes) -> tuple[int, np.ndarray]:
+    import io
+
+    from scipy.io import wavfile
+
+    sr, wav = wavfile.read(io.BytesIO(data))
+    return sr, wav.astype(np.int32)
+
+
+def _post(port: int, path: str, fields: dict) -> tuple[int, bytes, float]:
+    """POST multipart ``fields`` to the API; (status, body, wall s)."""
+    import http.client
+
+    boundary = "smokeboundary"
+    parts = []
+    for name, value in fields.items():
+        parts.append(f"--{boundary}\r\n".encode())
+        if isinstance(value, bytes):
+            parts += [f'Content-Disposition: form-data; name="{name}"; filename="in.wav"\r\n'
+                      "Content-Type: audio/wav\r\n\r\n".encode(), value]
+        else:
+            parts += [f'Content-Disposition: form-data; name="{name}"\r\n\r\n'.encode(), str(value).encode()]
+        parts.append(b"\r\n")
+    parts.append(f"--{boundary}--\r\n".encode())
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=SURFACES_LIMIT_S)
+    t0 = time.perf_counter()
+    conn.request("POST", path, b"".join(parts), {"Content-Type": f"multipart/form-data; boundary={boundary}"})
+    resp = conn.getresponse()
+    body = resp.read()
+    wall = time.perf_counter() - t0
+    conn.close()
+    return resp.status, body, wall
+
+
+def phase_surfaces(svc) -> dict:
+    """serving/api.py on 127.0.0.1 with the full-width fp32 Svc of [main]:
+    the 10 s clip to /voiceChangeModel raw and through RealTimeVC (answered
+    at DAW_RATE), the 59.5 s song to /wav2wav, each twice (the first
+    request on a server's worker thread builds that thread's cuDNN plans);
+    each 200 response against the direct call's int16 wav with the noise
+    off on both sides (equal, or 1 LSB where a resample rounds), its wall
+    over HTTP and direct, the server's stage seconds, and its K1/K3
+    launches (6 and 4 per synthesizer dispatch). Under SURFACES_LIMIT_S.
+    Returns the phase's launches."""
+    import threading
+
+    from sovits_tpu_torch.infer.svc import RealTimeVC
+    from sovits_tpu_torch.serving import api
+
+    t_phase = time.perf_counter()
+    sr = svc.target_sample
+    clip, whole = bench_signal(SECONDS, sr), song(sr)
+
+    def run():
+        undo = _noise_off()
+        servers = []
+        try:
+            for raw in (True, False):
+                srv = api.make_server(svc, "127.0.0.1", 0, raw_infer=raw, f0_predictor="dio")
+                threading.Thread(target=srv.serve_forever, daemon=True).start()
+                servers.append(srv)
+            realtime = RealTimeVC()
+            voice = {"sample": _wav_bytes(clip, sr), "fPitchChange": 0, "sampleRate": DAW_RATE, "sSpeakId": 0}
+            song_fields = {"audio": _wav_bytes(whole, sr), "tran": 0, "spk": 0}
+            wav_clip = api.wav_bytes_to_array(voice["sample"])[0]
+            wav_song = api.wav_bytes_to_array(song_fields["audio"])[0]
+            requests = [
+                ("voiceChangeModel raw 10 s", servers[0], "/voiceChangeModel", voice, DAW_RATE,
+                 lambda: svc.infer(0, 0, wav_clip, sr=sr, f0_predictor="dio")[0]),
+                ("voiceChangeModel RealTimeVC 10 s", servers[1], "/voiceChangeModel", voice, DAW_RATE,
+                 lambda: realtime.process(svc, 0, 0, wav_clip, sr, f0_predictor="dio")),
+                ("wav2wav 59.5 s song", servers[0], "/wav2wav", song_fields, sr,
+                 lambda: svc.slice_inference(wav_song, sr, 0, 0, slice_db=-40, f0_predictor="dio")),
+            ]
+            _reset_counts()
+            for what, srv, path, fields, out_sr, direct in requests:
+                for call in ("first", "warm"):  # the first on a server's worker thread plans its convs
+                    before = _counts()
+                    stages_before = srv.timer.summary()
+                    status, body, http_wall = _post(srv.server_address[1], path, fields)
+                    torch.cuda.synchronize()
+                    c_http = _launched(before)
+                    server_ms = {k: 1e3 * (v["total_s"] - stages_before.get(k, {"total_s": 0.0})["total_s"])
+                                 for k, v in srv.timer.summary().items()}
+                    if status != 200:
+                        raise AssertionError(f"[surfaces] {what}: HTTP {status} {body[:300]!r}")
+                    before = _counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = direct()
+                    if out_sr != sr:
+                        out = api.resample(np.asarray(out), sr, out_sr)
+                    want = api.array_to_wav_bytes(out, out_sr)
+                    direct_wall = time.perf_counter() - t0
+                    c_direct = _launched(before)
+                    (got_sr, got), (want_sr, want) = _int16(body), _int16(want)
+                    diff = np.abs(got - want).max() if got.shape == want.shape else None
+                    k1, k3 = c_http["rel_attention"], c_http["resblock_trio"]
+                    ok = (got_sr == want_sr == out_sr and diff is not None and diff <= 1 and k1 > 0
+                          and k1 % 6 == 0 and k3 == k1 // 6 * 4 and c_direct == c_http)
+                    log("surfaces", request=repr(what), call=call, status=status, samples=len(got), rate=got_sr,
+                        http_wall_s=f"{http_wall:.4f}", direct_wall_s=f"{direct_wall:.4f}",
+                        http_over_direct_ms=f"{1e3 * (http_wall - direct_wall):.2f}",
+                        max_lsb_diff=diff, lsb_off=int((got != want).sum()) if diff is not None else None,
+                        rel_attention=k1, resblock_trio=k3, peak=f"{np.abs(got).max() / 32767:.4f}", ok=ok)
+                    log("surfaces", request=repr(what), call=call,
+                        server_stage_ms={k: f"{v:.2f}" for k, v in server_ms.items()},
+                        server_ms=f"{sum(server_ms.values()):.2f}",
+                        outside_server_ms=f"{1e3 * http_wall - sum(server_ms.values()):.2f}")
+                    if not ok:
+                        raise AssertionError(f"[surfaces] {what}: {diff} LSB, launches {c_http} / {c_direct}")
+            status, body, _ = _post(servers[0].server_address[1], "/nowhere", {"x": 1})
+            if status != 404:
+                raise AssertionError(f"[surfaces] a wrong path answered {status}")
+            return _counts()
+        finally:
+            undo()
+            for srv in servers:
+                srv.shutdown()
+                srv.server_close()
+
+    counts = _limited("surfaces", SURFACES_LIMIT_S, run)
+    log("surfaces", phase_s=f"{time.perf_counter() - t_phase:.1f}", limit_s=SURFACES_LIMIT_S, launches=counts)
+    return counts
+
+
+def _synth_inputs(hps, t: int, seed: int) -> tuple:
+    """Seeded Synthesizer.infer inputs on the card: units, f0 with an
+    unvoiced head, uv, speaker 0."""
+    g = torch.Generator().manual_seed(seed)
+    c = 0.3 * torch.randn(1, t, hps.model.ssl_dim, generator=g)
+    f0 = 100.0 + 300.0 * torch.rand(1, t, generator=g)
+    f0[:, :3] = 0.0
+    return tuple(x.cuda() for x in (c, f0, (f0 > 0).float(), torch.zeros(1, dtype=torch.long)))
+
+
+def _walls(fns: dict, reps: int = 5) -> dict:
+    """Median synchronised wall (s) of each callable, taken in turns."""
+    walls = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[k].append(time.perf_counter() - t0)
+    return {k: float(np.median(v)) for k, v in walls.items()}
+
+
+def dispatch_cost(calls: int = DISPATCH_CALLS) -> dict:
+    """Host microseconds per K1 and K3 launch through the sovits operator
+    against the direct launch it wraps (``_launch_fwd`` / ``_launch``), at
+    shapes small enough that the host, not the card, sets the pace: calls
+    queued back to back, timed between synchronises, in turns."""
+    from sovits_tpu_torch.ops import attention as A
+    from sovits_tpu_torch.ops import fused_stage as S
+
+    g = torch.Generator().manual_seed(77)
+    q, k, v = (torch.randn(2, 128, 96, generator=g).cuda() for _ in range(3))
+    rk, rv = (0.1 * torch.randn(9, 96, generator=g).cuda() for _ in range(2))
+    km = torch.ones(2, 128, device="cuda")
+    x = torch.randn(1, 256, 16, generator=g).cuda()
+    ks = [0.05 * torch.randn(kk, 16, 16, generator=g).cuda() for kk in (3, 7, 11) for _ in range(6)]
+    bs = [torch.zeros(16, device="cuda") for _ in range(18)]
+    dils = ((1, 3, 5),) * 3
+    fns = {
+        "k1_op": lambda: A.rel_attention_fwd(q, k, v, rk, rv, km, None, 4, False, False),
+        "k1_direct": lambda: A._launch_fwd(q, k, v, rk, rv, km, None, 4, False, False),
+        "k3_op": lambda: S.resblock_trio(x, ks, bs, [3, 7, 11], [1, 3, 5] * 3, [3, 3, 3]),
+        "k3_direct": lambda: S._launch(x, ks, bs, (3, 7, 11), dils),
+    }
+    us = {name: [] for name in fns}
+    for fn in fns.values():
+        fn()
+    for _ in range(3):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            host = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            us[name].append(1e6 * host / calls)
+    out = {name: min(v) for name, v in us.items()}
+    out["k1_dispatch_us"] = out["k1_op"] - out["k1_direct"]
+    out["k3_dispatch_us"] = out["k3_op"] - out["k3_direct"]
+    return out
+
+
+@contextlib.contextmanager
+def _direct_launches():
+    """K1's forward and K3 launched straight through ``_launch_fwd`` /
+    ``_launch``, past the sovits operators (the modules' ``_forward``
+    patched), for the block."""
+    from sovits_tpu_torch.ops import attention as A
+    from sovits_tpu_torch.ops import fused_stage as S
+
+    def k1(q, k, v, rel_k, rel_v, key_mask, drop_mask, window, causal, want_lse):
+        out, lse = A._launch_fwd(q, k, v, rel_k, rel_v, key_mask, drop_mask,
+                                 -1 if window is None else window, causal, want_lse)
+        return out, lse if want_lse else None
+
+    saved = A._forward, S._forward
+    A._forward, S._forward = k1, S._launch
+    try:
+        yield
+    finally:
+        A._forward, S._forward = saved
+
+
+def dispatch_ab(svc, rounds: int = DISPATCH_ROUNDS) -> dict:
+    """The fp32 10 s request of [main] (Svc.infer) and its synthesizer
+    dispatch alone, with K1 and K3 launched through the sovits operators and
+    then straight (:func:`_direct_launches`), in turns, in one process:
+    median and min ms of each, and the K1/K3 launches of one request by
+    either route."""
+    sr = svc.target_sample
+    clip = bench_signal(SECONDS, sr)
+    item = svc._prepare_chunk(0, 0, clip, sr, 0.0, False, "dio", 0.05)
+    fns = {"request": lambda: svc.infer(0, 0, clip, sr=sr, f0_predictor="dio"),
+           "synth": lambda: svc._run_synth_batch([item], 0.4, False, 52468)}
+    ms = {f"{k}_{route}": [] for k in fns for route in ("op", "direct")}
+    launches = {}
+    for _ in range(rounds + 1):  # the first round warms up and is dropped
+        for route in ("op", "direct"):
+            with contextlib.ExitStack() as stack:
+                if route == "direct":
+                    stack.enter_context(_direct_launches())
+                for k, fn in fns.items():
+                    before = _counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    ms[f"{k}_{route}"].append(1e3 * (time.perf_counter() - t0))
+                    if k == "request":
+                        launches[route] = _launched(before)
+    out = {}
+    for k, v in ms.items():
+        out[f"{k}_median_ms"] = float(np.median(v[1:]))
+        out[f"{k}_min_ms"] = float(np.min(v[1:]))
+    for k in fns:
+        out[f"{k}_op_minus_direct_median_ms"] = out[f"{k}_op_median_ms"] - out[f"{k}_direct_median_ms"]
+    if launches["op"] != launches["direct"] or launches["op"]["rel_attention"] != 6:
+        raise AssertionError(f"[export] the two routes launched {launches}")
+    return out
+
+
+def _kernel_profile(fn) -> dict:
+    """Wall ms, device busy ms and device kernels of one call of fn under
+    torch.profiler (ending in a synchronize)."""
+    prof, t0 = _profile_start()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof.stop()
+    cuda = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and (getattr(e, "self_device_time_total", 0) or 0) > 0]
+    return {"wall_ms": f"{1e3 * wall:.3f}", "busy_ms": f"{sum(e.self_device_time_total for e in cuda) / 1e3:.3f}",
+            "kernels": sum(e.count for e in cuda)}
+
+
+def phase_export(tmp: Path, svc) -> dict:
+    """The full-width synthesizer of [main] exported on the card by
+    torch.export at EXPORT_FRAMES, saved, loaded and run: it must match the
+    live Synthesizer.infer (PT2_TOL) and launch K1 and K3; export seconds,
+    .pt2 MB and the walls of the exported program and the live one. The
+    ONNX synthesizer from the same model, run through the port's runtime on
+    the card at ONNX_FRAMES: log-mel L1 against Synthesizer.infer <
+    ONNX_MEL_L1. The four diffusion artifacts of the [diffusion] template
+    written by the export CLI on the card, and the PLMS loop replayed
+    through them against the port's sample_plms. The sovits operators'
+    dispatch cost per launch. Under EXPORT_LIMIT_S. Returns the launches of
+    the exported program's calls."""
+    from sovits_tpu_torch.cli import export as export_cli
+    from sovits_tpu_torch.dsp.stft import mel_spectrogram
+    from sovits_tpu_torch.export.onnx_run import Session
+    from sovits_tpu_torch.export.onnx_synth import build_synthesizer_onnx
+
+    t_phase = time.perf_counter()
+    hps, model = svc.hps, svc.model
+    out_dir = tmp / "export"
+    out_dir.mkdir()
+
+    def run():
+        t0 = time.perf_counter()
+        program = export_cli.export_program(model, hps, EXPORT_FRAMES)
+        export_s = time.perf_counter() - t0
+        path = out_dir / "model.pt2"
+        t0 = time.perf_counter()
+        torch.export.save(program, path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        call = export_cli.load_exported(str(path))
+        load_s = time.perf_counter() - t0
+        ops = sorted({str(n.target) for n in program.graph.nodes if "sovits" in str(n.target)})
+        args = _synth_inputs(hps, EXPORT_FRAMES, seed=90)
+        _reset_counts()
+        with torch.no_grad():
+            got = call(*args)
+            torch.cuda.synchronize()
+            counts = _counts()
+            want = model.infer(*args, sample_noise=False)[0]
+            walls = _walls({"exported": lambda: call(*args),
+                            "live": lambda: model.infer(*args, sample_noise=False)}, reps=9)
+            profiles = {"exported": _kernel_profile(lambda: call(*args)),
+                        "live": _kernel_profile(lambda: model.infer(*args, sample_noise=False))}
+        err = (got - want).abs().max().item()
+        ok = (torch.allclose(got, want, **PT2_TOL) and counts["rel_attention"] == 6
+              and counts["resblock_trio"] == 4 and len(ops) == 2)
+        log("export", what="torch.export of Synthesizer.infer", frames=EXPORT_FRAMES, ops=ops,
+            export_s=f"{export_s:.2f}", save_s=f"{save_s:.2f}", load_s=f"{load_s:.2f}",
+            pt2_mb=f"{path.stat().st_size / 1e6:.1f}", rel_attention=counts["rel_attention"],
+            resblock_trio=counts["resblock_trio"], max_abs_err=f"{err:.3e}",
+            tol=f"rtol {PT2_TOL['rtol']} atol {PT2_TOL['atol']}",
+            exported_wall_ms=f"{1e3 * walls['exported']:.3f}", live_wall_ms=f"{1e3 * walls['live']:.3f}",
+            peak=f"{want.abs().max().item():.4f}", ok=ok)
+        saved = list(program.state_dict)
+        log("export", what="one call of each under torch.profiler", **profiles,
+            graph_nodes=sum(n.op == "call_function" for n in program.graph.nodes), state_tensors=len(saved),
+            weight_norm_params=sum(k.endswith(("weight_g", "weight_v")) for k in saved))
+        if not ok:
+            raise AssertionError(f"[export] the loaded .pt2: err {err}, launches {counts}, ops {ops}")
+
+        t0 = time.perf_counter()
+        mb = build_synthesizer_onnx(model, hps, chara_mix=False)
+        build_s = time.perf_counter() - t0
+        c, f0, uv, spk = _synth_inputs(hps, ONNX_FRAMES, seed=91)
+        feeds = {"c": c.cpu().numpy(), "f0": f0.cpu().numpy(), "uv": uv.cpu().numpy(),
+                 "mel2ph": np.arange(1, ONNX_FRAMES + 1, dtype=np.int64)[None],
+                 "noise": np.zeros((1, hps.model.inter_channels, ONNX_FRAMES), np.float32),
+                 "sid": np.zeros((1,), np.int64)}
+        t0 = time.perf_counter()
+        session = Session(mb, "cuda")
+        audio = session(feeds)["audio"][0, 0]
+        onnx_s = time.perf_counter() - t0
+        with torch.no_grad():
+            ref = model.infer(c, f0, uv, spk, sample_noise=False)[0][0, :, 0].cpu().numpy()
+        d = hps.data
+        mel_kw = dict(n_fft=d.filter_length, n_mels=d.n_mel_channels, sample_rate=d.sampling_rate,
+                      hop_length=d.hop_length, win_length=d.win_length, fmin=d.mel_fmin, fmax=d.mel_fmax)
+        mels = [mel_spectrogram(torch.from_numpy(a[None]), **mel_kw) for a in (audio, ref)]
+        l1 = (mels[0] - mels[1]).abs().mean().item()
+        ok = audio.shape == ref.shape and np.isfinite(audio).all() and l1 < ONNX_MEL_L1
+        log("export", what="ONNX synthesizer, port runtime on the card", frames=ONNX_FRAMES,
+            onnx_mb=f"{len(mb) / 1e6:.1f}", nodes=len(session.graph.nodes), build_s=f"{build_s:.2f}",
+            load_and_run_s=f"{onnx_s:.2f}", max_abs=f"{np.abs(audio - ref).max():.3e}",
+            mel_l1=f"{l1:.3e}", limit=ONNX_MEL_L1, ok=ok)
+        if not ok:
+            raise AssertionError(f"[export] ONNX synthesizer: log-mel L1 {l1}")
+
+        files = tmp / "diffusion"
+        prefix = out_dir / "diffusion"
+        t0 = time.perf_counter()
+        export_cli.main(["-m", str(files / "model_0.pt"), "-c", str(files / "config.yaml"),
+                         "-o", f"{prefix}.onnx", "--onnx", "--diffusion", "-d", "cuda"])
+        cli_s = time.perf_counter() - t0
+        unit2mel = export_cli.load_unit2mel(str(files / "model_0.pt"), str(files / "config.yaml"), "cuda")
+        graphs = {k: Session((out_dir / f"diffusion_{k}.onnx").read_bytes(), "cuda")
+                  for k in ("encoder", "denoise", "pred", "after")}
+        t = 100
+        g = torch.Generator().manual_seed(92)
+        enc_feeds = {"hubert": (0.3 * torch.randn(1, t, unit2mel.unit_embed.in_features, generator=g)).numpy(),
+                     "mel2ph": np.arange(1, t + 1, dtype=np.int64)[None],
+                     "f0": (100.0 + 300.0 * torch.rand(1, t, generator=g)).numpy(),
+                     "volume": (0.1 * torch.rand(1, t, generator=g)).numpy()}
+        cond = graphs["encoder"](enc_feeds)["mel_pred"]
+        x0 = torch.randn(1, 1, unit2mel.out_dims, t, generator=g).numpy()
+        t0 = time.perf_counter()
+        got = plms_via_onnx(graphs, x0, cond, K_STEP, 10)
+        replay_s = time.perf_counter() - t0
+        sched = unit2mel.schedule
+        with torch.no_grad():
+            f = {k: torch.from_numpy(v).cuda() for k, v in enc_feeds.items() if k != "mel2ph"}
+            cond_ref = unit2mel.condition(f["hubert"], f["f0"], f["volume"]).transpose(1, 2)
+            x = sched.sample_plms(unit2mel.decoder["denoise_fn"], torch.from_numpy(x0[:, 0]).cuda(), K_STEP,
+                                  10, torch.from_numpy(cond).cuda())
+            want = sched.denorm_spec(x).cpu().numpy()
+        cond_err = (torch.from_numpy(cond).cuda() - cond_ref).abs().max().item()
+        err = np.abs(got - want).max()
+        ok = np.allclose(got, want, **PLMS_TOL) and cond_err < 1e-4
+        log("export", what="diffusion ONNX (CLI on the card) + PLMS replay against sample_plms",
+            mb={k: f"{(out_dir / f'diffusion_{k}.onnx').stat().st_size / 1e6:.1f}" for k in graphs},
+            cli_s=f"{cli_s:.2f}", frames=t, k_step=K_STEP, speedup=10, replay_s=f"{replay_s:.2f}",
+            condition_max_abs=f"{cond_err:.3e}", mel_max_abs=f"{err:.3e}",
+            tol=f"rtol {PLMS_TOL['rtol']} atol {PLMS_TOL['atol']}", ok=ok)
+        if not ok:
+            raise AssertionError(f"[export] PLMS replay: {err}, condition {cond_err}")
+        cost = dispatch_cost()
+        log("export", what=f"host us per launch, {DISPATCH_CALLS} back-to-back calls, best of 3",
+            **{k: f"{v:.2f}" for k, v in cost.items()}, k1_per_request=6, k3_per_request=4,
+            dispatch_per_10s_request_us=f"{6 * cost['k1_dispatch_us'] + 4 * cost['k3_dispatch_us']:.1f}")
+        ab = dispatch_ab(svc)
+        log("export", what=f"fp32 10 s request, operators against direct launches, {DISPATCH_ROUNDS} rounds in turns",
+            **{k: f"{v:.3f}" for k, v in ab.items()})
+        return counts
+
+    counts = _limited("export", EXPORT_LIMIT_S, run)
+    log("export", phase_s=f"{time.perf_counter() - t_phase:.1f}", limit_s=EXPORT_LIMIT_S, launches=counts)
+    return counts
+
+
+def plms_via_onnx(graphs: dict, x: np.ndarray, cond: np.ndarray, k_step: int, speedup: int) -> np.ndarray:
+    """The MoeSS-side PLMS driver (so-vits-svc diffusion_onnx.py:494-559)
+    over loaded denoise/pred/after sessions; returns the mel [1, M, T]."""
+    def denoise(x, t):
+        return graphs["denoise"]({"noise": x, "time": np.asarray([t], np.int64), "condition": cond})["noise_pred"]
+
+    def x_pred(x, noise_pred, t, t_prev):
+        return graphs["pred"]({"noise": x, "noise_pred": noise_pred, "time": np.asarray([t], np.int64),
+                               "time_prev": np.asarray([t_prev], np.int64)})["noise_pred_o"]
+
+    hist: list = []
+    for stage, t in enumerate(range(k_step - speedup, -1, -speedup)):
+        eps = denoise(x, t)
+        t_prev = max(t - speedup, 0)
+        if stage == 0:
+            eps_prime = (eps + denoise(x_pred(x, eps, t, t_prev), t_prev)) / 2.0
+        elif stage == 1:
+            eps_prime = (3.0 * eps - hist[-1]) / 2.0
+        elif stage == 2:
+            eps_prime = (23.0 * eps - 16.0 * hist[-1] + 5.0 * hist[-2]) / 12.0
+        else:
+            eps_prime = (55.0 * eps - 59.0 * hist[-1] + 37.0 * hist[-2] - 9.0 * hist[-3]) / 24.0
+        hist = (hist + [eps])[-3:]
+        x = x_pred(x, eps_prime, t, t_prev)
+    return graphs["after"]({"x": x})["mel_out"]
+
+
+# a copy of tests/tiny.py's TINY_OVERRIDES (that module imports JAX)
+LEARNING_TINY = {
+    "train.segment_size": 256, "train.batch_size": 8, "data.sampling_rate": 8000,
+    "data.filter_length": 128, "data.hop_length": 64, "data.win_length": 128,
+    "data.n_mel_channels": 20, "data.mel_fmax": 4000, "data.pad_to_frames": 16,
+    "model.inter_channels": 32, "model.hidden_channels": 32, "model.filter_channels": 64,
+    "model.n_layers": 1, "model.upsample_rates": [4, 4, 4], "model.upsample_kernel_sizes": [8, 8, 8],
+    "model.upsample_initial_channel": 32, "model.gin_channels": 16, "model.ssl_dim": 24,
+    "model.n_speakers": 4, "model.n_flow_layer": 2,
+    # tests/test_learning.py's
+    "train.learning_rate": 8e-4, "model.disc_tiny": True,
+}
+LEARNING_STEPS = 300
+LEARNING_FIRST, LEARNING_SECOND, LEARNING_WINDOW = 120, 60, 20
+
+
+def learning_hps(**extra):
+    from sovits_tpu_torch import config as scfg
+
+    return scfg.default_config(**{**LEARNING_TINY, **extra})
+
+
+def sine_batch(hps, b: int = 8, frames: int = 64, seed: int = 11) -> dict:
+    """tests/test_learning.py's fixed overfit batch: pure sines, one
+    frequency per item, seeded random units; on the card."""
+    from sovits_tpu_torch.dsp.stft import spectrogram
+
+    rng = np.random.default_rng(seed)
+    d = hps.data
+    t = np.arange(frames * d.hop_length) / d.sampling_rate
+    freqs = 150.0 + 22.0 * np.arange(b)
+    wav = (0.3 * np.sin(2 * np.pi * freqs[:, None] * t)).astype(np.float32)
+    spec = spectrogram(torch.from_numpy(wav), d.filter_length, d.hop_length, d.win_length)
+    batch = {"c": rng.standard_normal((b, frames, hps.model.ssl_dim)).astype(np.float32),
+             "f0": np.repeat(freqs[:, None], frames, 1).astype(np.float32),
+             "uv": np.ones((b, frames), np.float32), "spec": spec.numpy(), "wav": wav[..., None],
+             "spk": np.arange(b) % hps.model.n_speakers, "lengths": np.full(b, frames),
+             "volume": np.abs(wav).reshape(b, frames, d.hop_length).mean(-1)}
+    return {k: torch.from_numpy(np.asarray(v)).cuda() for k, v in batch.items()}
+
+
+def write_learning_dataset(root: Path, hps, n_speakers: int = 2, n_per_spk: int = 3) -> None:
+    """tests/tiny.py's make_synthetic_dataset in the port: 0.5 s sines at
+    8 kHz with their f0, spectrogram, seeded units and volume; filelists
+    (the last clip for validation) and the speakers into ``hps``."""
+    from scipy.io import wavfile
+
+    from sovits_tpu_torch import config as scfg
+    from sovits_tpu_torch.dsp.stft import spectrogram
+
+    rng = np.random.default_rng(0)
+    d = hps.data
+    n = int(d.sampling_rate * 0.5) // d.hop_length * d.hop_length
+    frames, paths = n // d.hop_length, []
+    for s in range(n_speakers):
+        (root / f"spk{s}").mkdir(parents=True)
+        for i in range(n_per_spk):
+            freq = 150.0 + 50 * s + 10 * i
+            wav = (0.3 * np.sin(2 * np.pi * freq * np.arange(n) / d.sampling_rate)).astype(np.float32)
+            p = str(root / f"spk{s}" / f"clip{i}.wav")
+            wavfile.write(p, d.sampling_rate, (wav * 32767).astype(np.int16))
+            np.save(p + ".f0.npy", np.stack([np.full(frames, freq, np.float32), np.ones(frames, np.float32)]))
+            spec = spectrogram(torch.from_numpy(wav)[None], d.filter_length, d.hop_length, d.win_length)
+            np.save(p + ".spec.npy", spec[0].T.numpy())
+            np.save(p + ".soft.npy", rng.standard_normal((hps.model.ssl_dim, frames)).astype(np.float32))
+            np.save(p + ".vol.npy", np.abs(wav).reshape(frames, d.hop_length).mean(1).astype(np.float32))
+            paths.append(p)
+    (root / "train.txt").write_text("\n".join(paths[:-1]) + "\n")
+    (root / "val.txt").write_text(paths[-1] + "\n")
+    hps.data["training_files"], hps.data["validation_files"] = str(root / "train.txt"), str(root / "val.txt")
+    hps["spk"] = scfg.HParams(**{f"spk{s}": s for s in range(n_speakers)})
+
+
+def phase_learning(tmp: Path) -> dict:
+    """tests/test_learning.py on the card: LEARNING_STEPS fp32 GAN steps on
+    one fixed sine batch at its tiny config: the last 25 steps' mean mel loss
+    < 0.7 x the first 25's and the total < 0.8 x, the synthesis afterwards
+    finite and not silent; then train() to LEARNING_FIRST steps on a
+    synthetic dataset and resumed to LEARNING_FIRST + LEARNING_SECOND: the
+    first window after the resume < 1.15 x the one before it, the tail <=
+    1.05 x. Under LEARNING_LIMIT_S. Returns its K1/K2 launches."""
+    from sovits_tpu_torch.dsp.stft import mel_spectrogram
+    from sovits_tpu_torch.models import factory
+    from sovits_tpu_torch.train.optim import make_optimizer
+    from sovits_tpu_torch.train.step import train_step
+    from sovits_tpu_torch.train.trainer import train
+
+    t_phase = time.perf_counter()
+
+    def run():
+        hps = learning_hps()
+        d = hps.data
+        batch = sine_batch(hps)
+        init = torch.Generator().manual_seed(0)
+        net_g = factory.init_random_(factory.build_synthesizer(hps, "cpu", fused_tail=False), init).cuda()
+        net_d = factory.init_random_(factory.build_discriminator(hps, "cpu"), init).cuda()
+        opts = [make_optimizer(n.parameters(), hps) for n in (net_g, net_d)]
+        mel_kw = dict(n_fft=d.filter_length, n_mels=d.n_mel_channels, sample_rate=d.sampling_rate,
+                      hop_length=d.hop_length, win_length=d.win_length, fmin=d.mel_fmin, fmax=d.mel_fmax)
+
+        def synth():
+            net_g.eval()
+            with torch.no_grad():
+                wav_hat = net_g.infer(batch["c"], batch["f0"], batch["uv"], batch["spk"], vol=batch["volume"],
+                                      sample_noise=False)[0][..., 0]
+            net_g.train()
+            gt = mel_spectrogram(batch["wav"][..., 0], **mel_kw)
+            got = mel_spectrogram(wav_hat, **mel_kw)
+            tm = min(gt.shape[1], got.shape[1])
+            return wav_hat, (gt[:, :tm] - got[:, :tm]).abs().mean().item()
+
+        _, mel0 = synth()
+        net_d.train()
+        gen = torch.Generator(device="cuda")
+        _reset_counts()
+        t0 = time.perf_counter()
+        trace = []
+        for i in range(LEARNING_STEPS):
+            gen.manual_seed(3 + i)
+            m = train_step(net_g, net_d, *opts, batch, hps, generator=gen)
+            trace.append([m[k].item() for k in ("loss/g/total", "loss/g/mel", "loss/d/total")])
+        steps_s = time.perf_counter() - t0
+        counts = _counts()
+        g_tot, g_mel, d_tot = np.asarray(trace).T
+        wav_hat, mel1 = synth()
+        wav_hat = wav_hat.float().cpu().numpy()
+        k = LEARNING_STEPS // 12
+        w0 = wav_hat[0] - wav_hat[0].mean()
+        power = np.abs(np.fft.rfft(w0 * np.hanning(len(w0)))) ** 2 + 1e-20
+        flatness = float(np.exp(np.mean(np.log(power))) / power.mean())
+        peak = float(np.abs(wav_hat).max())
+        ok = (np.isfinite(trace).all() and g_mel[-k:].mean() < 0.7 * g_mel[:k].mean()
+              and g_tot[-k:].mean() < 0.8 * g_tot[:k].mean() and np.isfinite(wav_hat).all()
+              and 1e-3 < peak < 10.0 and counts["rel_attention"] > 0 and counts["rel_attention_bwd"] > 0)
+        log("learning", what=f"{LEARNING_STEPS} fp32 GAN steps on one sine batch (tests/test_learning.py)",
+            steps_s=f"{steps_s:.2f}", step_ms=f"{1e3 * steps_s / LEARNING_STEPS:.2f}",
+            g_mel_first=f"{g_mel[:k].mean():.4f}", g_mel_last=f"{g_mel[-k:].mean():.4f}",
+            g_mel_ratio=f"{g_mel[-k:].mean() / g_mel[:k].mean():.4f}", limit_mel=0.7,
+            g_total_ratio=f"{g_tot[-k:].mean() / g_tot[:k].mean():.4f}", limit_total=0.8,
+            d_total_first=f"{d_tot[:k].mean():.4f}", d_total_last=f"{d_tot[-k:].mean():.4f}",
+            eval_mel_l1_before=f"{mel0:.4f}", eval_mel_l1_after=f"{mel1:.4f}",
+            synth_peak=f"{peak:.4f}", spectral_flatness=f"{flatness:.4f}",
+            rel_attention=counts["rel_attention"], rel_attention_bwd=counts["rel_attention_bwd"], ok=ok)
+        if not ok:
+            raise AssertionError(f"[learning] the GAN did not learn: mel {g_mel[:k].mean()} -> "
+                                 f"{g_mel[-k:].mean()}, total {g_tot[:k].mean()} -> {g_tot[-k:].mean()}, "
+                                 f"peak {peak}, launches {counts}")
+
+        hps = learning_hps(**{"train.log_interval": 1, "train.eval_interval": 10_000, "train.epochs": 10_000})
+        write_learning_dataset(tmp / "learning" / "data", hps)
+        model_dir = tmp / "learning" / "model"
+        walls, before = [], _counts()
+        for steps in (LEARNING_FIRST, LEARNING_FIRST + LEARNING_SECOND):
+            t0 = time.perf_counter()
+            train(hps, model_dir, max_steps=steps, device="cuda")
+            walls.append(time.perf_counter() - t0)
+        trained = _launched(before)
+        recs = [json.loads(line) for line in (model_dir / "metrics.jsonl").read_text().splitlines()]
+        mel = {r["step"]: r["loss/g/mel"] for r in recs if "loss/g/mel" in r}
+        first, w = LEARNING_FIRST, LEARNING_WINDOW
+        window = lambda lo: float(np.mean([mel[s] for s in range(lo, lo + w)]))  # noqa: E731
+        head, pre, post = window(1), window(first - w + 1), window(first + 1)
+        tail = window(first + LEARNING_SECOND - w + 1)
+        ok = (sorted(mel) == list(range(1, first + LEARNING_SECOND + 1)) and post < pre * 1.15 + 1e-6
+              and tail <= pre * 1.05 + 1e-6)
+        log("learning", what=f"train() to {first} steps, resumed to {first + LEARNING_SECOND}",
+            steps_logged=len(mel), first_run_s=f"{walls[0]:.2f}", resumed_run_s=f"{walls[1]:.2f}",
+            head=f"{head:.4f}", pre=f"{pre:.4f}", post=f"{post:.4f}", tail=f"{tail:.4f}",
+            pre_over_head=f"{pre / head:.4f}", post_over_pre=f"{post / pre:.4f}", limit_post=1.15,
+            tail_over_pre=f"{tail / pre:.4f}", limit_tail=1.05,
+            rel_attention=trained["rel_attention"], rel_attention_bwd=trained["rel_attention_bwd"], ok=ok)
+        if not ok:
+            raise AssertionError(f"[learning] the resume did not continue: pre {pre}, post {post}, tail {tail}")
+        return _counts()
+
+    counts = _limited("learning", LEARNING_LIMIT_S, run)
+    log("learning", phase_s=f"{time.perf_counter() - t_phase:.1f}", limit_s=LEARNING_LIMIT_S, launches=counts)
+    return counts
+
+
 def phase_cli_diffusion(tmp: Path, files: dict) -> None:
     """``python -m sovits_tpu_torch.cli.infer -shd`` on the card, from the
     directory ``phase_cli`` prepared (its encoder checkpoint and 12 s song)."""
@@ -3086,9 +3742,12 @@ def main() -> None:
         encoders = phase_encoders(Path(tmp))
         cluster = phase_cluster(Path(tmp), svc)
         pipeline = phase_pipeline(Path(tmp), svc)
+        surfaces = phase_surfaces(svc)
+        export = phase_export(Path(tmp), svc)
         del svc16
         train, hps = phase_train(Path(tmp), svc.encoder)
         fused_tail = phase_train_fused_tail(hps)
+        learning = phase_learning(Path(tmp))
     train_bf16 = phase_train_bf16()
     k4 = {f"trio_shift_{r['variant']}": r for r in phase_trio_shift()}
     times = phase_times()
@@ -3099,21 +3758,24 @@ def main() -> None:
                           "configs": configs32["rel_attention"],
                           "diffusion": diffusion32["rel_attention"], "frontend": frontend["rel_attention"],
                           "encoders": encoders["rel_attention"], "cluster": cluster["rel_attention"],
-                          "pipeline": pipeline["rel_attention"], "train": train["rel_attention"],
-                          "train_fused_tail": fused_tail["rel_attention"]},
+                          "pipeline": pipeline["rel_attention"], "surfaces": surfaces["rel_attention"],
+                          "export": export["rel_attention"], "train": train["rel_attention"],
+                          "train_fused_tail": fused_tail["rel_attention"], "learning": learning["rel_attention"]},
         "rel_attention_bf16": {"infer_bf16": infer_bf16["rel_attention_bf16"],
                                "slice_bf16": slice16["rel_attention_bf16"],
                                "configs_bf16": configs16["rel_attention_bf16"],
                                "diffusion_bf16": diffusion16["rel_attention_bf16"],
                                "train_bf16": train_bf16["rel_attention_bf16"]},
-        "rel_attention_bwd": {"pipeline": pipeline["rel_attention_bwd"], "train": train["rel_attention_bwd"]},
+        "rel_attention_bwd": {"pipeline": pipeline["rel_attention_bwd"], "train": train["rel_attention_bwd"],
+                              "learning": learning["rel_attention_bwd"]},
         "rel_attention_bwd_bf16": {"train_bf16": train_bf16["rel_attention_bwd_bf16"]},
         "resblock_trio": {"infer": infer["resblock_trio"], "slice": slice32["resblock_trio"],
                           "configs": configs32["resblock_trio"],
                           "diffusion": diffusion32["resblock_trio"],
                           "diffusion_bf16": diffusion16["resblock_trio"], "frontend": frontend["resblock_trio"],
                           "encoders": encoders["resblock_trio"], "cluster": cluster["resblock_trio"],
-                          "pipeline": pipeline["resblock_trio"], "train_fused_tail": fused_tail["resblock_trio"]},
+                          "pipeline": pipeline["resblock_trio"], "surfaces": surfaces["resblock_trio"],
+                          "export": export["resblock_trio"], "train_fused_tail": fused_tail["resblock_trio"]},
         "resblock_trio_bf16": {"infer_bf16": infer_bf16["resblock_trio_bf16"],
                                "slice_bf16": slice16["resblock_trio_bf16"],
                                "configs_bf16": configs16["resblock_trio_bf16"],

@@ -110,10 +110,28 @@ class WeightNormed(Cast, nn.Module):
         self._weight_cast = self.weight.to(self.dtype)  # the buffer itself for float32
         self._folded_from = (self._source(), self.dtype)
 
+    @torch.no_grad()
+    def freeze_weight_norm(self) -> None:
+        """Fold g * v / ||v|| for good into a saved float32 ``weight`` buffer
+        and drop g and v (torch's ``remove_weight_norm``): for inference
+        only, as in a module that ``torch.export`` saves, whose graph then
+        reads the folded weight instead of folding it at every call."""
+        weight = self.weight_g * self.weight_v / self._norm(self.weight_v)
+        del self.weight_g, self.weight_v, self.weight
+        self.register_buffer("weight", weight)
+        self._folded_from = None
+
     def effective_weight(self) -> torch.Tensor:
         """g * v / ||v|| in the compute type: differentiable when g or v
-        trains, else the folded buffer (or its compute-type copy)."""
-        if torch.is_grad_enabled() and (self.weight_g.requires_grad or self.weight_v.requires_grad):
+        trains, else the folded buffer (or its compute-type copy). While a
+        tracer runs (``torch.export``) the parameters have no storage to key
+        the cache on, so the fold is computed in the traced graph, from g and
+        v, by the same operations as :meth:`fold_weight_norm`. A frozen module
+        (:meth:`freeze_weight_norm`) has only the folded weight."""
+        if "weight_v" not in self._parameters:
+            return self.weight.to(self.dtype)
+        if torch.compiler.is_compiling() or (
+                torch.is_grad_enabled() and (self.weight_g.requires_grad or self.weight_v.requires_grad)):
             return (self.weight_g * self.weight_v / self._norm(self.weight_v)).to(self.dtype)
         if self._folded_from != (self._source(), self.dtype):
             self.fold_weight_norm()

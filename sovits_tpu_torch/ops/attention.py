@@ -22,6 +22,9 @@ fp32 and returned in the tables' type.
 ``fused_attention`` dispatches by device: CPU tensors go to the plain
 versions; CUDA tensors launch ``csrc/rel_attention.cu`` (forward) and, when
 a gradient is needed, ``csrc/rel_attention_bwd.cu`` (backward), or raise.
+The forward is the operator ``sovits::rel_attention_fwd``, so that an
+exported program keeps the kernel; the backward stays a direct call inside
+:class:`FusedAttention`, which exported programs (inference) never reach.
 """
 
 from __future__ import annotations
@@ -231,27 +234,63 @@ def _ptr(x: torch.Tensor | None):
 
 
 def _forward(q, k, v, rel_k, rel_v, key_mask, drop_mask, window, causal, want_lse: bool):
-    """(out, lse): CPU tensors take the plain version (lse None); CUDA
-    tensors launch the forward kernel."""
-    if q.device.type == "cpu":
-        out = fused_attention_plain(q, k, v, rel_k, rel_v, key_mask, drop_mask,
-                                    window=window, causal=causal)
-        return out, None
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_attention: unsupported device {q.device}")
-    _check(q, k, v, rel_k, rel_v, key_mask, drop_mask, window, "fused_attention")
+    """(out, lse) through the ``sovits::rel_attention_fwd`` op: CPU tensors
+    take the plain version (lse None); CUDA tensors launch the forward kernel."""
+    out, lse = rel_attention_fwd(q, k, v, rel_k, rel_v, key_mask, drop_mask,
+                                 -1 if window is None else window, causal, want_lse)
+    return out, lse if q.device.type == "cuda" and want_lse else None
+
+
+# The forward kernel as an operator a tracer keeps opaque (``torch.export``
+# records the call, not the pointers handed to ctypes). ``window`` -1 is no
+# window. Returns (out, lse): lse is float32 [BH, T] when CUDA tensors ask
+# for it, else empty. The dispatcher picks the implementation by device: the
+# plain version on the CPU, the kernel on CUDA (which launches or raises);
+# another device has none and raises. Defined through ``torch.library.Library``
+# with no autograd kernel of its own (``FusedAttention`` holds the gradient):
+# a call costs one Python kernel, not custom_op's autograd wrapper around it
+# (``tools/surfaces_ab.py`` times both).
+_LIB = torch.library.Library("sovits", "FRAGMENT")
+_LIB.define("rel_attention_fwd(Tensor q, Tensor k, Tensor v, Tensor? rel_k, Tensor? rel_v, "
+            "Tensor? key_mask, Tensor? drop_mask, int window, bool causal, bool want_lse) -> (Tensor, Tensor)")
+
+
+def _plain_fwd(q, k, v, rel_k, rel_v, key_mask, drop_mask, window: int, causal: bool,
+               want_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The operator's CPU implementation: the plain version, an empty lse."""
+    out = fused_attention_plain(q, k, v, rel_k, rel_v, key_mask, drop_mask,
+                                window=None if window < 0 else window, causal=causal)
+    return out, q.new_empty(0, dtype=torch.float32)
+
+
+def _launch_fwd(q, k, v, rel_k, rel_v, key_mask, drop_mask, window: int, causal: bool,
+                want_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The operator's CUDA implementation: check the inputs and launch the
+    forward kernel (callable without the dispatcher to time what it adds)."""
+    _check(q, k, v, rel_k, rel_v, key_mask, drop_mask, None if window < 0 else window, "fused_attention")
     bh, t, d = q.shape
     out = torch.empty_like(q)
-    lse = torch.empty(bh, t, device=q.device, dtype=torch.float32) if want_lse else None
+    lse = torch.empty((bh, t) if want_lse else (0,), device=q.device, dtype=torch.float32)
     rc = build.load("rel_attention").lib.sovits_rel_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rel_k), _ptr(rel_v), _ptr(key_mask),
-        _ptr(drop_mask), out.data_ptr(), _ptr(lse), bh, t, d, -1 if window is None else window,
+        _ptr(drop_mask), out.data_ptr(), _ptr(lse) if want_lse else None, bh, t, d, window,
         int(causal), int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(rc, "rel_attention launch")
     fused_attention.launches += 1
     fused_attention.launches_bf16 += q.dtype == torch.bfloat16
     return out, lse
+
+
+def _fake_fwd(q, k, v, rel_k, rel_v, key_mask, drop_mask, window, causal, want_lse):
+    lse_shape = q.shape[:2] if want_lse and q.device.type == "cuda" else (0,)
+    return torch.empty_like(q), q.new_empty(lse_shape, dtype=torch.float32)
+
+
+_LIB.impl("rel_attention_fwd", _plain_fwd, "CPU")
+_LIB.impl("rel_attention_fwd", _launch_fwd, "CUDA")
+torch.library.register_fake("sovits::rel_attention_fwd", _fake_fwd, lib=_LIB)
+rel_attention_fwd = torch.ops.sovits.rel_attention_fwd.default
 
 
 def fused_attention_bwd(q, k, v, rel_k, rel_v, key_mask, drop_mask, out, lse, dout, *,

@@ -13,11 +13,12 @@ intermediate are fp32 and the output is in x's type.
 
 ``fused_resblock_trio`` dispatches by device: a CPU tensor goes to
 ``fused_resblock_trio_plain``; a CUDA tensor launches ``csrc/resblock_trio.cu``
-or raises. The kernel runs on the tensor cores in both types (bf16 products
-with fp32 sums; fp32 as 3xTF32). Its tile plan (halos, output rows per
-block, window rows, shared memory, grid) comes from :func:`trio_plan`, which
-the CPU tests check and the kernel's entry point checks again before it
-launches. When autograd needs a gradient the call goes through
+or raises. The call goes through the operator ``sovits::resblock_trio``, so
+that an exported program keeps the kernel. The kernel runs on the tensor
+cores in both types (bf16 products with fp32 sums; fp32 as 3xTF32). Its
+tile plan (halos, output rows per block, window rows, shared memory, grid)
+comes from :func:`trio_plan`, which the CPU tests check and the kernel's
+entry point checks again before it launches. When autograd needs a gradient the call goes through
 :class:`FusedTrio`, whose backward recomputes the plain version, as the JAX
 package's custom VJP recomputes ``trio_folded_xla``.
 """
@@ -161,11 +162,43 @@ def _check(x, kernels, biases, kernel_sizes, dilation_sizes) -> None:
 
 
 def _forward(x, kernels, biases, kernel_sizes, dilation_sizes) -> torch.Tensor:
-    """CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    if x.device.type == "cpu":
-        return fused_resblock_trio_plain(x, kernels, biases, kernel_sizes, dilation_sizes)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_resblock_trio: unsupported device {x.device}")
+    """Through the ``sovits::resblock_trio`` op: CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    return resblock_trio(x, list(kernels), list(biases), list(kernel_sizes),
+                         [d for dils in dilation_sizes for d in dils], [len(d) for d in dilation_sizes])
+
+
+# The trio kernel as an operator a tracer keeps opaque (``torch.export``
+# records the call, not the pointers handed to ctypes). Chain j takes
+# ``n_pairs[j]`` dilations, in order, from the flat ``dilations``. The
+# dispatcher picks the implementation by device: the plain version on the
+# CPU, the kernel on CUDA (which launches or raises); another device has
+# none and raises. No autograd kernel of its own (``FusedTrio`` holds the
+# gradient): a call costs one Python kernel, not custom_op's autograd wrapper
+# around it (``tools/surfaces_ab.py`` times both).
+_LIB = torch.library.Library("sovits", "FRAGMENT")
+_LIB.define("resblock_trio(Tensor x, Tensor[] kernels, Tensor[] biases, int[] kernel_sizes, "
+            "int[] dilations, int[] n_pairs) -> Tensor")
+
+
+def _nest(dilations, n_pairs) -> tuple:
+    it = iter(dilations)
+    return tuple(tuple(next(it) for _ in range(n)) for n in n_pairs)
+
+
+def _plain_op(x, kernels, biases, kernel_sizes, dilations, n_pairs) -> torch.Tensor:
+    """The operator's CPU implementation: the plain version."""
+    return fused_resblock_trio_plain(x, kernels, biases, tuple(kernel_sizes), _nest(dilations, n_pairs))
+
+
+def _launch_op(x, kernels, biases, kernel_sizes, dilations, n_pairs) -> torch.Tensor:
+    """The operator's CUDA implementation: :func:`_launch`."""
+    return _launch(x, kernels, biases, tuple(kernel_sizes), _nest(dilations, n_pairs))
+
+
+def _launch(x, kernels, biases, kernel_sizes, dilation_sizes) -> torch.Tensor:
+    """Check CUDA inputs, plan the tiles and launch the kernel (callable
+    without the dispatcher to time what it adds)."""
     _check(x, kernels, biases, kernel_sizes, dilation_sizes)
     b, t, c = x.shape
     bf16 = x.dtype == torch.bfloat16
@@ -191,6 +224,16 @@ def _forward(x, kernels, biases, kernel_sizes, dilation_sizes) -> torch.Tensor:
     fused_resblock_trio.launches += 1
     fused_resblock_trio.launches_bf16 += bf16
     return out
+
+
+def _fake_op(x, kernels, biases, kernel_sizes, dilations, n_pairs):
+    return torch.empty_like(x)
+
+
+_LIB.impl("resblock_trio", _plain_op, "CPU")
+_LIB.impl("resblock_trio", _launch_op, "CUDA")
+torch.library.register_fake("sovits::resblock_trio", _fake_op, lib=_LIB)
+resblock_trio = torch.ops.sovits.resblock_trio.default
 
 
 class FusedTrio(torch.autograd.Function):

@@ -887,3 +887,73 @@ def test_train_diffusion_on_card_resumes(cuda, tmp_path):
     assert all(torch.isfinite(torch.tensor(v)) for r in records for v in r.values())
     ckpt = torch.load(tmp_path / "exp" / "model_5.pt", weights_only=False)
     assert ckpt["global_step"] == 5 and ckpt["optimizer"]["state"][0]["step"] == 5
+
+
+def test_sovits_ops_launch_kernels_and_match_plain(cuda):
+    """The operators that torch.export keeps launch the kernels, counted,
+    and agree with the plain versions."""
+    q, k, v = (torch.randn(2, 100, 96, generator=_g(i)).cuda() for i in range(3))
+    rel_k, rel_v = (0.1 * torch.randn(9, 96, generator=_g(i)).cuda() for i in (3, 4))
+    km = torch.ones(2, 100, device=cuda)
+    km[1, 70:] = 0
+    before = fused_attention.launches
+    out, lse = torch.ops.sovits.rel_attention_fwd(q, k, v, rel_k, rel_v, km, None, 4, False, True)
+    assert fused_attention.launches == before + 1 and lse.shape == (2, 100)
+    torch.testing.assert_close(out, fused_attention_plain(q, k, v, rel_k, rel_v, km, None, window=4), **TOL)
+    x = torch.randn(2, 300, 32, generator=_g(5)).cuda()
+    kernels = [0.05 * torch.randn(kk, 32, 32, generator=_g(6 + i)).cuda()
+               for i, kk in enumerate(k_ for k_ in (3, 7, 11) for _ in range(6))]
+    biases = [0.1 * torch.randn(32, generator=_g(30 + i)).cuda() for i in range(18)]
+    before = fused_resblock_trio.launches
+    got = torch.ops.sovits.resblock_trio(x, kernels, biases, [3, 7, 11], [1, 3, 5] * 3, [3, 3, 3])
+    assert fused_resblock_trio.launches == before + 1
+    torch.testing.assert_close(got, fused_resblock_trio_plain(x, kernels, biases), **TOL)
+
+
+def test_exported_synthesizer_launches_kernels_on_card(cuda, tmp_path):
+    """The full-width synthesizer exported on the card: its graph holds the
+    sovits ops, and the loaded .pt2 launches K1 and K3 and matches the live
+    Synthesizer.infer."""
+    from sovits_tpu_torch.cli.export import example_inputs, export_program, load_exported
+
+    hps = scfg.default_config()
+    model = factory.init_random_(factory.build_synthesizer(hps, "cpu", fused_tail=True), _g(0)).to(cuda)
+    program = export_program(model, hps, 64)
+    targets = {str(n.target) for n in program.graph.nodes if n.op == "call_function"}
+    assert {"sovits.rel_attention_fwd.default", "sovits.resblock_trio.default"} <= targets
+    torch.export.save(program, tmp_path / "model.pt2")
+    call = load_exported(str(tmp_path / "model.pt2"))
+    c, f0, uv, spk = example_inputs(hps, 64, cuda)
+    c = c + 0.3 * torch.randn(c.shape, generator=_g(1)).cuda()
+    f0 = f0 + 100.0 + 200.0 * torch.rand(f0.shape, generator=_g(2)).cuda()
+    uv = uv + 1.0
+    k1, k3 = fused_attention.launches, fused_resblock_trio.launches
+    with torch.no_grad():
+        got = call(c, f0, uv, spk)
+    torch.cuda.synchronize()
+    assert fused_attention.launches - k1 == hps.model.n_layers
+    assert fused_resblock_trio.launches - k3 == 4
+    want = model.infer(c, f0, uv, spk, sample_noise=False)[0]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_onnx_runtime_on_card_matches_cpu(cuda):
+    """The ONNX runtime's ops on the card against the CPU on a small synthesizer graph."""
+    import numpy as np
+
+    from chip_smoke import LEARNING_TINY
+    from sovits_tpu_torch.export.onnx_run import run_model
+    from sovits_tpu_torch.export.onnx_synth import build_synthesizer_onnx
+
+    hps = scfg.default_config(**LEARNING_TINY)
+    model = factory.init_random_(factory.build_synthesizer(hps, "cpu", fused_tail=True), _g(0))
+    mb = build_synthesizer_onnx(model, hps, chara_mix=False)
+    t = 40
+    rng = np.random.default_rng(0)
+    feeds = {"c": rng.standard_normal((1, t, hps.model.ssl_dim)).astype(np.float32),
+             "f0": rng.uniform(100, 300, (1, t)).astype(np.float32),
+             "mel2ph": np.arange(1, t + 1, dtype=np.int64)[None], "uv": np.ones((1, t), np.float32),
+             "noise": np.zeros((1, hps.model.inter_channels, t), np.float32),
+             "sid": np.asarray([1], np.int64)}
+    got, want = run_model(mb, feeds, cuda)["audio"], run_model(mb, feeds, "cpu")["audio"]
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
