@@ -49,11 +49,18 @@ against direct launches, 16 training (a feature dataset made by the port
 itself, six full-width GAN steps through ``train``, a resume, a profiled
 step), 17 three GAN steps with the fused tail against the same steps
 without it, 18 ``[learning]``: tests/test_learning.py's GAN learning proof
-(300 steps on one batch, then train() with a resume), 19 the bf16 GAN
-step at bench.py's training configuration (batch 6 x 512 frames, bf16
-synthesizer and discriminator; its first step against the same step
-through fp32 nets), 20 the trio staging microbench at its defaults, 21
-kernel times beside their bounds. Any failure raises, so the script exits non-zero; the
+(300 steps on one batch, then train() with a resume), 19 ``[parallel]``:
+parallel/ at world size 1 over NCCL: the 59.5 s song through
+Svc.infer_seq_parallel in fp32 (against Synthesizer.infer) and bf16
+(against fp32), the shard-local decode at 4 and 8 shards against the
+monolithic decode across every seam, noise off and on, with K3 in every
+shard, two DDP GAN steps through train(mesh) and two FSDP-sharded steps
+against the plain ones, a DDP diffusion step against the plain one, and
+the infer CLI's -ss, 20 the bf16 GAN step at bench.py's
+training configuration (batch 6 x 512 frames, bf16 synthesizer and
+discriminator; its first step against the same step through fp32 nets),
+21 the trio staging microbench at its defaults, 22 kernel times beside
+their bounds. Any failure raises, so the script exits non-zero; the
 last line is the JSON result the caller reads. Needs a CUDA card; without
 one (or without the repository around it) it fails before printing a result.
 """
@@ -2390,13 +2397,13 @@ def pipeline_diffusion(work: Path) -> Path:
     steps, window = [], {}
     real = tdiff._loss
 
-    def loss_spy(model, batch, generator):
+    def loss_spy(model, batch, generator, *rest):
         if model.training and len(steps) + 1 == DIFF_PROFILED_STEP:
             window["started"] = _profile_start()
         elif model.training and len(steps) == DIFF_PROFILED_STEP:
             window["result"] = _profile_stop(window.pop("started"))
         t = time.perf_counter()
-        loss = real(model, batch, generator)
+        loss = real(model, batch, generator, *rest)
         if model.training:
             steps.append((t, loss.detach()))
         return loss
@@ -3219,6 +3226,298 @@ def phase_learning(tmp: Path) -> dict:
     return counts
 
 
+# [parallel]: the time-sharded decode (Svc.infer_seq_parallel, the shard-local
+# decode at 4 and 8 shards, the infer CLI's -ss) and data-parallel and FSDP
+# training over torch.distributed, at world size 1 over NCCL
+PARALLEL_LIMIT_S = 240
+SEAM_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_sequence_parallel.py's bar, fp32
+PARALLEL_STEP_TOL = dict(rtol=1e-4, atol=1e-5)  # DDP / FSDP at world 1 against the plain step
+PARALLEL_NOISE_SEED = 1234
+
+
+def _seams_ok(got: np.ndarray, want: np.ndarray, edge: int, t_local: int, n: int) -> tuple[bool, float]:
+    """Whether ``got`` matches ``want`` [S] within SEAM_TOL away from the
+    song's edge zone and in a window over every seam; the worst error there."""
+    keep = [slice(edge, len(want) - edge)] + [slice(s * t_local - 256, s * t_local + 256)
+                                              for s in range(1, n)]
+    ok = all(np.allclose(got[w], want[w], **SEAM_TOL) for w in keep)
+    return ok, max(float(np.abs(got[w] - want[w]).max()) for w in keep)
+
+
+def parallel_song(svc, svc16, wav: np.ndarray) -> dict:
+    """The song through Svc.infer_seq_parallel (one shard at world 1) in
+    fp32 against Synthesizer.infer on the same prepared item, with its wall
+    beside slice_inference's, then in bf16 against the fp32 result."""
+    from sovits_tpu_torch.dsp.stft import mel_spectrogram
+    from sovits_tpu_torch.parallel.sequence import required_halo_frames
+
+    sr, hop = svc.target_sample, svc.hop_size
+    kw = dict(f0_predictor="dio", sample_noise=False, noice_scale=0.0)
+    svc.infer_seq_parallel(0, 0, wav, sr, **kw)  # warm-up
+    before = _counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    audio, n_samples, n_frames = svc.infer_seq_parallel(0, 0, wav, sr, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = _launched(before)
+    t0 = time.perf_counter()
+    svc.slice_inference(wav, sr, 0, 0, f0_predictor="dio")
+    torch.cuda.synchronize()
+    slice_wall = time.perf_counter() - t0
+    item = svc._prepare_chunk(0, 0, wav, sr, 0.0, False, "dio", 0.05)
+    put = lambda a: torch.from_numpy(np.asarray(a, np.float32))[None].cuda()  # noqa: E731
+    mono, _ = svc.model.infer(put(item["c"]), put(item["f0"]), put(item["uv"]),
+                              torch.tensor([0], device="cuda"), noise_scale=0.0, sample_noise=False)
+    mono = mono[0, :, 0].float().cpu().numpy()
+    edge = required_halo_frames(svc.model.dec) * hop
+    ok, err = _seams_ok(audio, mono, edge, len(mono), 1)
+    seconds = len(wav) / sr
+    ok = ok and n_samples == n_frames * hop == len(mono) and np.isfinite(audio).all()
+    log("parallel", what="song fp32 through infer_seq_parallel, world 1 over NCCL", seconds=f"{seconds:.2f}",
+        frames=n_frames, wall_s=f"{wall:.4f}", rtf=f"{wall / seconds:.5f}",
+        slice_inference_wall_s=f"{slice_wall:.4f}", slice_inference_rtf=f"{slice_wall / seconds:.5f}",
+        max_abs_err_vs_monolithic=f"{err:.3e}", edge_zone_samples=edge, peak=f"{np.abs(audio).max():.4f}",
+        rel_attention=launched["rel_attention"], resblock_trio=launched["resblock_trio"], ok=ok)
+    if not ok or launched["rel_attention"] != 6 or launched["resblock_trio"] != 4:
+        raise AssertionError(f"[parallel] infer_seq_parallel fp32: err {err}, launches {launched}")
+
+    before = _counts()
+    t0 = time.perf_counter()
+    a16, _, _ = svc16.infer_seq_parallel(0, 0, wav, sr, **kw)
+    torch.cuda.synchronize()
+    wall16 = time.perf_counter() - t0
+    launched16 = _launched(before)
+    mel = lambda a: mel_spectrogram(torch.from_numpy(a)[None])  # noqa: E731
+    m32, m16 = mel(audio), mel(a16)
+    loud = m32 > m32.max() - LOUD_DB / 20 * np.log(10)
+    l1_loud = (m16 - m32).abs()[loud].mean().item()
+    rel = np.abs(a16 - audio).max() / np.abs(audio).max()
+    ok = l1_loud < MEL_L1_BF16 and rel <= E2E_REL and launched16["resblock_trio_bf16"] == 4
+    log("parallel", what="song bf16 through infer_seq_parallel vs fp32", wall_s=f"{wall16:.4f}",
+        mel_l1_loud_bins=f"{l1_loud:.4e}", wave_rel_max_abs=f"{rel:.3e}",
+        limits=f"loud-bin L1<{MEL_L1_BF16}, wave<={E2E_REL}", rel_attention_bf16=launched16["rel_attention_bf16"],
+        resblock_trio_bf16=launched16["resblock_trio_bf16"], ok=ok)
+    if not ok:
+        raise AssertionError(f"[parallel] bf16 song: loud-bin L1 {l1_loud}, wave {rel}, {launched16}")
+    return {"wall_s": wall, "slice_wall_s": slice_wall, "seconds": seconds}
+
+
+def parallel_seams(svc, wav: np.ndarray) -> None:
+    """The shard-local decode (parallel.sequence.decode_local) for n = 4 and
+    8 shards of the song in turn, each on its haloed slice of the whole
+    latent with the phase prefix from the per-shard sums, against the
+    monolithic decode of a standalone decoder (factory.build_decoder,
+    loaded from the synthesizer's): noise off, then noise on with one seed.
+    Each shard must launch K3."""
+    from sovits_tpu_torch.models import factory
+    from sovits_tpu_torch.ops.fused_stage import fused_resblock_trio
+    from sovits_tpu_torch.parallel.sequence import decode_local, phase_sum, required_halo_frames
+
+    sr = svc.target_sample
+    dec = factory.build_decoder(svc.hps, "cuda")
+    dec.load_state_dict(svc.model.dec.state_dict(), strict=True)
+    item = svc._prepare_chunk(0, 0, wav, sr, 0.0, False, "dio", 0.05)
+    halo, upp = required_halo_frames(dec), dec.upp
+    def noise(seed):
+        return None if seed is None else torch.Generator("cuda").manual_seed(seed)
+
+    for n in (4, 8):
+        t = -(-item["n_frames"] // n) * n
+
+        def put(a):
+            a = np.asarray(a, np.float32)
+            return torch.from_numpy(np.pad(a, [(0, t - len(a))] + [(0, 0)] * (a.ndim - 1)))[None].cuda()
+
+        z, f0, g = svc.model.infer_pre(put(item["c"]), put(item["f0"]), put(item["uv"]),
+                                       torch.tensor([0], device="cuda"), noise_scale=0.0, sample_noise=False,
+                                       lengths=torch.tensor([item["n_frames"]], device="cuda"))
+        tl = t // n
+        zp = torch.nn.functional.pad(z, (halo, halo))
+        fp = torch.nn.functional.pad(f0, (halo, halo))
+        sums = [phase_sum(f0[:, r * tl : (r + 1) * tl], dec.sampling_rate, upp) for r in range(n)]
+        for seed in (None, PARALLEL_NOISE_SEED):
+            with torch.no_grad():
+                mono = dec(z, f0, g, generator=noise(seed), noise_frames=None if seed is None else (0, t))
+                parts, k3 = [], []
+                for r in range(n):
+                    before = fused_resblock_trio.launches
+                    phase0 = sum(sums[:r]) if r else torch.zeros_like(sums[0])
+                    parts.append(decode_local(dec, zp[..., r * tl : (r + 1) * tl + 2 * halo],
+                                              fp[:, r * tl : (r + 1) * tl + 2 * halo], g, phase0, halo,
+                                              r * tl, t, noise(seed)))
+                    k3.append(fused_resblock_trio.launches - before)
+            got = torch.cat(parts, -1)[0, 0].cpu().numpy()
+            ok, err = _seams_ok(got, mono[0, 0].cpu().numpy(), halo * upp, tl * upp, n)
+            ok = ok and min(k3) >= 1
+            log("parallel", what=f"shard-local decode, {n} shards, noise {'off' if seed is None else 'on'}",
+                frames=t, halo=halo, max_abs_err_vs_monolithic=f"{err:.3e}", tol=SEAM_TOL,
+                resblock_trio_per_shard=k3, ok=ok)
+            if not ok:
+                raise AssertionError(f"[parallel] {n} shards, seed {seed}: err {err}, K3 per shard {k3}")
+
+
+def parallel_training(tmp: Path, hps, mesh) -> None:
+    """Two GAN steps through train(mesh=...) (DDP at world 1) against the
+    same two through train(), the second step's wall beside the plain one;
+    two FSDP-sharded train_steps (shard_params, model axis 1) against the
+    plain steps, the first compared; one diffusion step through
+    train_diffusion(mesh=...) against the plain one, on [pipeline]'s
+    corpus. Each within PARALLEL_STEP_TOL, each GAN path launching K1 and K2."""
+    from sovits_tpu_torch.models import factory
+    from sovits_tpu_torch.parallel import shard_params
+    from sovits_tpu_torch.train import diffusion as tdiff
+    from sovits_tpu_torch.train.data import FeatureDataset, batch_iterator
+    from sovits_tpu_torch.train.optim import make_optimizer
+    from sovits_tpu_torch.train.step import train_step
+    from sovits_tpu_torch.train.trainer import train
+
+    runs = {}
+    for name, kw in (("plain", {}), ("ddp", {"mesh": mesh})):
+        records, stamps = [], []
+
+        def on_step(step, m):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            records.append({k: float(v) for k, v in m.items()})
+
+        before = _counts()
+        train(hps, tmp / f"parallel_{name}", max_steps=2, device="cuda", on_step=on_step, **kw)
+        runs[name] = (records, stamps[1] - stamps[0], _launched(before))
+    (plain, plain_s, _), (ddp, ddp_s, c) = runs["plain"], runs["ddp"]
+    ok = len(ddp) == len(plain) == 2 and all(np.allclose(d[k], p[k], **PARALLEL_STEP_TOL)
+                                             for d, p in zip(ddp, plain) for k in p)
+    worst = max(abs(d[k] - p[k]) / max(abs(p[k]), 1e-12) for d, p in zip(ddp, plain) for k in p)
+    ok = ok and c["rel_attention"] > 0 and c["rel_attention_bwd"] > 0
+    log("parallel", what="2 GAN steps through train(mesh) (DDP, world 1) vs train()",
+        ddp_step2_wall_s=f"{ddp_s:.4f}", plain_step2_wall_s=f"{plain_s:.4f}",
+        worst_rel_metric_diff=f"{worst:.3e}", tol=PARALLEL_STEP_TOL,
+        rel_attention=c["rel_attention"], rel_attention_bwd=c["rel_attention_bwd"], ok=ok)
+    if not ok:
+        raise AssertionError(f"[parallel] DDP GAN steps: {ddp} vs {plain}, launches {c}")
+
+    batch = next(batch_iterator(FeatureDataset(hps.data.training_files, hps), hps.train.batch_size, seed=0))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    metrics = {}
+    for name in ("plain", "fsdp"):
+        init = torch.Generator().manual_seed(0)
+        net_g = factory.init_random_(factory.build_synthesizer(hps, "cpu", fused_tail=False), init)
+        net_d = factory.init_random_(factory.build_discriminator(hps, "cpu"), init)
+        net_g, net_d = net_g.cuda().train(), net_d.cuda().train()
+        if name == "fsdp":
+            shard_params(net_g, mesh)
+            shard_params(net_d, mesh)
+        opts = [make_optimizer(n.parameters(), hps) for n in (net_g, net_d)]
+        before = _counts()
+        walls, first = [], None
+        for i in range(2):  # the first step is compared, the second timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = train_step(net_g, net_d, *opts, batch, hps, generator=torch.Generator("cuda").manual_seed(3 + i),
+                           mesh=mesh if name == "fsdp" else None)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            first = first or {k: float(v) for k, v in m.items()}
+        metrics[name] = (first, walls, _launched(before))
+        del net_g, net_d, opts
+    (fsdp, fsdp_s, c), (plain, plain_s, _) = metrics["fsdp"], metrics["plain"]
+    ok = all(np.allclose(fsdp[k], plain[k], **PARALLEL_STEP_TOL) for k in plain)
+    ok = ok and c["rel_attention"] > 0 and c["rel_attention_bwd"] > 0
+    log("parallel", what="FSDP-sharded GAN steps (model axis 1) vs plain, the first compared",
+        fsdp_step_walls_s=[f"{w:.4f}" for w in fsdp_s], plain_step_walls_s=[f"{w:.4f}" for w in plain_s],
+        loss_g=f"{fsdp['loss/g/total']:.6f}/{plain['loss/g/total']:.6f}",
+        grad_norm_g=f"{fsdp['grad_norm_g']:.6f}/{plain['grad_norm_g']:.6f}",
+        rel_attention=c["rel_attention"], rel_attention_bwd=c["rel_attention_bwd"], ok=ok)
+    if not ok:
+        raise AssertionError(f"[parallel] FSDP step: {fsdp} vs {plain}, launches {c}")
+
+    config = tmp / "pipeline" / "configs" / "diffusion.yaml"
+    args = tdiff.load_diffusion_config(config)
+    real, out = tdiff._loss, {}
+    for name, kw in (("plain", {}), ("ddp", {"mesh": mesh})):
+        seen = []
+        tdiff._loss = lambda *a, **k: seen.append(real(*a, **k)) or seen[-1]  # noqa: E731
+        try:
+            model = tdiff.train_diffusion(args, expdir=tmp / f"parallel_diff_{name}", max_steps=1,
+                                          vocoder_dim=_mels(args), resume=False, device="cuda", **kw)
+        finally:
+            tdiff._loss = real
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None}
+        out[name] = (float(seen[0].detach()), grads)
+    (loss_d, grads_d), (loss_p, grads_p) = out["ddp"], out["plain"]
+    worst = max(float((grads_d[n] - g).abs().max() / g.abs().max().clamp_min(1e-30))
+                for n, g in grads_p.items())
+    ok = np.isclose(loss_d, loss_p, **PARALLEL_STEP_TOL) and set(grads_d) == set(grads_p) and worst <= 1e-4
+    log("parallel", what="1 diffusion step through train_diffusion(mesh) (DDP) vs plain",
+        loss=f"{loss_d:.6f}/{loss_p:.6f}", worst_grad_err_over_peak=f"{worst:.3e}", ok=ok)
+    if not ok:
+        raise AssertionError(f"[parallel] DDP diffusion step: loss {loss_d} vs {loss_p}, grad {worst}")
+
+
+def parallel_cli(tmp: Path, sr: int, hop: int) -> None:
+    """``python -m sovits_tpu_torch.cli.infer -ss 4`` on [slice]'s 12 s song:
+    the whole song in one dispatch, written with the song's length."""
+    import os
+
+    from scipy.io import wavfile
+
+    from sovits_tpu_torch.cli import infer as cli
+
+    work = tmp / "cli"
+    out = work / "results" / "song_0key_0_sovits_dio.wav"
+    out.unlink()
+    _, wav = wavfile.read(work / "song.wav")
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        cli.main(["-m", str(tmp / "G_0.pth"), "-c", str(tmp / "config.json"), "-n", "song.wav",
+                  "-f0p", "dio", "-ss", "4"])
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    out_sr, audio = wavfile.read(out)
+    ok = out_sr == sr and len(audio) == len(wav) // hop * hop and np.abs(audio).max() > 0
+    log("parallel", what="infer CLI -ss 4 (world 1: one shard)", wrote=out.name, samples=len(audio),
+        seconds=f"{len(audio) / sr:.3f}", song_samples=len(wav), wall_s=f"{wall:.2f}", ok=ok)
+    if not ok:
+        raise AssertionError(f"[parallel] the -ss CLI wrote {len(audio)} samples at {out_sr} Hz for {len(wav)}")
+
+
+def phase_parallel(tmp: Path, svc, hps) -> dict:
+    """parallel/ on the card at world size 1 over NCCL (a file:// store in
+    the temp dir): the song through Svc.infer_seq_parallel in fp32 and bf16,
+    the shard seams at 4 and 8 shards, DDP and FSDP GAN steps and a DDP
+    diffusion step against the plain ones, the -ss CLI. Under
+    PARALLEL_LIMIT_S. Returns the phase's K1/K2/K3 launches."""
+    import torch.distributed as dist
+
+    from sovits_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+
+    def run():
+        mesh = make_mesh(1, 1, "cuda", init_method=f"file://{tmp / 'nccl_store'}", rank=0, world_size=1)
+        try:
+            log("parallel", backend=dist.get_backend(), world=dist.get_world_size(), mesh=tuple(mesh.shape))
+            _reset_counts()
+            wav = song(svc.target_sample)
+            svc16 = build_svc(tmp, "cuda", dtype=torch.bfloat16)
+            walls = parallel_song(svc, svc16, wav)
+            del svc16
+            parallel_seams(svc, wav)
+            parallel_training(tmp, hps, mesh)
+            parallel_cli(tmp, svc.target_sample, svc.hop_size)
+            return _counts(), walls
+        finally:
+            dist.destroy_process_group()
+
+    counts, walls = _limited("parallel", PARALLEL_LIMIT_S, run)
+    log("parallel", phase_s=f"{time.perf_counter() - t_phase:.1f}", limit_s=PARALLEL_LIMIT_S, launches=counts,
+        **{k: f"{v:.4f}" for k, v in walls.items()})
+    return counts
+
+
 def phase_cli_diffusion(tmp: Path, files: dict) -> None:
     """``python -m sovits_tpu_torch.cli.infer -shd`` on the card, from the
     directory ``phase_cli`` prepared (its encoder checkpoint and 12 s song)."""
@@ -3748,6 +4047,7 @@ def main() -> None:
         train, hps = phase_train(Path(tmp), svc.encoder)
         fused_tail = phase_train_fused_tail(hps)
         learning = phase_learning(Path(tmp))
+        parallel = phase_parallel(Path(tmp), svc, hps)
     train_bf16 = phase_train_bf16()
     k4 = {f"trio_shift_{r['variant']}": r for r in phase_trio_shift()}
     times = phase_times()
@@ -3760,14 +4060,16 @@ def main() -> None:
                           "encoders": encoders["rel_attention"], "cluster": cluster["rel_attention"],
                           "pipeline": pipeline["rel_attention"], "surfaces": surfaces["rel_attention"],
                           "export": export["rel_attention"], "train": train["rel_attention"],
-                          "train_fused_tail": fused_tail["rel_attention"], "learning": learning["rel_attention"]},
+                          "train_fused_tail": fused_tail["rel_attention"], "learning": learning["rel_attention"],
+                          "parallel": parallel["rel_attention"]},
         "rel_attention_bf16": {"infer_bf16": infer_bf16["rel_attention_bf16"],
                                "slice_bf16": slice16["rel_attention_bf16"],
                                "configs_bf16": configs16["rel_attention_bf16"],
                                "diffusion_bf16": diffusion16["rel_attention_bf16"],
-                               "train_bf16": train_bf16["rel_attention_bf16"]},
+                               "train_bf16": train_bf16["rel_attention_bf16"],
+                               "parallel": parallel["rel_attention_bf16"]},
         "rel_attention_bwd": {"pipeline": pipeline["rel_attention_bwd"], "train": train["rel_attention_bwd"],
-                              "learning": learning["rel_attention_bwd"]},
+                              "learning": learning["rel_attention_bwd"], "parallel": parallel["rel_attention_bwd"]},
         "rel_attention_bwd_bf16": {"train_bf16": train_bf16["rel_attention_bwd_bf16"]},
         "resblock_trio": {"infer": infer["resblock_trio"], "slice": slice32["resblock_trio"],
                           "configs": configs32["resblock_trio"],
@@ -3775,11 +4077,13 @@ def main() -> None:
                           "diffusion_bf16": diffusion16["resblock_trio"], "frontend": frontend["resblock_trio"],
                           "encoders": encoders["resblock_trio"], "cluster": cluster["resblock_trio"],
                           "pipeline": pipeline["resblock_trio"], "surfaces": surfaces["resblock_trio"],
-                          "export": export["resblock_trio"], "train_fused_tail": fused_tail["resblock_trio"]},
+                          "export": export["resblock_trio"], "train_fused_tail": fused_tail["resblock_trio"],
+                          "parallel": parallel["resblock_trio"]},
         "resblock_trio_bf16": {"infer_bf16": infer_bf16["resblock_trio_bf16"],
                                "slice_bf16": slice16["resblock_trio_bf16"],
                                "configs_bf16": configs16["resblock_trio_bf16"],
-                               "diffusion_bf16": diffusion16["resblock_trio_bf16"]},
+                               "diffusion_bf16": diffusion16["resblock_trio_bf16"],
+                               "parallel": parallel["resblock_trio_bf16"]},
         **{key: {"microbench": r["launches"]} for key, r in k4.items()},
     }
     bound = bounds()

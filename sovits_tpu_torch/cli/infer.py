@@ -14,9 +14,14 @@ encoding of the synthesizer's audio), ``-od`` diffuses from the input alone,
 ``-f0p crepe/rmvpe/fcpe`` reach ``get_f0_predictor`` as in the JAX CLI,
 which has no flag for their weights: without them the first chunk raises
 FileNotFoundError. ``-cm`` names a cluster model (``-cr`` the blend ratio,
-``-fr`` feature retrieval), passed to ``Svc`` as the JAX CLI passes it. The
-one flag for what the port does not run, the sequence-sharded decode
-(``-ss``), stops the program before any model loads.
+``-fr`` feature retrieval), passed to ``Svc`` as the JAX CLI passes it.
+
+``-ss N`` converts each song whole through ``Svc.infer_seq_parallel``: one
+prior/flow pass and one vocoder decode time-sharded over N ranks, no
+slicer. Under ``torchrun --nproc_per_node N`` each rank runs on
+``cuda:LOCAL_RANK`` and decodes its shard, and rank 0 alone writes the
+files; without torchrun the decode runs on one rank. It is the plain VITS
+decode only, so -shd, -od, -eh, -usm and -lea other than 1 are refused.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import logging
 from pathlib import Path
 
 import numpy as np
+import torch
 from scipy.io import wavfile
 
 from ..infer.svc import Svc
@@ -67,22 +73,47 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-lgr", "--linear_gradient_retain", type=float, default=0.75)
     p.add_argument("-eak", "--enhancer_adaptive_key", type=int, default=0)
     p.add_argument("-ft", "--f0_filter_threshold", type=float, default=0.05)
-    p.add_argument("-ss", "--seq_shard", type=int, default=0,
-                   help="the JAX package's sequence-sharded decode; not supported by the port")
+    p.add_argument(
+        "-ss", "--seq_shard", type=int, default=0,
+        help="time-shard the vocoder decode over N ranks and run the whole song as one "
+        "dispatch (skips the slicer loop). Plain VITS decode only: incompatible with "
+        "-shd/-od/-eh/-usm/-lea. Audio within the decoder's receptive field of the song "
+        "edges may deviate slightly from the chunked decode (edge-zone contract; see "
+        "Svc.infer_seq_parallel)",
+    )
     return p
 
 
-def unsupported(args) -> list[str]:
-    """The flags in ``args`` that ask for what the port does not run."""
-    return ["-ss/--seq_shard"] if args.seq_shard != 0 else []
+def seq_shard_conflicts(args) -> list[str]:
+    """The flags that ``--seq_shard``'s plain VITS decode cannot honour."""
+    incompatible = [
+        ("--shallow_diffusion", args.shallow_diffusion),
+        ("--only_diffusion", args.only_diffusion),
+        ("--enhance", args.enhance),
+        ("--use_spk_mix", args.use_spk_mix),
+        ("--loudness_envelope_adjustment != 1", args.loudness_envelope_adjustment != 1),
+    ]
+    return [flag for flag, on in incompatible if on]
 
 
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
-    bad = unsupported(args)
-    if bad:
-        raise SystemExit("not supported by the port: " + ", ".join(bad))
+    writer = True
+    device = args.device
+    if args.seq_shard:
+        # the seq-parallel decode never runs the shallow-diffusion, enhancer or
+        # loudness stages or speaker mixes: refuse them instead of dropping them
+        bad = seq_shard_conflicts(args)
+        if bad:
+            raise SystemExit("--seq_shard runs the plain VITS decode only and cannot be "
+                             "combined with: " + ", ".join(bad))
+        from ..parallel import mesh
+
+        device_type = torch.device(device).type
+        if mesh.init_process_group(device_type):  # under torchrun: a rank per card
+            device = mesh.local_device(device_type)
+            writer = mesh.rank() == 0
 
     diffusion = args.shallow_diffusion or args.only_diffusion
     svc = Svc(args.model_path, args.config_path, cluster_model_path=args.cluster_model_path or None,
@@ -90,9 +121,10 @@ def main(argv=None):
               only_diffusion=args.only_diffusion,
               diffusion_model_path=args.diffusion_model_path if diffusion else None,
               diffusion_config_path=args.diffusion_config_path, nsf_hifigan_enhance=args.enhance,
-              device=args.device)
+              device=device)
     out_dir = Path("results")
-    out_dir.mkdir(exist_ok=True)
+    if writer:
+        out_dir.mkdir(exist_ok=True)
     for name in args.clean_names:
         wav, sr = load_wav(name)
         for tran in args.trans:
@@ -101,6 +133,20 @@ def main(argv=None):
                     from ..infer.spkmix import EXAMPLE_SPK_MIX_MAP
 
                     spk = EXAMPLE_SPK_MIX_MAP  # edit infer/spkmix.py's map
+                key = "auto" if args.auto_predict_f0 else f"{tran}key"
+                out = out_dir / f"{Path(name).stem}_{key}_{spk}_sovits_{args.f0_predictor}.wav"
+                if args.seq_shard:
+                    audio, _, _ = svc.infer_seq_parallel(
+                        spk, tran, wav.astype(np.float32), sr, n_shards=args.seq_shard,
+                        cluster_infer_ratio=args.cluster_infer_ratio,
+                        auto_predict_f0=args.auto_predict_f0, noice_scale=args.noice_scale,
+                        f0_predictor=args.f0_predictor, cr_threshold=args.f0_filter_threshold,
+                    )
+                    if writer:
+                        wavfile.write(out, svc.target_sample,
+                                      (np.clip(audio, -1, 1) * 32767).astype(np.int16))
+                        print(f"wrote {out}")
+                    continue
                 audio = svc.slice_inference(
                     wav.astype(np.float32), sr, spk, tran, slice_db=args.slice_db,
                     cluster_infer_ratio=args.cluster_infer_ratio,
@@ -112,8 +158,6 @@ def main(argv=None):
                     loudness_envelope_adjustment=args.loudness_envelope_adjustment,
                     use_spk_mix=args.use_spk_mix, enhancer_adaptive_key=args.enhancer_adaptive_key,
                 )
-                key = "auto" if args.auto_predict_f0 else f"{tran}key"
-                out = out_dir / f"{Path(name).stem}_{key}_{spk}_sovits_{args.f0_predictor}.wav"
                 wavfile.write(out, svc.target_sample, (np.clip(audio, -1, 1) * 32767).astype(np.int16))
                 print(f"wrote {out}")
 

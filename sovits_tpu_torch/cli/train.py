@@ -2,6 +2,8 @@
 
 Flags as so-vits-svc's train.py: -c/--config JSON, -m/--model experiment
 name under ./logs/. Runs on the CUDA card unless --device says otherwise.
+Under ``torchrun --nproc_per_node N`` it trains data-parallel, one rank per
+card (``cuda:LOCAL_RANK``), the batch split over the ranks.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ import logging
 from pathlib import Path
 
 from .. import config as scfg
+from ..parallel.mesh import launch_mesh
 from ..train.trainer import train
 
 
@@ -25,7 +28,8 @@ def main(argv=None):
     model_dir = Path("./logs") / args.model
     saved = model_dir / "config.json"
     hps = scfg.load_config(saved if saved.exists() and not Path(args.config).exists() else args.config)
-    train(hps, model_dir, max_steps=args.max_steps, device=args.device)
+    device, mesh = launch_mesh(args.device)
+    train(hps, model_dir, max_steps=args.max_steps, device=device, mesh=mesh)
 
 
 if __name__ == "__main__":

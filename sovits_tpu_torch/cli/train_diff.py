@@ -6,7 +6,8 @@ so-vits-svc ``train_diff.py``):
 The mel width is the vocoder's (``vocoder.config``, else the config.json
 beside ``vocoder.ckpt``, else the 44.1 kHz NSF-HiFiGAN's 128), as
 so-vits-svc reads it from its vocoder. Runs on the CUDA card unless
-``--device`` says otherwise.
+``--device`` says otherwise; under ``torchrun --nproc_per_node N`` it trains
+data-parallel, one rank per card.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import argparse
 import logging
 
 from ..models.diffusion.vocoder import NsfHifiGANVocoder
+from ..parallel.mesh import launch_mesh
 from ..train.diffusion import load_diffusion_config, train_diffusion
 
 
@@ -26,10 +28,12 @@ def main(argv=None):
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     cfg = load_diffusion_config(args.config)
+    device, mesh = launch_mesh(args.device)
     voc = cfg.vocoder
     mels = NsfHifiGANVocoder(str(voc.ckpt), voc.config.to_dict() if voc.config else None,
-                             args.device, weights=False).dimension
-    return train_diffusion(cfg, max_steps=args.max_steps, vocoder_dim=mels, device=args.device)
+                             device, weights=False).dimension
+    return train_diffusion(cfg, max_steps=args.max_steps, vocoder_dim=mels, device=device,
+                           mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -26,7 +26,12 @@ input's own mel.
 With a cluster model (``cluster_model_path``) and a ``cluster_infer_ratio``
 other than 0, the units are blended toward the speaker's k-means centers or,
 with ``feature_retrieval``, toward their nearest stored features, on the
-Svc's device. Not ported: ``infer_seq_parallel``.
+Svc's device.
+
+``infer_seq_parallel`` converts a whole song in one dispatch: one
+prior/flow pass over every frame, then the vocoder decode time-sharded
+over the ranks of a process group (``parallel/sequence.py``), or over one
+rank without one.
 """
 
 from __future__ import annotations
@@ -418,6 +423,94 @@ class Svc:
         if not pieces:
             return np.zeros(0, np.float32)
         return np.concatenate(pieces).astype(np.float32)
+
+    # ------------------------------------------------------------------
+    def infer_seq_parallel(self, speaker, tran: int, wav: np.ndarray, sr: int | None = None,
+                           n_shards: int | None = None, cluster_infer_ratio: float = 0.0,
+                           auto_predict_f0: bool = False, noice_scale: float = 0.4,
+                           f0_predictor: str = "pm", cr_threshold: float = 0.05,
+                           seed: int = 52468, sample_noise: bool = True, group=None):
+        """Whole-song inference in one dispatch, the vocoder decode
+        time-sharded over ``n_shards`` ranks of ``group`` (the default
+        process group when None; one rank without one), as the JAX
+        package's ``--seq_shard`` shards it over its devices. Every rank
+        calls it with the same song and runs the prior and the flow over
+        every frame with the same ``seed``; each decodes its shard with a
+        halo exchange and a gathered sine-phase prefix, and every rank
+        gets the whole result. ``n_shards`` is cut to the ranks there are
+        and so that each shard holds at least the decoder's halo; frames
+        are padded to a multiple of it.
+
+        ``sample_noise`` draws the prior's noise from a generator seeded
+        with ``seed`` and the source's noise and random phases
+        counter-based per absolute frame, so the result does not depend on
+        the shard count. A speaker mix is refused (g must be one vector).
+        Within ``required_halo_frames`` of the song's edges the audio may
+        differ slightly from the monolithic decode (the edge-zone contract
+        of ``parallel/sequence.py``). Returns (audio, n_samples, n_frames)
+        like ``infer``."""
+        import torch.distributed as dist
+
+        from ..parallel.sequence import gather_time, required_halo_frames, sharded_decode
+
+        if isinstance(speaker, dict):
+            raise ValueError("seq-parallel inference does not support spk mix")
+        item = self._prepare_chunk(speaker, tran, wav, sr, cluster_infer_ratio, False,
+                                   f0_predictor, cr_threshold, None)
+        if item["spk"][0] == "mix":
+            raise ValueError("seq-parallel inference does not support spk mix")
+        n_frames = item["n_frames"]
+        dec = self.model.dec
+        halo = required_halo_frames(dec)
+        distributed = dist.is_initialized()
+        group = (group or dist.group.WORLD) if distributed else None
+        world = dist.get_world_size(group) if distributed else 1
+        rank = dist.get_rank(group) if distributed else 0
+        n = min(n_shards or world, world)
+        # each shard must hold at least the halo (a short clip, a large n_shards)
+        n = max(1, min(n, n_frames // max(halo, 1)))
+        t_pad = -(-n_frames // n) * n
+
+        def pad_t(x):
+            x = np.asarray(x, np.float32)
+            x = np.pad(x, [(0, t_pad - x.shape[0])] + [(0, 0)] * (x.ndim - 1))
+            return torch.from_numpy(x)[None].to(self.device)
+
+        vol = pad_t(item["vol"]) if self.vol_embedding else None
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        z, f0, g = self.model.infer_pre(
+            pad_t(item["c"]), pad_t(item["f0"]), pad_t(item["uv"]),
+            torch.tensor([item["spk"][1]], device=self.device), noise_scale=noice_scale,
+            predict_f0=bool(auto_predict_f0), sample_noise=sample_noise,
+            lengths=torch.tensor([n_frames], device=self.device), generator=generator, vol=vol)
+        shards = self._shard_group(n, group, world)
+        t_local = t_pad // n
+        if rank < n:
+            with torch.no_grad():
+                local = sharded_decode(dec, z[..., rank * t_local : (rank + 1) * t_local],
+                                       f0[:, rank * t_local : (rank + 1) * t_local], g, group=shards,
+                                       halo=halo, seed=seed if sample_noise else None)
+            out = gather_time(local, shards)
+        else:
+            out = torch.empty((1, 1, t_pad * dec.upp), dtype=z.dtype, device=self.device)
+        if n < world:  # the ranks without a shard take the song from the first
+            dist.broadcast(out, src=dist.get_global_rank(group, 0), group=group)
+        audio = out[0, 0, : n_frames * self.hop_size].float().cpu().numpy()
+        return audio, audio.shape[-1], n_frames
+
+    def _shard_group(self, n: int, group, world: int):
+        """The process group of ``group``'s first ``n`` ranks (``group``
+        itself when it has ``n``, None without a process group); made once
+        per ``n`` by every rank of the world, as ``new_group`` requires."""
+        import torch.distributed as dist
+
+        if group is None or n == world:
+            return group
+        cache = self.__dict__.setdefault("_seq_groups", {})
+        key = (id(group), n)
+        if key not in cache:
+            cache[key] = dist.new_group([dist.get_global_rank(group, r) for r in range(n)])
+        return cache[key]
 
 
 class RealTimeVC:

@@ -68,19 +68,25 @@ class Unit2Mel(nn.Module):
     def forward(self, units, f0, volume, spk_id=None, aug_shift=None,
                 gt_spec: torch.Tensor | None = None, infer: bool = True, infer_speedup: int = 10,
                 method: str | None = "dpm-solver++", k_step: int = 300,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                batch_rows: tuple[int, int] | None = None) -> torch.Tensor:
         """Inference (``infer``): the mel [B, T, M], by shallow diffusion
         from ``gt_spec`` [B, T, M] at ``k_step``, or by full diffusion from
         noise when ``gt_spec`` is None. Training: the noise-prediction MSE at
         a random step below ``k_step_max``. Noise and steps come from
-        ``generator`` (a CPU generator)."""
+        ``generator`` (a CPU generator). ``batch_rows`` (first row, global
+        batch size) marks a data-parallel rank's rows of a global batch: the
+        steps and noise are drawn for the global batch and its rows kept,
+        so the ranks together draw what one process would."""
         sched = self.schedule
         cond = self.condition(units, f0, volume, spk_id, aug_shift).transpose(1, 2)
         denoise_fn = self.decoder["denoise_fn"]
         if not infer:
             spec = sched.norm_spec(gt_spec.transpose(1, 2))
-            t = torch.randint(0, sched.k_step, (units.shape[0],), generator=generator)
-            noise = gaussian.randn(spec.shape, generator, spec.device)
+            b = spec.shape[0]
+            first, total = batch_rows or (0, b)
+            t = torch.randint(0, sched.k_step, (total,), generator=generator)[first : first + b]
+            noise = gaussian.randn((total, *spec.shape[1:]), generator, spec.device)[first : first + b]
             return sched.p_losses(denoise_fn, spec, t.to(spec.device), cond, noise)
         if gt_spec is not None and k_step > sched.k_step:
             raise ValueError("shallow diffusion k_step exceeds the model's k_step_max "

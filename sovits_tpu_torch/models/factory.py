@@ -10,11 +10,12 @@ from torch import nn
 from .. import config as scfg
 
 from ..nn.attention import MultiHeadAttention
-from ..nn.conv import WeightNormed, WNConvTranspose1d
+from ..nn.conv import WeightNormed, WNConvTranspose1d, set_compute_dtype
 from ..nn.norm import LayerNorm
 from ..nn.resblocks import ResBlock1, ResBlock2
 from ..nn.snake import SnakeBeta
 from .discriminator import MultiPeriodDiscriminator
+from .nsf_hifigan import Generator
 from .synthesizer import Synthesizer
 
 
@@ -27,6 +28,23 @@ def build_synthesizer(hps, device: torch.device | str, *, fused_tail: bool,
     one), the trainer the plain convs (``False``), as the JAX trainer does."""
     model = Synthesizer(**scfg.synthesizer_kwargs(hps), fused_tail=fused_tail, dtype=dtype)
     return model.to(device).eval()
+
+
+def build_decoder(hps, device: torch.device | str, *, fused_tail: bool = True,
+                  dtype: torch.dtype = torch.float32) -> Generator:
+    """The synthesizer's vocoder alone: the same class and keywords as
+    ``Synthesizer.dec`` (the Snake generator for "nsf-snake-hifigan"), so a
+    synthesizer's ``dec.*`` state dict loads into it strictly. Serving keeps
+    the fused tail, so K3 runs in a time-sharded decode too."""
+    kw = scfg.synthesizer_kwargs(hps)
+    snake = kw["vocoder_name"] == "nsf-snake-hifigan"
+    dec = Generator(kw["sampling_rate"], kw["inter_channels"], kw["resblock_kernel_sizes"],
+                    kw["resblock_dilation_sizes"], kw["upsample_rates"],
+                    kw["upsample_initial_channel"], kw["upsample_kernel_sizes"], kw["gin_channels"],
+                    fused_tail=fused_tail, resblock=kw["resblock"],
+                    separable=kw["use_depthwise_conv"] and not snake, snake=snake)
+    set_compute_dtype(dec, dtype)
+    return dec.to(device).eval()
 
 
 def build_discriminator(hps, device: torch.device | str,

@@ -22,10 +22,12 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import HParams
 from ..dsp.audio import repeat_expand
 from ..models.diffusion import Unit2Mel
+from ..parallel.mesh import data_rank, data_size, rank
 from . import checkpoint as ckpt_lib
 from .data import load_filelist
 from .trainer import MetricsLogger
@@ -211,10 +213,11 @@ def _batch(examples: list[dict], device: torch.device) -> dict:
     return {k: v.to(device, non_blocking=True) for k, v in batch.items()}
 
 
-def _loss(model: Unit2Mel, batch: dict, generator: torch.Generator) -> torch.Tensor:
+def _loss(model: Unit2Mel, batch: dict, generator: torch.Generator,
+          batch_rows: tuple[int, int] | None = None) -> torch.Tensor:
     return model(batch["units"], batch["f0"], batch["volume"], spk_id=batch["spk"],
                  aug_shift=batch["aug_shift"], gt_spec=batch["mel"], infer=False,
-                 generator=generator)
+                 generator=generator, batch_rows=batch_rows)
 
 
 def staircase_lr(args: HParams, count: int) -> float:
@@ -242,7 +245,8 @@ def fresh_unit2mel(args: HParams, vocoder_dim: int, device: torch.device | str) 
 
 def train_diffusion(args: HParams, expdir: str | Path | None = None,
                     max_steps: int | None = None, vocoder_dim: int = 128,
-                    resume: bool = True, device: torch.device | str = "cuda") -> Unit2Mel:
+                    resume: bool = True, device: torch.device | str = "cuda",
+                    mesh=None) -> Unit2Mel:
     """Train Unit2Mel on the preprocessed artifacts of
     ``args.data.training_files`` (so-vits-svc diffusion/solver.py:93-199),
     on one device: AdamW with the staircase decay, the noise-prediction
@@ -255,12 +259,24 @@ def train_diffusion(args: HParams, expdir: str | Path | None = None,
 
     The data order draws from ``default_rng(1234)`` as the JAX trainer's
     does; each step's diffusion steps and noise from a CPU generator
-    seeded with the step. Returns the model."""
+    seeded with the step. Returns the model.
+
+    ``mesh`` (``parallel.make_mesh``) trains data-parallel, as the JAX
+    trainer does over its mesh: the batch is rounded down to a multiple of
+    the "data" axis (at least one row a rank), every rank draws the same
+    global batch and keeps its rows, the steps and noise are drawn for the
+    global batch, the model runs under DDP, the logged loss is the global
+    batch's, and rank 0 alone writes checkpoints, logs and validations."""
     device = torch.device(device)
     expdir = Path(expdir or args.env.expdir)
-    expdir.mkdir(parents=True, exist_ok=True)
-    mlog = MetricsLogger(expdir)
+    n_data = data_size(mesh)
+    main = rank() == 0
+    if main:
+        expdir.mkdir(parents=True, exist_ok=True)
+    mlog = MetricsLogger(expdir) if main else None
     batch_size = args.train.batch_size
+    batch_size = max(batch_size - batch_size % n_data, n_data)
+    rows = (data_rank(mesh) * (batch_size // n_data), batch_size)
     dataset = DiffusionDataset(args.data.training_files, args)
     val_files = args.data.validation_files
     val_dataset = (DiffusionDataset(val_files, args, cache_all_data=False)
@@ -310,6 +326,12 @@ def train_diffusion(args: HParams, expdir: str | Path | None = None,
 
     start_step, t0 = step, time.perf_counter()
     gen = torch.Generator()
+    step_model = model
+    if mesh is not None:
+        from torch.nn.parallel import DistributedDataParallel
+
+        step_model = DistributedDataParallel(
+            model, device_ids=[device] if device.type == "cuda" else None, broadcast_buffers=False)
     try:
         while max_steps is None or step < max_steps:
             idxs = []
@@ -318,18 +340,25 @@ def train_diffusion(args: HParams, expdir: str | Path | None = None,
                     order, pos = rng.permutation(len(dataset)), 0
                 idxs.append(order[pos])
                 pos += 1
-            batch = _batch([dataset.example(i, rng) for i in idxs], device)
+            examples = [dataset.example(i, rng) for i in idxs]
+            batch = _batch(examples[rows[0] : rows[0] + batch_size // n_data], device)
             for group in optimizer.param_groups:
                 group["lr"] = staircase_lr(args, step)
             gen.manual_seed(1234 + step)
-            loss = _loss(model, batch, gen)
+            loss = _loss(step_model, batch, gen, rows)
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
             optimizer.step()
             step += 1
-            loss_val = float(loss.detach())
+            loss = loss.detach().clone()
+            if n_data > 1:
+                dist.all_reduce(loss, group=mesh["data"].get_group())
+                loss = loss / n_data
+            loss_val = float(loss)
             if not np.isfinite(loss_val):
                 raise RuntimeError(f"NaN/Inf loss at step {step}: aborting (solver.py:136)")
+            if not main:
+                continue
             if step % (args.train.interval_log or 10) == 0:
                 rate = (step - start_step) / (time.perf_counter() - t0)  # this run's steps only
                 mlog.scalars(step, {"loss/diffusion": loss_val, "steps_per_sec": rate})
@@ -342,7 +371,10 @@ def train_diffusion(args: HParams, expdir: str | Path | None = None,
             elif force_save and step % force_save == 0:
                 save(step)
     finally:
-        mlog.close()
+        if mlog is not None:
+            mlog.close()
+    if mesh is not None:  # the checkpoints are on disk for every rank
+        dist.barrier()
     return model
 
 

@@ -35,10 +35,12 @@ def feature_loss(fmap_real, fmap_fake):
     return loss * 2.0
 
 
-def kl_loss(z_p, logs_q, m_p, logs_p, z_mask):
+def kl_loss(z_p, logs_q, m_p, logs_p, z_mask, normaliser: torch.Tensor | None = None):
     """Masked KL(q || p) after the flow; inputs [B, T, C], z_mask [B, T, 1].
-    The normaliser is the sum of the [B, T, 1] mask, not times channels."""
+    The normaliser is the sum of the [B, T, 1] mask, not times channels,
+    unless ``normaliser`` is given (a data-parallel rank's share of the
+    global batch's mask sum)."""
     z_p, logs_q, m_p, logs_p, z_mask = (t.float() for t in (z_p, logs_q, m_p, logs_p, z_mask))
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * ((z_p - m_p) ** 2) * torch.exp(-2.0 * logs_p)
-    return torch.sum(kl * z_mask) / torch.sum(z_mask)
+    return torch.sum(kl * z_mask) / (torch.sum(z_mask) if normaliser is None else normaliser)

@@ -11,6 +11,7 @@ launch floor and is not ported.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 
 def make_optimizer(params, hps) -> torch.optim.AdamW:
@@ -34,6 +35,29 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
 
 def global_norm(params) -> torch.Tensor:
     """L2 norm of all gradients (so-vits-svc's clip_grad_value_ with no
-    clipping only measures it)."""
+    clipping only measures it). Gradients sharded by FSDP (DTensors) count
+    whole: their shards' squared sums are summed over the mesh dims they
+    are sharded on."""
+    from torch.distributed.tensor import DTensor
+
     grads = [p.grad for p in params if p.grad is not None]
-    return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    plain = [g for g in grads if not isinstance(g, DTensor)]
+    sharded = [g for g in grads if isinstance(g, DTensor)]
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in plain])) \
+        if plain else None
+    if not sharded:
+        return norm
+    squares: dict = {}
+    for g in sharded:
+        dims = tuple(i for i, p in enumerate(g.placements) if p.is_shard())
+        key = (id(g.device_mesh), dims)
+        local = g.to_local().float().pow(2).sum()
+        squares[key] = (g.device_mesh, dims, squares[key][2] + local if key in squares else local)
+    total = torch.zeros((), device=sharded[0].to_local().device)
+    for mesh, dims, sq in squares.values():
+        for dim in dims:
+            dist.all_reduce(sq, group=mesh.get_group(dim))
+        total = total + sq
+    if norm is not None:
+        total = total + norm.float() ** 2
+    return torch.sqrt(total)

@@ -2,7 +2,10 @@
 so-vits-svc ``train.py``): epochs with the per-epoch learning rate,
 logging (``metrics.jsonl``, and TensorBoard when it imports), validation
 synthesis at every ``eval_interval``, checkpoints and resume,
-``max_steps``.
+``max_steps``. With a mesh (``parallel.make_mesh``, one process per card
+under ``torchrun``) it trains data-parallel: every rank reads the same
+batches and takes its rows, both nets run under DDP, and rank 0 alone
+writes checkpoints, logs and evaluations.
 """
 
 from __future__ import annotations
@@ -16,10 +19,12 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import config as scfg
 from ..dsp.stft import mel_spectrogram
 from ..models import factory
+from ..parallel.mesh import data_rank, data_size, rank, shard_batch
 from . import checkpoint as ckpt
 from .data import FeatureDataset, batch_iterator
 from .optim import epoch_lr, make_optimizer, set_learning_rate
@@ -99,17 +104,36 @@ def _to_device(batch: dict, device: torch.device) -> dict:
     return {k: torch.from_numpy(v).to(device, non_blocking=True) for k, v in batch.items()}
 
 
+def _data_parallel(net: torch.nn.Module, mesh, device: torch.device) -> torch.nn.Module:
+    """``net`` under DDP over the whole mesh (ranks along "model" hold the
+    same rows, as the JAX trainer replicates its state over the mesh); the
+    net itself without a mesh."""
+    if mesh is None:
+        return net
+    from torch.nn.parallel import DistributedDataParallel
+
+    return DistributedDataParallel(net, device_ids=[device] if device.type == "cuda" else None,
+                                   broadcast_buffers=False)
+
+
 def train(hps, model_dir: str | Path, max_steps: int | None = None,
-          device: torch.device | str = "cuda", on_step=None):
+          device: torch.device | str = "cuda", on_step=None, mesh=None):
     """Train from ``hps.data.training_files``, resuming from the newest
     ``G_*.pth`` / ``D_*.pth`` in ``model_dir``. ``on_step(step, metrics)``
-    is called after every step (metrics as 0-d tensors on the device).
-    Returns (net_g, net_d)."""
+    is called after every step (metrics as 0-d tensors on the device, the
+    global batch's). ``mesh`` trains data-parallel over its ranks: the
+    batch size must split over its "data" axis. Returns (net_g, net_d),
+    the modules without their DDP wrappers."""
     device = torch.device(device)
     model_dir = Path(model_dir)
-    model_dir.mkdir(parents=True, exist_ok=True)
-    scfg.save_config(hps, model_dir / "config.json")
-    _record_git_hash(model_dir)
+    n_data = data_size(mesh)
+    batch_size = hps.train.batch_size
+    assert batch_size % n_data == 0, (batch_size, n_data)
+    main = rank() == 0
+    if main:
+        model_dir.mkdir(parents=True, exist_ok=True)
+        scfg.save_config(hps, model_dir / "config.json")
+        _record_git_hash(model_dir)
     seed = hps.train.seed
     init = torch.Generator().manual_seed(seed)
     # the trainer decodes through the plain ResBlock1 convs, as the JAX trainer
@@ -134,45 +158,60 @@ def train(hps, model_dir: str | Path, max_steps: int | None = None,
         logger.info("loaded pretrained checkpoints")
 
     dataset = FeatureDataset(hps.data.training_files, hps)
-    batch_size = hps.train.batch_size
     steps_per_epoch = max(len(dataset) // batch_size, 1)
     generator = torch.Generator(device=device)
+    step_g, step_d = _data_parallel(net_g, mesh, device), _data_parallel(net_d, mesh, device)
+    # a data rank's draws differ from the others': its rank goes into the seed
+    rank_seed = data_rank(mesh) << 32
     start_step, t_start = step, time.perf_counter()
     # the data order restarts from hps.train.seed at every start, a resume
     # included, as the JAX trainer's does; the dropout generator is reseeded per step
-    with contextlib.closing(MetricsLogger(model_dir)) as mlog, \
+    logger_cm = contextlib.closing(MetricsLogger(model_dir)) if main else contextlib.nullcontext()
+    with logger_cm as mlog, \
             contextlib.closing(batch_iterator(dataset, batch_size, seed=seed)) as batches:
         for epoch in range(start_epoch, (hps.train.epochs or 1) + 1):
             lr = epoch_lr(hps, epoch)
             set_learning_rate(optim_g, lr)
             set_learning_rate(optim_d, lr)
             for _ in range(steps_per_epoch):
-                batch = next(batches)
-                generator.manual_seed(seed + step)  # the same draws after a resume
-                metrics = train_step(net_g, net_d, optim_g, optim_d, _to_device(batch, device), hps,
-                                     generator=generator)
+                batch = shard_batch(next(batches), mesh)
+                generator.manual_seed(seed + step + rank_seed)  # the same draws after a resume
+                metrics = train_step(step_g, step_d, optim_g, optim_d, _to_device(batch, device), hps,
+                                     generator=generator, mesh=mesh)
                 step += 1
                 if on_step is not None:
                     on_step(step, metrics)
-                if step % hps.train.log_interval == 0:
-                    vals = {k: float(v) for k, v in metrics.items()}
-                    vals["learning_rate"] = lr
-                    vals["steps_per_sec"] = (step - start_step) / (time.perf_counter() - t_start)
-                    mlog.scalars(step, vals)
-                    logger.info("step %d: %s", step, {k: round(v, 4) for k, v in vals.items()})
-                evaluate = step % hps.train.eval_interval == 0
                 done = max_steps is not None and step >= max_steps
-                if done or evaluate:
-                    for prefix, net, opt in (("G", net_g, optim_g), ("D", net_d, optim_d)):
-                        ckpt.save_checkpoint(net, opt, hps.train.learning_rate, epoch,
-                                             model_dir / f"{prefix}_{step}.pth")
-                    ckpt.clean_checkpoints(model_dir, hps.train.keep_ckpts or 3)
-                if evaluate:  # not at a max_steps save off the interval, as in JAX
-                    _evaluate(hps, net_g, mlog, step)
+                if main:
+                    _log_and_save(hps, model_dir, mlog, step, epoch, lr, metrics, done, start_step,
+                                  t_start, (("G", net_g, optim_g), ("D", net_d, optim_d)))
                 if done:
+                    if mesh is not None:  # the checkpoints are on disk for every rank
+                        dist.barrier()
                     return net_g, net_d
             logger.info("epoch %d done (%.1f s)", epoch, time.perf_counter() - t_start)
     return net_g, net_d
+
+
+def _log_and_save(hps, model_dir: Path, mlog: MetricsLogger, step: int, epoch: int, lr: float,
+                  metrics: dict, done: bool, start_step: int, t_start: float, nets: tuple) -> None:
+    """Rank 0's work after a step: the metrics every ``log_interval``, the
+    checkpoints at every ``eval_interval`` and at the last step, the
+    evaluation at every ``eval_interval``."""
+    if step % hps.train.log_interval == 0:
+        vals = {k: float(v) for k, v in metrics.items()}
+        vals["learning_rate"] = lr
+        vals["steps_per_sec"] = (step - start_step) / (time.perf_counter() - t_start)
+        mlog.scalars(step, vals)
+        logger.info("step %d: %s", step, {k: round(v, 4) for k, v in vals.items()})
+    evaluate = step % hps.train.eval_interval == 0
+    if done or evaluate:
+        for prefix, net, opt in nets:
+            ckpt.save_checkpoint(net, opt, hps.train.learning_rate, epoch,
+                                 model_dir / f"{prefix}_{step}.pth")
+        ckpt.clean_checkpoints(model_dir, hps.train.keep_ckpts or 3)
+    if evaluate:  # not at a max_steps save off the interval, as in JAX
+        _evaluate(hps, nets[0][1], mlog, step)
 
 
 def _evaluate(hps, net_g, mlog: MetricsLogger, step: int) -> None:

@@ -957,3 +957,91 @@ def test_onnx_runtime_on_card_matches_cpu(cuda):
              "sid": np.asarray([1], np.int64)}
     got, want = run_model(mb, feeds, cuda)["audio"], run_model(mb, feeds, "cpu")["audio"]
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+SEAM_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_sequence_parallel.py's bar
+
+
+@pytest.mark.parametrize("noise", [False, True], ids=["noise-off", "noise-on"])
+def test_shard_local_decode_seams_launch_k3(cuda, noise):
+    """parallel.sequence.decode_local for each of 4 shards in turn, on its
+    haloed slice of the whole latent with the phase prefix from the
+    per-shard sums, against the monolithic decode on the card: within the
+    JAX test's bar away from the song's edges and across every seam (noise
+    off, then counter-based noise with one seed); K3 runs in every shard."""
+    import numpy as np
+
+    from sovits_tpu_torch.models.nsf_hifigan import Generator
+    from sovits_tpu_torch.parallel.sequence import decode_local, phase_sum, required_halo_frames
+
+    # tests/test_torch_parallel.py's generator: stage widths 128 and 64 (K3)
+    dec = factory.init_random_(Generator(8000, 24, upsample_rates=(8, 2), upsample_kernel_sizes=(16, 4),
+                                         upsample_initial_channel=256, gin_channels=16, fused_tail=True),
+                                 _g(0))
+    dec = dec.to(cuda).eval()
+    n, t, g = 4, 4 * 24, _g(3)
+    x = (torch.randn(1, 24, t, generator=g) * 0.3).to(cuda)
+    f0 = (80.0 + 220.0 * torch.rand(1, t, generator=g)).to(cuda)
+    if noise:
+        f0[:, 30:45] = 0.0  # an unvoiced span, excited by the noise alone
+    g = (torch.randn(1, 16, 1, generator=g) * 0.2).to(cuda)
+    tl, halo, upp = t // n, required_halo_frames(dec), dec.upp
+    noise_gen = (lambda: torch.Generator(cuda).manual_seed(7)) if noise else (lambda: None)
+    xp, fp = torch.nn.functional.pad(x, (halo, halo)), torch.nn.functional.pad(f0, (halo, halo))
+    sums = [phase_sum(f0[:, r * tl : (r + 1) * tl], dec.sampling_rate, upp) for r in range(n)]
+    with torch.no_grad():
+        mono = dec(x, f0, g, generator=noise_gen(), noise_frames=(0, t) if noise else None)
+        parts = []
+        for r in range(n):
+            before = fused_resblock_trio.launches
+            phase0 = sum(sums[:r]) if r else torch.zeros_like(sums[0])
+            parts.append(decode_local(dec, xp[..., r * tl : (r + 1) * tl + 2 * halo],
+                                      fp[:, r * tl : (r + 1) * tl + 2 * halo], g, phase0, halo, r * tl, t,
+                                      noise_gen()))
+            assert fused_resblock_trio.launches - before == 2  # stages of width 128 and 64
+    got, want = torch.cat(parts, -1)[0, 0].cpu().numpy(), mono[0, 0].cpu().numpy()
+    edge = halo * upp
+    np.testing.assert_allclose(got[edge:-edge], want[edge:-edge], **SEAM_TOL)
+    for s in range(1, n):
+        win = slice(s * tl * upp - 64, s * tl * upp + 64)
+        np.testing.assert_allclose(got[win], want[win], err_msg=f"seam {s}", **SEAM_TOL)
+    if noise:
+        assert np.abs(got[35 * upp : 40 * upp]).max() > 1e-4
+
+
+def test_infer_seq_parallel_world1_nccl(cuda, tmp_path, monkeypatch):
+    """Svc.infer_seq_parallel at full width over an NCCL group of one rank
+    (a file:// store): one prior/flow pass (6 K1 launches) and one decode
+    (4 K3 launches), equal to Svc's batched synthesizer pass on the same
+    prepared item away from the song's edges, noise off."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from sovits_tpu_torch.infer.svc import Svc
+    from sovits_tpu_torch.parallel import make_mesh
+    from sovits_tpu_torch.parallel.sequence import required_halo_frames
+
+    hps = scfg.default_config()
+    scfg.save_config(hps, tmp_path / "config.json")
+    model = factory.init_random_(factory.build_synthesizer(hps, "cpu", fused_tail=True), _g(0))
+    torch.save({"model": model.state_dict(), "iteration": 0}, tmp_path / "G_0.pth")
+    svc = Svc(str(tmp_path / "G_0.pth"), str(tmp_path / "config.json"), device=cuda)
+    g, n = _g(5), 700
+    item = dict(c=torch.randn(n, hps.model.ssl_dim, generator=g).numpy(),
+                f0=(150.0 + 100.0 * torch.rand(n, generator=g)).numpy(),
+                uv=(torch.rand(n, generator=g) > 0.2).float().numpy(), vol=None, n_frames=n,
+                spk=("id", 0))
+    monkeypatch.setattr(svc, "_prepare_chunk", lambda *a, **k: item)
+    make_mesh(1, 1, "cuda", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1)
+    try:
+        assert dist.get_backend() == "nccl"
+        fused_attention.launches = fused_resblock_trio.launches = 0
+        got, n_samples, frames = svc.infer_seq_parallel(0, 0, np.zeros(16), n_shards=4,
+                                                        sample_noise=False, noice_scale=0.0)
+        assert (fused_attention.launches, fused_resblock_trio.launches) == (6, 4)
+    finally:
+        dist.destroy_process_group()
+    want = svc._run_synth_batch([item], 0.0, False, 52468, sample_noise=False)[0]
+    assert n_samples == frames * hps.data.hop_length == len(want)
+    edge = required_halo_frames(svc.model.dec) * hps.data.hop_length
+    np.testing.assert_allclose(got[edge:-edge], want[edge:-edge], **SEAM_TOL)

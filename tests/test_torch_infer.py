@@ -392,10 +392,10 @@ def test_cli_infer_writes_result(cli_dir, capsys):
     (["-ss", "4"], "--seq_shard"),
 ], ids=lambda v: v if isinstance(v, str) else "_".join(v))
 def test_cli_rejects_unsupported_flag(tmp_path, monkeypatch, flags, named):
-    """-ss (the sequence-sharded decode) stops the program before any model
-    loads; the cluster flags, ported, reach Svc and slice_inference as the
-    JAX CLI passes them (the CLI run with a cluster model:
-    test_torch_cluster.py)."""
+    """The cluster flags and -ss, ported, reach Svc and slice_inference (-ss:
+    infer_seq_parallel with n_shards) as the JAX CLI passes them (the CLI run
+    with a cluster model: test_torch_cluster.py; -ss through the real Svc:
+    test_torch_parallel.py)."""
     from sovits_tpu_torch.cli import infer as cli
 
     monkeypatch.chdir(tmp_path)
@@ -413,14 +413,16 @@ def test_cli_rejects_unsupported_flag(tmp_path, monkeypatch, flags, named):
             sliced.append(k)
             return np.zeros(8, np.float32)
 
+        def infer_seq_parallel(self, *a, **k):
+            sliced.append(k)
+            return np.zeros(8, np.float32), 8, 1
+
     monkeypatch.setattr(cli, "Svc", FakeSvc)
     argv = ["-m", "G_0.pth", "-n", "song.wav", *flags]
-    if named == "--seq_shard":
-        with pytest.raises(SystemExit, match=named):
-            cli.main(argv)
-        assert not loaded
-        return
     cli.main(argv)
+    if named == "--seq_shard":
+        assert sliced[0]["n_shards"] == 4
+        assert (tmp_path / "results" / "song_0key_0_sovits_pm.wav").exists()
     (kw,) = loaded
     assert kw["cluster_model_path"] == ("kmeans.pt" if "-cm" in flags else None)
     assert kw["feature_retrieval"] == ("-fr" in flags)
@@ -433,7 +435,7 @@ def test_cli_ignores_a_cluster_path_that_does_not_exist(tmp_path, monkeypatch):
 
     monkeypatch.chdir(tmp_path)
     args = cli.build_parser().parse_args(["-m", "G_0.pth", "-n", "song.wav", "-cm", "none.pt"])
-    assert cli.unsupported(args) == []
+    assert cli.seq_shard_conflicts(args) == []
     assert args.device == "cuda"
 
 
