@@ -47,19 +47,27 @@ diffusion ONNX artifacts with the PLMS loop replayed through them, the
 operators' dispatch cost, and the 10 s request through the operators
 against direct launches, 16 training (a feature dataset made by the port
 itself, six full-width GAN steps through ``train``, a resume, a profiled
-step), 17 three GAN steps with the fused tail against the same steps
-without it, 18 ``[learning]``: tests/test_learning.py's GAN learning proof
-(300 steps on one batch, then train() with a resume), 19 ``[parallel]``:
+step), 17 ``[train-configs]``: so-vits-svc 4.1's model options trained at
+full width (a volume + transformer-flow model through
+preprocess_flist_config --vol_aug --use_transformer_flow,
+preprocess_features and cli.train with an evaluation and a resume, then
+served by Svc; ResBlock2, Snake and the tiny template through train(); one
+deterministic step of vol_tflow and of Snake on the card against the CPU;
+vol_tflow's bf16 step against fp32; a learning proof with the volume
+embedding and the transformer flow), 18 three GAN steps with the fused tail
+against the same steps without it, 19 ``[learning]``: tests/test_learning.py's
+GAN learning proof (300 steps on one batch, then train() with a resume), 20
+``[parallel]``:
 parallel/ at world size 1 over NCCL: the 59.5 s song through
 Svc.infer_seq_parallel in fp32 (against Synthesizer.infer) and bf16
 (against fp32), the shard-local decode at 4 and 8 shards against the
 monolithic decode across every seam, noise off and on, with K3 in every
 shard, two DDP GAN steps through train(mesh) and two FSDP-sharded steps
 against the plain ones, a DDP diffusion step against the plain one, and
-the infer CLI's -ss, 20 the bf16 GAN step at bench.py's
+the infer CLI's -ss, 21 the bf16 GAN step at bench.py's
 training configuration (batch 6 x 512 frames, bf16 synthesizer and
 discriminator; its first step against the same step through fp32 nets),
-21 the trio staging microbench at its defaults, 22 kernel times beside
+22 the trio staging microbench at its defaults, 23 kernel times beside
 their bounds. Any failure raises, so the script exits non-zero; the
 last line is the JSON result the caller reads. Needs a CUDA card; without
 one (or without the repository around it) it fails before printing a result.
@@ -2189,6 +2197,33 @@ def _launched(before: dict) -> dict:
     return {k: now[k] - before[k] for k in now}
 
 
+@contextlib.contextmanager
+def _spied_training():
+    """Within it, every trainer.train_step and trainer._evaluate call appends
+    (wall s ending in a synchronize, its launches, its result) to the
+    yielded dict's "steps" or "evals"."""
+    from sovits_tpu_torch.train import trainer
+
+    records = {"steps": [], "evals": []}
+
+    def spied(fn, record):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            before, t0 = _counts(), time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            record.append((time.perf_counter() - t0, _launched(before), out))
+            return out
+        return run
+
+    real = trainer.train_step, trainer._evaluate
+    trainer.train_step, trainer._evaluate = spied(real[0], records["steps"]), spied(real[1], records["evals"])
+    try:
+        yield records
+    finally:
+        trainer.train_step, trainer._evaluate = real
+
+
 def pipeline_corpus(raw: Path) -> float:
     """The raw recordings: 48 kHz stereo 16-bit, left and right a little
     apart. Returns their seconds."""
@@ -2275,54 +2310,33 @@ def pipeline_gan(work: Path) -> None:
     PIPELINE_GAN_STEPS steps, evaluating every PIPELINE_EVAL_INTERVAL: each
     step's wall and K1/K2 launches, each evaluation's wall and K1 launches
     (6 a clip, 2 clips)."""
-    import os
-
     from sovits_tpu_torch.cli import train as cli_train
-    from sovits_tpu_torch.train import trainer
 
     config = work / "configs" / "config.json"
     cfg = json.loads(config.read_text())
     cfg["train"].update(eval_interval=PIPELINE_EVAL_INTERVAL, log_interval=1)
     config.write_text(json.dumps(cfg, indent=2))
-    steps, evals = [], []
-
-    def spied(fn, record):
-        def run(*a, **k):
-            torch.cuda.synchronize()
-            before, t0 = _counts(), time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            record.append((time.perf_counter() - t0, _launched(before)))
-            return out
-        return run
-
-    real = trainer.train_step, trainer._evaluate
-    trainer.train_step, trainer._evaluate = spied(real[0], steps), spied(real[1], evals)
-    cwd = os.getcwd()
-    os.chdir(work)
-    try:
+    with _spied_training() as rec, contextlib.chdir(work):
         t0 = time.perf_counter()
         cli_train.main(["-c", "configs/config.json", "-m", "44k", "--max-steps", str(PIPELINE_GAN_STEPS),
                         "--device", "cuda"])
         wall = time.perf_counter() - t0
-    finally:
-        os.chdir(cwd)
-        trainer.train_step, trainer._evaluate = real
+    steps, evals = rec["steps"], rec["evals"]
     model_dir = work / "logs" / "44k"
     records = [json.loads(ln) for ln in (model_dir / "metrics.jsonl").read_text().splitlines()]
     mel_l1 = {(r["step"], k): r[k] for r in records for k in r if k.startswith("eval/")}
-    for i, (s, c) in enumerate(steps, 1):
+    for i, (s, c, _) in enumerate(steps, 1):
         log("pipeline", what="GAN step", step=i, wall_s=f"{s:.4f}", rel_attention=c["rel_attention"],
             rel_attention_bwd=c["rel_attention_bwd"])
-    for i, (s, c) in enumerate(evals):
+    for i, (s, c, _) in enumerate(evals):
         log("pipeline", what="evaluation", step=PIPELINE_EVAL_INTERVAL * (i + 1), wall_s=f"{s:.4f}",
             rel_attention=c["rel_attention"], resblock_trio=c["resblock_trio"])
     tb = sorted(p.name for p in model_dir.glob("events.out.tfevents*"))
     ckpts = sorted(p.name for p in model_dir.glob("*.pth"))
     want_evals = {(s, f"eval/mel_l1_{i}") for s in (2, 4) for i in (0, 1)}
     ok = (len(steps) == PIPELINE_GAN_STEPS and len(evals) == 2
-          and all(c["rel_attention"] > 0 and c["rel_attention_bwd"] > 0 for _, c in steps)
-          and all(c["rel_attention"] == 12 and c["resblock_trio"] == 0 for _, c in evals)
+          and all(c["rel_attention"] > 0 and c["rel_attention_bwd"] > 0 for _, c, _ in steps)
+          and all(c["rel_attention"] == 12 and c["resblock_trio"] == 0 for _, c, _ in evals)
           and set(mel_l1) == want_evals and all(np.isfinite(v) for v in mel_l1.values())
           and ckpts == ["D_2.pth", "D_4.pth", "G_2.pth", "G_4.pth"])
     log("pipeline", what="cli.train", steps=len(steps), wall_s=f"{wall:.2f}",
@@ -3119,80 +3133,88 @@ def write_learning_dataset(root: Path, hps, n_speakers: int = 2, n_per_spk: int 
     hps["spk"] = scfg.HParams(**{f"spk{s}": s for s in range(n_speakers)})
 
 
-def phase_learning(tmp: Path) -> dict:
-    """tests/test_learning.py on the card: LEARNING_STEPS fp32 GAN steps on
-    one fixed sine batch at its tiny config: the last 25 steps' mean mel loss
+def overfit_steps(phase: str, hps) -> dict:
+    """tests/test_learning.py's proof on the card: LEARNING_STEPS fp32 GAN
+    steps on one fixed sine batch at ``hps``: the last 25 steps' mean mel loss
     < 0.7 x the first 25's and the total < 0.8 x, the synthesis afterwards
-    finite and not silent; then train() to LEARNING_FIRST steps on a
-    synthetic dataset and resumed to LEARNING_FIRST + LEARNING_SECOND: the
-    first window after the resume < 1.15 x the one before it, the tail <=
-    1.05 x. Under LEARNING_LIMIT_S. Returns its K1/K2 launches."""
+    finite and not silent, K1 and K2 launched. Returns the steps' launches."""
     from sovits_tpu_torch.dsp.stft import mel_spectrogram
     from sovits_tpu_torch.models import factory
     from sovits_tpu_torch.train.optim import make_optimizer
     from sovits_tpu_torch.train.step import train_step
+
+    d = hps.data
+    batch = sine_batch(hps)
+    init = torch.Generator().manual_seed(0)
+    net_g = factory.init_random_(factory.build_synthesizer(hps, "cpu", fused_tail=False), init).cuda()
+    net_d = factory.init_random_(factory.build_discriminator(hps, "cpu"), init).cuda()
+    opts = [make_optimizer(n.parameters(), hps) for n in (net_g, net_d)]
+    mel_kw = dict(n_fft=d.filter_length, n_mels=d.n_mel_channels, sample_rate=d.sampling_rate,
+                  hop_length=d.hop_length, win_length=d.win_length, fmin=d.mel_fmin, fmax=d.mel_fmax)
+
+    def synth():
+        net_g.eval()
+        with torch.no_grad():
+            wav_hat = net_g.infer(batch["c"], batch["f0"], batch["uv"], batch["spk"], vol=batch["volume"],
+                                  sample_noise=False)[0][..., 0]
+        net_g.train()
+        gt = mel_spectrogram(batch["wav"][..., 0], **mel_kw)
+        got = mel_spectrogram(wav_hat, **mel_kw)
+        tm = min(gt.shape[1], got.shape[1])
+        return wav_hat, (gt[:, :tm] - got[:, :tm]).abs().mean().item()
+
+    _, mel0 = synth()
+    net_d.train()
+    gen = torch.Generator(device="cuda")
+    before = _counts()
+    t0 = time.perf_counter()
+    trace = []
+    for i in range(LEARNING_STEPS):
+        gen.manual_seed(3 + i)
+        m = train_step(net_g, net_d, *opts, batch, hps, generator=gen)
+        trace.append([m[k].item() for k in ("loss/g/total", "loss/g/mel", "loss/d/total")])
+    steps_s = time.perf_counter() - t0
+    counts = _launched(before)
+    g_tot, g_mel, d_tot = np.asarray(trace).T
+    wav_hat, mel1 = synth()
+    wav_hat = wav_hat.float().cpu().numpy()
+    k = LEARNING_STEPS // 12
+    w0 = wav_hat[0] - wav_hat[0].mean()
+    power = np.abs(np.fft.rfft(w0 * np.hanning(len(w0)))) ** 2 + 1e-20
+    flatness = float(np.exp(np.mean(np.log(power))) / power.mean())
+    peak = float(np.abs(wav_hat).max())
+    ok = (np.isfinite(trace).all() and g_mel[-k:].mean() < 0.7 * g_mel[:k].mean()
+          and g_tot[-k:].mean() < 0.8 * g_tot[:k].mean() and np.isfinite(wav_hat).all()
+          and 1e-3 < peak < 10.0 and counts["rel_attention"] > 0 and counts["rel_attention_bwd"] > 0)
+    log(phase, what=f"{LEARNING_STEPS} fp32 GAN steps on one sine batch (tests/test_learning.py)",
+        steps_s=f"{steps_s:.2f}", step_ms=f"{1e3 * steps_s / LEARNING_STEPS:.2f}",
+        g_mel_first=f"{g_mel[:k].mean():.4f}", g_mel_last=f"{g_mel[-k:].mean():.4f}",
+        g_mel_ratio=f"{g_mel[-k:].mean() / g_mel[:k].mean():.4f}", limit_mel=0.7,
+        g_total_ratio=f"{g_tot[-k:].mean() / g_tot[:k].mean():.4f}", limit_total=0.8,
+        d_total_first=f"{d_tot[:k].mean():.4f}", d_total_last=f"{d_tot[-k:].mean():.4f}",
+        eval_mel_l1_before=f"{mel0:.4f}", eval_mel_l1_after=f"{mel1:.4f}",
+        synth_peak=f"{peak:.4f}", spectral_flatness=f"{flatness:.4f}",
+        rel_attention=counts["rel_attention"], rel_attention_bwd=counts["rel_attention_bwd"], ok=ok)
+    if not ok:
+        raise AssertionError(f"[{phase}] the GAN did not learn: mel {g_mel[:k].mean()} -> "
+                             f"{g_mel[-k:].mean()}, total {g_tot[:k].mean()} -> {g_tot[-k:].mean()}, "
+                             f"peak {peak}, launches {counts}")
+    return counts
+
+
+def phase_learning(tmp: Path) -> dict:
+    """overfit_steps at tests/test_learning.py's tiny config; then train() to
+    LEARNING_FIRST steps on a synthetic dataset and resumed to LEARNING_FIRST
+    + LEARNING_SECOND: the first window after the resume < 1.15 x the one
+    before it, the tail <= 1.05 x. Under LEARNING_LIMIT_S. Returns its K1/K2
+    launches."""
     from sovits_tpu_torch.train.trainer import train
 
     t_phase = time.perf_counter()
 
     def run():
-        hps = learning_hps()
-        d = hps.data
-        batch = sine_batch(hps)
-        init = torch.Generator().manual_seed(0)
-        net_g = factory.init_random_(factory.build_synthesizer(hps, "cpu", fused_tail=False), init).cuda()
-        net_d = factory.init_random_(factory.build_discriminator(hps, "cpu"), init).cuda()
-        opts = [make_optimizer(n.parameters(), hps) for n in (net_g, net_d)]
-        mel_kw = dict(n_fft=d.filter_length, n_mels=d.n_mel_channels, sample_rate=d.sampling_rate,
-                      hop_length=d.hop_length, win_length=d.win_length, fmin=d.mel_fmin, fmax=d.mel_fmax)
-
-        def synth():
-            net_g.eval()
-            with torch.no_grad():
-                wav_hat = net_g.infer(batch["c"], batch["f0"], batch["uv"], batch["spk"], vol=batch["volume"],
-                                      sample_noise=False)[0][..., 0]
-            net_g.train()
-            gt = mel_spectrogram(batch["wav"][..., 0], **mel_kw)
-            got = mel_spectrogram(wav_hat, **mel_kw)
-            tm = min(gt.shape[1], got.shape[1])
-            return wav_hat, (gt[:, :tm] - got[:, :tm]).abs().mean().item()
-
-        _, mel0 = synth()
-        net_d.train()
-        gen = torch.Generator(device="cuda")
         _reset_counts()
-        t0 = time.perf_counter()
-        trace = []
-        for i in range(LEARNING_STEPS):
-            gen.manual_seed(3 + i)
-            m = train_step(net_g, net_d, *opts, batch, hps, generator=gen)
-            trace.append([m[k].item() for k in ("loss/g/total", "loss/g/mel", "loss/d/total")])
-        steps_s = time.perf_counter() - t0
-        counts = _counts()
-        g_tot, g_mel, d_tot = np.asarray(trace).T
-        wav_hat, mel1 = synth()
-        wav_hat = wav_hat.float().cpu().numpy()
-        k = LEARNING_STEPS // 12
-        w0 = wav_hat[0] - wav_hat[0].mean()
-        power = np.abs(np.fft.rfft(w0 * np.hanning(len(w0)))) ** 2 + 1e-20
-        flatness = float(np.exp(np.mean(np.log(power))) / power.mean())
-        peak = float(np.abs(wav_hat).max())
-        ok = (np.isfinite(trace).all() and g_mel[-k:].mean() < 0.7 * g_mel[:k].mean()
-              and g_tot[-k:].mean() < 0.8 * g_tot[:k].mean() and np.isfinite(wav_hat).all()
-              and 1e-3 < peak < 10.0 and counts["rel_attention"] > 0 and counts["rel_attention_bwd"] > 0)
-        log("learning", what=f"{LEARNING_STEPS} fp32 GAN steps on one sine batch (tests/test_learning.py)",
-            steps_s=f"{steps_s:.2f}", step_ms=f"{1e3 * steps_s / LEARNING_STEPS:.2f}",
-            g_mel_first=f"{g_mel[:k].mean():.4f}", g_mel_last=f"{g_mel[-k:].mean():.4f}",
-            g_mel_ratio=f"{g_mel[-k:].mean() / g_mel[:k].mean():.4f}", limit_mel=0.7,
-            g_total_ratio=f"{g_tot[-k:].mean() / g_tot[:k].mean():.4f}", limit_total=0.8,
-            d_total_first=f"{d_tot[:k].mean():.4f}", d_total_last=f"{d_tot[-k:].mean():.4f}",
-            eval_mel_l1_before=f"{mel0:.4f}", eval_mel_l1_after=f"{mel1:.4f}",
-            synth_peak=f"{peak:.4f}", spectral_flatness=f"{flatness:.4f}",
-            rel_attention=counts["rel_attention"], rel_attention_bwd=counts["rel_attention_bwd"], ok=ok)
-        if not ok:
-            raise AssertionError(f"[learning] the GAN did not learn: mel {g_mel[:k].mean()} -> "
-                                 f"{g_mel[-k:].mean()}, total {g_tot[:k].mean()} -> {g_tot[-k:].mean()}, "
-                                 f"peak {peak}, launches {counts}")
+        overfit_steps("learning", learning_hps())
 
         hps = learning_hps(**{"train.log_interval": 1, "train.eval_interval": 10_000, "train.epochs": 10_000})
         write_learning_dataset(tmp / "learning" / "data", hps)
@@ -3606,12 +3628,26 @@ def phase_cli(tmp: Path, sr: int, hop: int) -> None:
         raise AssertionError(f"the CLI wrote {len(audio)} samples at {out_sr} Hz for {len(wav)}")
 
 
+def corpus_clips(spk_dir: Path, sr: int, hop: int) -> list[tuple[str, np.ndarray]]:
+    """Eight seeded clips of 3-12 s (bench_signal at rising pitches), whole
+    hops long, written to ``spk_dir`` as 16-bit wavs: (path, samples)."""
+    from scipy.io import wavfile
+
+    spk_dir.mkdir(parents=True)
+    clips = []
+    for i, seconds in enumerate(np.linspace(3.0, 12.0, 8)):
+        wav = bench_signal(float(seconds), sr, seed=30 + i, base_hz=140.0 + 15.0 * i)
+        wav = wav[: len(wav) // hop * hop]
+        path = str(spk_dir / f"clip{i}.wav")
+        wavfile.write(path, sr, (wav * 32767).astype(np.int16))
+        clips.append((path, wav))
+    return clips
+
+
 def make_feature_dataset(root: Path, hps, encoder) -> Path:
     """so-vits-svc's preprocessed layout, made by the port itself: eight
     44.1 kHz clips of 3-12 s, units from the vec768l12 encoder, f0 from the
     port's DIO, linear spectrograms from dsp.stft. Returns the filelist."""
-    from scipy.io import wavfile
-
     from sovits_tpu_torch.dsp.audio import resample
     from sovits_tpu_torch.dsp.stft import spectrogram
     from sovits_tpu_torch.f0.dio import DioF0Predictor
@@ -3619,14 +3655,8 @@ def make_feature_dataset(root: Path, hps, encoder) -> Path:
     d = hps.data
     sr, hop = d.sampling_rate, d.hop_length
     dio = DioF0Predictor(hop_length=hop, sampling_rate=sr)
-    spk_dir = root / "spk0"
-    spk_dir.mkdir(parents=True)
     paths = []
-    for i, seconds in enumerate(np.linspace(3.0, 12.0, 8)):
-        wav = bench_signal(float(seconds), sr, seed=30 + i, base_hz=140.0 + 15.0 * i)
-        wav = wav[: len(wav) // hop * hop]
-        path = str(spk_dir / f"clip{i}.wav")
-        wavfile.write(path, sr, (wav * 32767).astype(np.int16))
+    for path, wav in corpus_clips(root / "spk0", sr, hop):
         f0, uv = dio.compute_f0_uv(wav)
         np.save(path + ".f0.npy", np.stack([f0, uv]))
         np.save(path + ".soft.npy", encoder.encode(resample(wav, sr, 16000)).T)  # [H, T]
@@ -3642,9 +3672,6 @@ def phase_train(tmp: Path, encoder) -> dict:
     """Six full-width GAN steps through train(), then a resume for one more,
     then one profiled step."""
     from sovits_tpu_torch import config as scfg
-    from sovits_tpu_torch.train.data import FeatureDataset, batch_iterator
-    from sovits_tpu_torch.train.optim import make_optimizer
-    from sovits_tpu_torch.train.step import train_step
     from sovits_tpu_torch.train.trainer import train
 
     t0 = time.perf_counter()
@@ -3696,24 +3723,309 @@ def phase_train(tmp: Path, encoder) -> dict:
         metrics_jsonl_steps=[r["step"] for r in jsonl],
         checkpoints=sorted(p.name for p in (tmp / "model").glob("*.pth")))
 
-    # one profiled step on the nets of the first run
-    batch = next(batch_iterator(FeatureDataset(hps.data.training_files, hps), 6, seed=0))
-    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    profile_step("train", net_g, net_d, hps)  # on the nets of the first run
+    total = {k: sum(r[2][k] for r in records) for k in ("rel_attention", "rel_attention_bwd")}
+    return total, hps
+
+
+def profile_step(phase: str, net_g, net_d, hps, **labels) -> None:
+    """One training step of (net_g, net_d) on a batch of hps's training
+    files, after a warm-up step, under torch.profiler: its wall, device busy,
+    K1's and K2's device ms and the top kernels."""
+    from sovits_tpu_torch.train.data import FeatureDataset, batch_iterator
+    from sovits_tpu_torch.train.optim import make_optimizer
+    from sovits_tpu_torch.train.step import train_step
+
+    it = batch_iterator(FeatureDataset(hps.data.training_files, hps), hps.train.batch_size, seed=0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(it).items()}
+    it.close()
     opts = [make_optimizer(n.parameters(), hps) for n in (net_g, net_d)]
     gen = torch.Generator(device="cuda").manual_seed(0)
     train_step(net_g, net_d, *opts, batch, hps, generator=gen)  # warm-up
     wall, busy, dev = _profiled(lambda: train_step(net_g, net_d, *opts, batch, hps, generator=gen))
     k1 = sum(v for k, v in dev.items() if "rel_attn_fwd" in k) / 1e3
     k2 = sum(v for k, v in dev.items() if any(n in k for n in K2_KERNELS)) / 1e3
-    top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
-    log("train", profiled_step_wall_ms=f"{1e3 * wall:.2f}", device_busy_ms=f"{busy:.2f}",
+    log(phase, **labels, profiled_step_wall_ms=f"{1e3 * wall:.2f}", device_busy_ms=f"{busy:.2f}",
         rel_attention_ms=f"{k1:.3f}", rel_attention_bwd_ms=f"{k2:.3f}",
         k1_share_of_busy=f"{k1 / busy:.4f}" if busy else "n/a",
         k2_share_of_busy=f"{k2 / busy:.4f}" if busy else "n/a")
-    for key, us in top:
+    for key, us in sorted(dev.items(), key=lambda kv: -kv[1])[:8]:
         print(f"    device {us / 1e3:9.3f} ms  {key[:110]}", flush=True)
-    total = {k: sum(r[2][k] for r in records) for k in ("rel_attention", "rel_attention_bwd")}
-    return total, hps
+
+
+# [train-configs]: so-vits-svc 4.1's model options trained at published widths
+TRAIN_CONFIGS_LIMIT_S = 300
+TRAIN_CONFIGS_STEPS = 4  # per run; the user's path resumes for one more
+TRAIN_CONFIGS_OTHERS = ("resblock2", "snake", "tiny")
+CARD_CPU_CONFIGS = ("vol_tflow", "snake")
+CARD_CPU_ROWS = 2  # of the training batch, for the step on the CPU: its time, not the widths, is cut
+GRAD_REL = 1e-3  # card against CPU: the generator's whole gradient, relative in norm
+
+
+def attention_per_step(hps) -> int:
+    """K1 (and K2) launches in one training step: the content encoder's
+    layers, the F0 decoder's, and the transformer flow's causal layers."""
+    m = hps.model
+    flow = m.n_flow_layer * m.n_layers_trans_flow if m.use_transformer_flow else 0
+    return m.n_layers * (1 + bool(m.use_automatic_f0_prediction)) + flow
+
+
+def attention_per_synthesis(hps) -> int:
+    """K1 launches of one Synthesizer.infer with f0 given: the content
+    encoder's layers and the reversed transformer flow's."""
+    m = hps.model
+    return m.n_layers + (m.n_flow_layer * m.n_layers_trans_flow if m.use_transformer_flow else 0)
+
+
+def _step_records(phase: str, what: str, steps: list, want: int) -> None:
+    """Log each spied training step (wall, K1/K2, losses) and the steps per
+    second after two warm-ups; raise on a non-finite loss or on other than
+    ``want`` fp32 K1 and K2 launches."""
+    for i, (wall, c, m) in enumerate(steps, 1):
+        losses = {k: float(v) for k, v in m.items()}
+        finite = all(np.isfinite(v) for v in losses.values())
+        log(phase, what=what, step=i, wall_s=f"{wall:.4f}", rel_attention=c["rel_attention"],
+            rel_attention_bwd=c["rel_attention_bwd"], finite=finite,
+            **{k.replace("loss/", ""): f"{v:.4f}" for k, v in losses.items()})
+        if not finite or c["rel_attention"] != want or c["rel_attention_bwd"] != want:
+            raise AssertionError(f"[{phase}] {what} step {i}: losses {losses}, launches {c}, want {want} K1/K2")
+    steady = [w for w, _, _ in steps[2:]]
+    if steady:
+        log(phase, what=what, steps_per_s_after_2_warmup=f"{len(steady) / sum(steady):.4f}",
+            step_s_mean=f"{np.mean(steady):.4f}", step1_s=f"{steps[0][0]:.4f}", k1_k2_per_step=want)
+
+
+def train_configs_cli(work: Path, tmp: Path, encoder):
+    """(a) The user's path for a volume + transformer-flow model:
+    corpus_clips, preprocess_flist_config --vol_aug --use_transformer_flow,
+    preprocess_features (DIO, [slice]'s seeded vec768l12 checkpoint),
+    cli.train for TRAIN_CONFIGS_STEPS steps with an evaluation at the last,
+    a resume for one more, one profiled step of a fresh seeded model, and
+    G_<n+1>.pth served by Svc (a warm-up and a 10 s request, K1/K3
+    checked). Returns the trained config."""
+    from sovits_tpu_torch import config as scfg
+    from sovits_tpu_torch.cli import preprocess_features, preprocess_flist_config
+    from sovits_tpu_torch.cli import train as cli_train
+    from sovits_tpu_torch.infer.svc import Svc
+    from sovits_tpu_torch.models import factory
+
+    d = scfg.default_config().data
+    clips = corpus_clips(work / "dataset" / "44k" / "alto", d.sampling_rate, d.hop_length)
+    n = TRAIN_CONFIGS_STEPS
+    with contextlib.chdir(work):
+        preprocess_flist_config.main(["--vol_aug", "--use_transformer_flow"])
+        config = Path("configs/config.json")
+        cfg = json.loads(config.read_text())
+        cfg["train"].update(eval_interval=n, log_interval=1)
+        config.write_text(json.dumps(cfg, indent=2))
+        t0 = time.perf_counter()
+        seconds = preprocess_features.main(["-c", str(config), "--f0_predictor", "dio", "--encoder_checkpoint",
+                                            str(tmp / "cli" / "pretrain" / "checkpoint_best_legacy_500.pt"),
+                                            "--device", "cuda"])
+        prep_s = time.perf_counter() - t0
+        hps = scfg.load_config(config)
+        m = hps.model
+        vols = [np.load(p + ".vol.npy") for p, _ in clips]
+        ok = (m.vol_embedding and m.use_transformer_flow and hps.train.vol_aug
+              and all(v.shape == (len(w) // d.hop_length,) and v.max() > 1e-3 for v, (_, w) in zip(vols, clips)))
+        log("train-configs", what="preprocess_flist_config --vol_aug --use_transformer_flow, preprocess_features",
+            clips=len(clips), audio_s=f"{sum(len(w) for _, w in clips) / d.sampling_rate:.1f}",
+            prep_s=f"{prep_s:.2f}", **{f"{k}_s": f"{v:.3f}" for k, v in seconds.items()},
+            vol_embedding=m.vol_embedding, use_transformer_flow=m.use_transformer_flow,
+            vol_aug=hps.train.vol_aug, n_flow_layer=m.n_flow_layer, n_layers_trans_flow=m.n_layers_trans_flow,
+            ok=ok)
+        if not ok:
+            raise AssertionError(f"[train-configs] the CLI config or the volumes: {dict(m)}")
+        want = attention_per_step(hps)
+        argv = ["-c", str(config), "-m", "44k", "--device", "cuda"]
+        torch.cuda.reset_peak_memory_stats()
+        with _spied_training() as rec:
+            t0 = time.perf_counter()
+            cli_train.main(argv + ["--max-steps", str(n)])
+            first_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            t0 = time.perf_counter()
+            cli_train.main(argv + ["--max-steps", str(n + 1)])
+            resume_s = time.perf_counter() - t0
+        net_g = factory.init_random_(factory.build_synthesizer(hps, "cpu", fused_tail=False),
+                                     torch.Generator().manual_seed(31)).cuda().train()
+        net_d = factory.init_random_(factory.build_discriminator(hps, "cpu"),
+                                     torch.Generator().manual_seed(32)).cuda().train()
+        profile_step("train-configs", net_g, net_d, hps, config="vol_tflow")
+        del net_g, net_d
+        model_dir = Path("logs/44k")
+        records = [json.loads(ln) for ln in (model_dir / "metrics.jsonl").read_text().splitlines()]
+        ckpts = sorted(p.name for p in model_dir.glob("G_*.pth"))
+        _step_records("train-configs", "vol_tflow, cli.train", rec["steps"][:n], want)
+        _step_records("train-configs", "vol_tflow, resumed", rec["steps"][n:], want)
+        evals = [(wall, c) for wall, c, _ in rec["evals"]]
+        want_eval = 2 * attention_per_synthesis(hps)  # two validation clips
+        ok = (len(rec["steps"]) == n + 1 and [r["step"] for r in records if "loss/g/total" in r]
+              == list(range(1, n + 2)) and len(evals) == 1 and evals[0][1]["rel_attention"] == want_eval
+              and evals[0][1]["resblock_trio"] == 0 and f"G_{n + 1}.pth" in ckpts
+              and all(np.isfinite(v) for r in records for v in r.values()))
+        log("train-configs", what="vol_tflow: cli.train, resumed", first_run_s=f"{first_s:.2f}",
+            resumed_run_s=f"{resume_s:.2f}", peak_mem_gb=f"{peak / 1e9:.3f}",
+            eval_wall_s=[f"{w:.4f}" for w, _ in evals], eval_rel_attention=[c["rel_attention"] for _, c in evals],
+            eval_mel_l1={k: f"{v:.4f}" for r in records for k, v in r.items() if k.startswith("eval/")},
+            metrics_steps=[r["step"] for r in records if "loss/g/total" in r], checkpoints=ckpts, ok=ok)
+        if not ok:
+            raise AssertionError(f"[train-configs] vol_tflow training: steps {len(rec['steps'])}, "
+                                 f"evaluations {evals}, checkpoints {ckpts}")
+
+        svc = Svc(str(model_dir / f"G_{n + 1}.pth"), str(config), encoder=encoder, device="cuda")
+        sr, hop = svc.target_sample, svc.hop_size
+        clip = bench_signal(SECONDS, sr, seed=91)
+        want_infer = {"rel_attention": attention_per_synthesis(hps), "resblock_trio": 4}
+        for request in ("10s warm-up", "10s"):
+            before = _counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            audio, n_samples, n_frames = svc.infer("alto", 0, clip, sr=sr, f0_predictor="dio")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = _launched(before)
+            ok = (n_samples == n_frames * hop == len(clip) // hop * hop and np.isfinite(audio).all()
+                  and float(np.abs(audio).max()) > 1e-4
+                  and all(got[k] == want_infer.get(k, 0) for k in got))
+            log("train-configs", what=f"G_{n + 1}.pth served by Svc.infer", request=repr(request),
+                frames=n_frames, wall_s=f"{wall:.4f}", rtf=f"{wall / SECONDS:.5f}",
+                **{k: got[k] for k in want_infer}, peak=f"{np.abs(audio).max():.4f}", ok=ok)
+            if not ok:
+                raise AssertionError(f"[train-configs] the trained vol_tflow model's {request}: launches {got}")
+    return hps
+
+
+def train_configs_options(work: Path, cli_hps) -> dict:
+    """(b) The other options' models (CONFIG_CASES) trained by train() on
+    (a)'s features for TRAIN_CONFIGS_STEPS steps at batch 6: each step's
+    wall, launches and losses, peak memory. Returns each option's config."""
+    from sovits_tpu_torch.train.trainer import train
+
+    configs = {}
+    with contextlib.chdir(work):
+        for name in TRAIN_CONFIGS_OTHERS:
+            hps = config_hps(name)
+            hps.data["training_files"] = cli_hps.data.training_files
+            hps.data["validation_files"] = cli_hps.data.validation_files
+            for key in ("n_speakers", "ssl_dim", "gin_channels", "speech_encoder"):  # (a)'s features and speakers
+                hps.model[key] = cli_hps.model[key]
+            hps["spk"] = cli_hps.spk
+            configs[name] = hps
+            torch.cuda.reset_peak_memory_stats()
+            with _spied_training() as rec:
+                t0 = time.perf_counter()
+                train(hps, Path("logs") / name, max_steps=TRAIN_CONFIGS_STEPS, device="cuda")
+                wall = time.perf_counter() - t0
+            m = hps.model
+            log("train-configs", config=name, what="train()", run_s=f"{wall:.2f}",
+                peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}", batch=hps.train.batch_size,
+                resblock=m.resblock, vocoder=m.vocoder_name or "nsf-hifigan",
+                use_depthwise_conv=bool(m.use_depthwise_conv), flow_share_parameter=bool(m.flow_share_parameter),
+                filter_channels=m.filter_channels, upsample_initial_channel=m.upsample_initial_channel)
+            if len(rec["steps"]) != TRAIN_CONFIGS_STEPS:
+                raise AssertionError(f"[train-configs] {name}: train() ran {len(rec['steps'])} steps")
+            _step_records("train-configs", name, rec["steps"], attention_per_step(hps))
+    return configs
+
+
+def train_configs_card_vs_cpu(work: Path, configs: dict) -> None:
+    """(c) One deterministic GAN step of each CARD_CPU_CONFIGS model on the
+    card against the same step on the CPU: same seeded weights, the first
+    CARD_CPU_ROWS rows of a training batch, TF32 off. Every metric (losses
+    and both gradient norms) within STEP_REL, the generator's whole
+    gradient within GRAD_REL in norm; the worst tensor is printed."""
+    from sovits_tpu_torch.models import factory
+    from sovits_tpu_torch.train.data import FeatureDataset, batch_iterator
+    from sovits_tpu_torch.train.optim import make_optimizer
+    from sovits_tpu_torch.train.step import train_step
+
+    for name in CARD_CPU_CONFIGS:
+        hps = configs[name]
+        with contextlib.chdir(work):
+            it = batch_iterator(FeatureDataset(hps.data.training_files, hps), hps.train.batch_size, seed=7)
+            rows = {k: v[:CARD_CPU_ROWS] for k, v in next(it).items()}
+            it.close()
+        runs = {}
+        for device in ("cuda", "cpu"):
+            net_g = factory.init_random_(factory.build_synthesizer(hps, "cpu", fused_tail=False),
+                                         torch.Generator().manual_seed(21)).to(device).train()
+            net_d = factory.init_random_(factory.build_discriminator(hps, "cpu"),
+                                         torch.Generator().manual_seed(22)).to(device).train()
+            opts = [make_optimizer(n.parameters(), hps) for n in (net_g, net_d)]
+            batch = {k: torch.from_numpy(v).to(device) for k, v in rows.items()}
+            torch.cuda.synchronize()
+            before, t0 = _counts(), time.perf_counter()
+            m = train_step(net_g, net_d, *opts, batch, hps, deterministic=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            grads = {n: p.grad.detach().cpu() for n, p in net_g.named_parameters() if p.grad is not None}
+            runs[device] = (wall, {k: float(v) for k, v in m.items()}, grads, _launched(before))
+            del net_g, net_d, opts, batch
+        (w_card, m_card, g_card, c_card), (w_cpu, m_cpu, g_cpu, c_cpu) = runs["cuda"], runs["cpu"]
+        loss_rel = {k: abs(m_card[k] - v) / max(abs(v), 1e-8) for k, v in m_cpu.items()}
+        worst_loss = max(loss_rel, key=loss_rel.get)
+        grad_rel = (sum((g_card[n] - g).square().sum() for n, g in g_cpu.items()).sqrt()
+                    / sum(g.square().sum() for g in g_cpu.values()).sqrt()).item()
+        rel = {n: ((g_card[n] - g).norm() / g.norm().clamp_min(1e-30)).item() for n, g in g_cpu.items()}
+        worst = max(rel, key=rel.get)
+        # a key projection's bias shifts a query row's scores alike, which the
+        # softmax removes: its exact gradient is 0 and the computed one noise
+        worst_else = max((n for n in rel if not n.endswith("conv_k.bias")), key=rel.get)
+        want = attention_per_step(hps)
+        ok = (set(g_card) == set(g_cpu) and loss_rel[worst_loss] <= STEP_REL and grad_rel <= GRAD_REL
+              and c_card["rel_attention"] == c_card["rel_attention_bwd"] == want
+              and not any(c_cpu.values()))
+        log("train-configs", config=name, what="one deterministic GAN step, card against CPU (fp32, TF32 off)",
+            rows=CARD_CPU_ROWS, frames=hps.data.pad_to_frames, card_s=f"{w_card:.4f}", cpu_s=f"{w_cpu:.2f}",
+            loss_max_rel=f"{loss_rel[worst_loss]:.3e}", worst_metric=worst_loss,
+            g_total_card=f"{m_card['loss/g/total']:.5f}", g_total_cpu=f"{m_cpu['loss/g/total']:.5f}",
+            grad_g_total_rel=f"{grad_rel:.3e}", worst_parameter=worst, worst_parameter_rel=f"{rel[worst]:.3e}",
+            worst_but_key_biases=worst_else, worst_but_key_biases_rel=f"{rel[worst_else]:.3e}",
+            rel_attention=c_card["rel_attention"], rel_attention_bwd=c_card["rel_attention_bwd"],
+            limits=f"metrics<={STEP_REL}, gradient<={GRAD_REL}", ok=ok)
+        if not ok:
+            raise AssertionError(f"[train-configs] {name}: card and CPU steps disagree: metrics {loss_rel}, "
+                                 f"gradient {grad_rel} (worst {worst} {rel[worst]}), launches {c_card}")
+
+
+def phase_train_configs(tmp: Path, encoder) -> dict:
+    """so-vits-svc 4.1's model options trained on the card at published
+    widths: (a) the vol_tflow model through the user's CLIs, resumed and
+    served; (b) ResBlock2, Snake and the tiny template through train(); (c)
+    vol_tflow and Snake, one deterministic step card against CPU; (d)
+    vol_tflow in bf16, two steps of bench.py's recipe, the first against
+    fp32; (e) the learning proof at LEARNING_TINY's widths with the volume
+    embedding and the transformer flow. Under TRAIN_CONFIGS_LIMIT_S.
+    Returns the phase's launches."""
+    from sovits_tpu_torch import config as scfg
+
+    t_phase = time.perf_counter()
+
+    def run():
+        _reset_counts()
+        work = tmp / "train-configs"
+        cli_hps = train_configs_cli(work, tmp, encoder)
+        configs = train_configs_options(work, cli_hps)
+        configs["vol_tflow"] = cli_hps
+        train_configs_card_vs_cpu(work, configs)
+
+        hps = scfg.HParams(**cli_hps.to_dict())
+        hps.data["pad_to_frames"] = BENCH_T
+        log("train-configs", config="vol_tflow", what="bench.py's bf16 step", batch=hps.train.batch_size,
+            pad_to_frames=BENCH_T, segment=hps.train.segment_size)
+        bf16_steps("train-configs", hps, bench_train_batch(hps), 2, attention_per_step(hps))
+
+        hps = learning_hps(**{"model.vol_embedding": True, "model.use_transformer_flow": True})
+        got = overfit_steps("train-configs", hps)
+        if not got["rel_attention"] == got["rel_attention_bwd"] == LEARNING_STEPS * attention_per_step(hps):
+            raise AssertionError(f"[train-configs] the learning proof's steps launched {got}")
+        return _counts()
+
+    counts = _limited("train-configs", TRAIN_CONFIGS_LIMIT_S, run)
+    log("train-configs", phase_s=f"{time.perf_counter() - t_phase:.1f}", limit_s=TRAIN_CONFIGS_LIMIT_S,
+        launches=counts)
+    return counts
 
 
 def _profile_start():
@@ -3835,7 +4147,8 @@ def phase_train_fused_tail(hps) -> dict:
 def bench_train_batch(hps, device="cuda") -> dict:
     """bench.py's training batch (bench.py:768-785): batch 6 x 512 frames,
     seeded normals for the units, spectrogram and waveform, f0 uniform in
-    80-400 Hz, all voiced, speaker 0, full lengths."""
+    80-400 Hz, all voiced, speaker 0, full lengths; for a volume model,
+    volumes uniform in 0-0.3."""
     rng = np.random.default_rng(0)
     b, t, hop = hps.train.batch_size, hps.data.pad_to_frames, hps.data.hop_length
     batch = dict(
@@ -3847,30 +4160,29 @@ def bench_train_batch(hps, device="cuda") -> dict:
         spk=np.zeros(b, np.int64),
         lengths=np.full(b, t, np.int64),
     )
+    if hps.model.vol_embedding:
+        batch["volume"] = rng.uniform(0.0, 0.3, (b, t)).astype(np.float32)
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
-def phase_train_bf16() -> dict:
-    """bench.py's training configuration (bench.py:736-806) through the
-    port: the full-width default model with seeded random weights,
-    build_synthesizer(fused_tail=False, dtype=bf16) and
-    build_discriminator(dtype=bf16), batch 6 x 512 frames, segment 10240.
-    Its first step is held against the same step through fp32 nets (same
-    weights, batch and generator seed; the mel loss through its waveform,
-    as the bf16 request is held); then one more warm-up and six timed
-    steps, and one profiled step. Every bf16 step must launch 12 bf16 K1 and
-    12 bf16 K2 and no fp32 attention kernel, and give finite losses."""
+def bf16_steps(phase: str, hps, batch: dict, n_steps: int, attn_per_step: int):
+    """bench.py's bf16 training recipe on ``hps``: the model with seeded
+    random weights, build_synthesizer(fused_tail=False, dtype=bf16) and
+    build_discriminator(dtype=bf16), fp32 parameters. Its first step is held
+    against the same step through fp32 nets (same weights, batch and
+    generator seed; the mel loss through its waveform, as the bf16 request is
+    held); then ``n_steps - 1`` more steps. Every bf16 step must launch
+    ``attn_per_step`` bf16 K1 and as many bf16 K2, no fp32 attention kernel,
+    and give finite losses. Returns the bf16 nets and optimizers, the step
+    walls after the first, the bf16 launches and the step generator."""
     import torch.nn.functional as F
 
-    from sovits_tpu_torch import config as scfg
     from sovits_tpu_torch.dsp.sequence import slice_segments
     from sovits_tpu_torch.dsp.stft import mel_spectrogram, spec_to_mel
     from sovits_tpu_torch.models import factory
     from sovits_tpu_torch.train.optim import make_optimizer
     from sovits_tpu_torch.train.step import train_step
 
-    hps = scfg.default_config(**{"data.pad_to_frames": BENCH_T})
-    batch = bench_train_batch(hps)
     bf = torch.bfloat16
     nets = {}
     for dtype in (torch.float32, bf):
@@ -3879,25 +4191,22 @@ def phase_train_bf16() -> dict:
         net_d = factory.init_random_(factory.build_discriminator(hps, "cpu", dtype=dtype),
                                      torch.Generator().manual_seed(1)).cuda().train()
         nets[dtype] = (net_g, net_d, *(make_optimizer(n.parameters(), hps) for n in (net_g, net_d)))
-    log("train-bf16", config="bench.py: default model, fused_tail=False, bf16 G and D, fp32 parameters",
-        batch=hps.train.batch_size, pad_to_frames=hps.data.pad_to_frames, segment=hps.train.segment_size)
     gen = torch.Generator(device="cuda")
 
     def step(dtype, seed):
         gen.manual_seed(seed)
-        _reset_counts()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        before, t0 = _counts(), time.perf_counter()
         m = train_step(*nets[dtype], batch, hps, generator=gen)
         torch.cuda.synchronize()
-        return time.perf_counter() - t0, {k: float(v) for k, v in m.items()}, _counts()
+        return time.perf_counter() - t0, {k: float(v) for k, v in m.items()}, _launched(before)
 
     def check(i, counts, losses):
-        ok = (all(np.isfinite(v) for v in losses.values()) and counts["rel_attention_bf16"] == 12
-              and counts["rel_attention_bwd_bf16"] == 12 and counts["rel_attention"] == 0
+        ok = (all(np.isfinite(v) for v in losses.values()) and counts["rel_attention_bf16"] == attn_per_step
+              and counts["rel_attention_bwd_bf16"] == attn_per_step and counts["rel_attention"] == 0
               and counts["rel_attention_bwd"] == 0)
         if not ok:
-            raise AssertionError(f"bf16 step {i}: losses {losses}, launches {counts}")
+            raise AssertionError(f"[{phase}] bf16 step {i}: losses {losses}, launches {counts}")
 
     d = hps.data
     mel_kw = dict(n_fft=d.filter_length, n_mels=d.n_mel_channels, sample_rate=d.sampling_rate,
@@ -3936,10 +4245,11 @@ def phase_train_bf16() -> dict:
         launches[k] += counts[k]
     g16 = {n: p.grad.detach().float() for n, p in nets[bf][0].named_parameters() if p.grad is not None}
     if set(g16) != set(g32):
-        raise AssertionError(f"bf16 and fp32 steps trained other parameters: {set(g16) ^ set(g32)}")
+        raise AssertionError(f"[{phase}] bf16 and fp32 steps trained other parameters: {set(g16) ^ set(g32)}")
     (y32, ids), (y16, ids16) = forward_out[torch.float32], forward_out[bf]
     if y16.dtype != bf or not torch.equal(ids, ids16):
-        raise AssertionError(f"the bf16 forward gave {y16.dtype}, slices {ids16.tolist()} vs {ids.tolist()}")
+        raise AssertionError(f"[{phase}] the bf16 forward gave {y16.dtype}, slices {ids16.tolist()} vs "
+                             f"{ids.tolist()}")
     mel32, mel16 = mel(y32), mel(y16)
     loud = mel32 > mel32.amax(dim=(1, 2), keepdim=True) - LOUD_DB / 20 * np.log(10)
     mel_l1_loud = (mel16 - mel32).abs()[loud].mean().item()
@@ -3954,7 +4264,7 @@ def phase_train_bf16() -> dict:
     worst = max(loss_rel, key=loss_rel.get)
     ok = (max(loss_rel.values()) <= BF16_STEP_LOSS_REL and grad_rel <= BF16_STEP_GRAD_REL
           and mel_l1_loud < MEL_L1_BF16 and wave_rel <= E2E_REL)
-    log("train-bf16", what="first step, bf16 against fp32 nets (same weights, batch, seed)",
+    log(phase, what="first step, bf16 against fp32 nets (same weights, batch, seed)",
         **{f"{k.replace('loss/', '')}_fp32": f"{v:.5g}" for k, v in m32.items()},
         **{f"{k.replace('loss/', '')}_bf16": f"{m16[k]:.5g}" for k in m32},
         g_mel_rel=f"{abs(m16['loss/g/mel'] - m32['loss/g/mel']) / m32['loss/g/mel']:.3e}",
@@ -3963,23 +4273,41 @@ def phase_train_bf16() -> dict:
         y_hat_mel_l1_all_bins=f"{(mel16 - mel32).abs().mean().item():.4e}",
         y_hat_wave_rel_max_abs=f"{wave_rel:.3e}", loss_max_rel_but_mel=f"{loss_rel[worst]:.3e}",
         worst_loss=worst, grad_g_total_rel=f"{grad_rel:.3e}",
+        rel_attention_bf16=counts["rel_attention_bf16"], rel_attention_bwd_bf16=counts["rel_attention_bwd_bf16"],
         limits=(f"losses but mel<={BF16_STEP_LOSS_REL}, grad<={BF16_STEP_GRAD_REL}, "
                 f"loud-bin L1<{MEL_L1_BF16}, wave<={E2E_REL}"), ok=ok)
     if not ok:
-        raise AssertionError(f"bf16 step disagrees with fp32: losses {loss_rel}, gradient {grad_rel}, "
-                             f"loud-bin log-mel L1 {mel_l1_loud}, wave {wave_rel}")
-    for i in range(2, 9):  # one more warm-up step, then six timed ones
+        raise AssertionError(f"[{phase}] bf16 step disagrees with fp32: losses {loss_rel}, gradient "
+                             f"{grad_rel}, loud-bin log-mel L1 {mel_l1_loud}, wave {wave_rel}")
+    for i in range(2, n_steps + 1):
         wall, m16, counts = step(bf, 300 + i)
         check(i, counts, m16)
         for k in launches:
             launches[k] += counts[k]
-        if i > 2:
-            walls.append(wall)
-        log("train-bf16", step=i, wall_s=f"{wall:.4f}", rel_attention_bf16=counts["rel_attention_bf16"],
+        walls.append(wall)
+        log(phase, step=i, wall_s=f"{wall:.4f}", rel_attention_bf16=counts["rel_attention_bf16"],
             rel_attention_bwd_bf16=counts["rel_attention_bwd_bf16"],
             **{k.replace("loss/", ""): f"{v:.4f}" for k, v in m16.items()})
+    return nets[bf], walls, launches, gen
+
+
+def phase_train_bf16() -> dict:
+    """bench.py's training configuration (bench.py:736-806) through the
+    port: the full-width default model in bf16 (bf16_steps), batch 6 x 512
+    frames, segment 10240: its first step against fp32 nets, one more
+    warm-up and six timed steps, and one profiled step; 12 bf16 K1 and K2 a
+    step."""
+    from sovits_tpu_torch import config as scfg
+    from sovits_tpu_torch.train.step import train_step
+
+    hps = scfg.default_config(**{"data.pad_to_frames": BENCH_T})
+    batch = bench_train_batch(hps)
+    log("train-bf16", config="bench.py: default model, fused_tail=False, bf16 G and D, fp32 parameters",
+        batch=hps.train.batch_size, pad_to_frames=hps.data.pad_to_frames, segment=hps.train.segment_size)
+    nets, walls, launches, gen = bf16_steps("train-bf16", hps, batch, 8, 12)
+    walls = walls[1:]  # after one more warm-up step
     peak = torch.cuda.max_memory_allocated()
-    wall, busy, dev = _profiled(lambda: train_step(*nets[bf], batch, hps, generator=gen))
+    wall, busy, dev = _profiled(lambda: train_step(*nets, batch, hps, generator=gen))
     k1 = sum(v for k, v in dev.items() if "rel_attn_fwd" in k) / 1e3
     k2 = sum(v for k, v in dev.items() if any(n in k for n in K2_KERNELS)) / 1e3
     log("train-bf16", timed_steps=len(walls), steps_per_s=f"{len(walls) / sum(walls):.4f}",
@@ -4045,6 +4373,7 @@ def main() -> None:
         export = phase_export(Path(tmp), svc)
         del svc16
         train, hps = phase_train(Path(tmp), svc.encoder)
+        train_configs = phase_train_configs(Path(tmp), svc.encoder)
         fused_tail = phase_train_fused_tail(hps)
         learning = phase_learning(Path(tmp))
         parallel = phase_parallel(Path(tmp), svc, hps)
@@ -4060,6 +4389,7 @@ def main() -> None:
                           "encoders": encoders["rel_attention"], "cluster": cluster["rel_attention"],
                           "pipeline": pipeline["rel_attention"], "surfaces": surfaces["rel_attention"],
                           "export": export["rel_attention"], "train": train["rel_attention"],
+                          "train_configs": train_configs["rel_attention"],
                           "train_fused_tail": fused_tail["rel_attention"], "learning": learning["rel_attention"],
                           "parallel": parallel["rel_attention"]},
         "rel_attention_bf16": {"infer_bf16": infer_bf16["rel_attention_bf16"],
@@ -4067,10 +4397,13 @@ def main() -> None:
                                "configs_bf16": configs16["rel_attention_bf16"],
                                "diffusion_bf16": diffusion16["rel_attention_bf16"],
                                "train_bf16": train_bf16["rel_attention_bf16"],
+                               "train_configs": train_configs["rel_attention_bf16"],
                                "parallel": parallel["rel_attention_bf16"]},
         "rel_attention_bwd": {"pipeline": pipeline["rel_attention_bwd"], "train": train["rel_attention_bwd"],
+                              "train_configs": train_configs["rel_attention_bwd"],
                               "learning": learning["rel_attention_bwd"], "parallel": parallel["rel_attention_bwd"]},
-        "rel_attention_bwd_bf16": {"train_bf16": train_bf16["rel_attention_bwd_bf16"]},
+        "rel_attention_bwd_bf16": {"train_bf16": train_bf16["rel_attention_bwd_bf16"],
+                                   "train_configs": train_configs["rel_attention_bwd_bf16"]},
         "resblock_trio": {"infer": infer["resblock_trio"], "slice": slice32["resblock_trio"],
                           "configs": configs32["resblock_trio"],
                           "diffusion": diffusion32["resblock_trio"],
@@ -4078,6 +4411,7 @@ def main() -> None:
                           "encoders": encoders["resblock_trio"], "cluster": cluster["resblock_trio"],
                           "pipeline": pipeline["resblock_trio"], "surfaces": surfaces["resblock_trio"],
                           "export": export["resblock_trio"], "train_fused_tail": fused_tail["resblock_trio"],
+                          "train_configs": train_configs["resblock_trio"],
                           "parallel": parallel["resblock_trio"]},
         "resblock_trio_bf16": {"infer_bf16": infer_bf16["resblock_trio_bf16"],
                                "slice_bf16": slice16["resblock_trio_bf16"],

@@ -44,6 +44,7 @@ from sovits_tpu_torch.ops.fused_stage import fused_resblock_trio  # noqa: E402
 from tests.test_torch_modules import TINY_W2V, _cf, _init, _load, _mask, _sd, _x  # noqa: E402
 from tests.test_torch_ops import _attn_inputs, _trio_inputs  # noqa: E402
 from tests.tiny import tiny_hps  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 BF = torch.bfloat16
 KERNEL_REL = 2e-2  # a few bf16 ulps

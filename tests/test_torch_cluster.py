@@ -41,6 +41,7 @@ from sovits_tpu_torch.cluster import store as tstore  # noqa: E402
 from sovits_tpu_torch.infer import svc as tsvc_mod  # noqa: E402
 from tests.test_torch_infer import _song, cli_dir  # noqa: E402,F401
 from tests.test_torch_slice import AUDIO_ATOL, _voiced, svc_pair  # noqa: E402,F401
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 UNITS_ATOL = 1e-4  # fp32 both sides: the encoders' units bar
 CLEAR = 1e-4  # a deciding gap, relative to the largest distance of its row

@@ -62,6 +62,7 @@ from sovits_tpu_torch.nn.snake import (  # noqa: E402
     SnakeAlias, SnakeBeta, downsample2x, lowpass, upsample2x)
 from tests.test_torch_bf16 import E2E_REL, KERNEL_REL, _assert_rel  # noqa: E402
 from tests.test_torch_modules import ATOL, _cf, _cl, _close, _load, _mask, _sd, _x  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 B, TL, C = 2, 40, 32
 BF = torch.bfloat16

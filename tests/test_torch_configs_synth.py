@@ -44,6 +44,7 @@ from tests.test_torch_infer import _song  # noqa: E402
 from tests.test_torch_modules import _cl, _close  # noqa: E402
 from tests.test_torch_slice import AUDIO_ATOL, MEL_L1, _log_mel, _voiced  # noqa: E402
 from tests.tiny import tiny_hps  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 # ------------------------------------------------------- (a) synthesizer

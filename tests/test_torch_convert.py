@@ -17,8 +17,10 @@ from sovits_tpu_torch.encoders.factory import get_speech_encoder  # noqa: E402
 from sovits_tpu_torch.encoders.wav2vec2 import Wav2Vec2Config  # noqa: E402
 from sovits_tpu_torch.models import factory  # noqa: E402
 from tests.fairseq_fixture import make_fairseq_hubert_sd, save_as_torch_ckpt  # noqa: E402
+from tests.test_torch_configs import _fill  # noqa: E402
 from tests.test_torch_modules import TINY_W2V  # noqa: E402
 from tests.tiny import tiny_hps  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _assert_trees_equal(a, b, path=""):
@@ -32,10 +34,13 @@ def _assert_trees_equal(a, b, path=""):
 
 @pytest.fixture(scope="module")
 def tiny_params():
+    """The tiny synthesizer's params: the tree init_synthesizer_params makes,
+    from its shapes (no init program compiled), seeded by ``_fill``."""
     hps = tiny_hps()
     module = jfactory.build_synthesizer(hps)
-    params = jfactory.init_synthesizer_params(module, jax.random.PRNGKey(0), hps, t_frames=16)
-    return hps, jax.tree.map(np.asarray, params)
+    shapes = jax.eval_shape(lambda: jfactory.init_synthesizer_params(module, jax.random.PRNGKey(0), hps,
+                                                                     t_frames=16))
+    return hps, _fill(shapes, np.random.default_rng(0))
 
 
 def test_synthesizer_round_trip_is_exact(tiny_params):

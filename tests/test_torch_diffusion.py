@@ -63,6 +63,7 @@ from sovits_tpu_torch.models.diffusion import wavenet as twavenet  # noqa: E402
 from sovits_tpu_torch.models.diffusion.unit2mel import Unit2Mel  # noqa: E402
 from sovits_tpu_torch.ops.fused_stage import TRIO_CHANNELS  # noqa: E402
 from tests.test_torch_slice import MEL_L1, _log_mel, _voiced, svc_pair  # noqa: E402,F401
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 VOC = {"sampling_rate": 8000, "num_mels": 16, "n_fft": 128, "win_size": 128, "hop_size": 64,
        "fmin": 40, "fmax": 4000, "upsample_rates": [4, 4, 4], "upsample_initial_channel": 64,

@@ -36,6 +36,7 @@ from sovits_tpu_torch.cli import train_diff as tcli  # noqa: E402
 from sovits_tpu_torch.convert import from_jax  # noqa: E402
 from sovits_tpu_torch.models.diffusion import gaussian as tgauss  # noqa: E402
 from sovits_tpu_torch.train import diffusion as tdiff  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 LOSS_REL = 1e-5
 # max-abs error over the tensor's peak |value|. A bias that starts at zero is

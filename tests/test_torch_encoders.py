@@ -39,6 +39,7 @@ from sovits_tpu_torch.encoders.wav2vec2 import Wav2Vec2Config  # noqa: E402
 from chip_smoke import to_bshall_hubert  # noqa: E402
 from tests.fairseq_fixture import make_fairseq_hubert_sd, save_as_torch_ckpt  # noqa: E402
 from tests.test_torch_modules import TINY_W2V  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 UNITS_ATOL = 1e-4  # fp32 on both sides (the units' bar in test_torch_slice.py)
 CONVS = [(32, 1, 10)] + [(32, 32, 3)] * 4 + [(32, 32, 2)] * 2

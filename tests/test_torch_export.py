@@ -55,6 +55,7 @@ from sovits_tpu_torch.export.onnx_synth import build_synthesizer_onnx  # noqa: E
 from sovits_tpu_torch.models import factory  # noqa: E402
 from sovits_tpu_torch.models.diffusion.unit2mel import Unit2Mel  # noqa: E402
 from tests.test_torch_configs import _fill  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 ONNX_ATOL = 2e-4  # tests/test_onnx_export.py's bar
 PT2_TOL = dict(rtol=1e-5, atol=1e-6)

@@ -55,6 +55,7 @@ from sovits_tpu_torch.f0 import rmvpe as trmvpe  # noqa: E402
 from sovits_tpu_torch.infer import svc as tsvc_mod  # noqa: E402
 from sovits_tpu_torch.models.factory import init_random_  # noqa: E402
 from tests.test_torch_slice import AUDIO_ATOL, _voiced, svc_pair  # noqa: E402,F401
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 SAL_ATOL = 1e-4  # fp32 on both sides; sums in another order
 CLEAR = 100 * SAL_ATOL

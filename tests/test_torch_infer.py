@@ -42,6 +42,7 @@ from sovits_tpu_torch.infer import slicer as tslicer  # noqa: E402
 from sovits_tpu_torch.infer import spkmix as tspkmix  # noqa: E402
 from sovits_tpu_torch.infer import svc as tsvc_mod  # noqa: E402
 from tests.test_torch_slice import AUDIO_ATOL, _voiced, svc_pair  # noqa: E402,F401
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 SEED = 52468
 

@@ -33,6 +33,7 @@ from sovits_tpu_torch.nn.flows import ResidualCouplingBlock  # noqa: E402
 from sovits_tpu_torch.nn.norm import LayerNorm  # noqa: E402
 from sovits_tpu_torch.nn.resblocks import ResBlock1  # noqa: E402
 from sovits_tpu_torch.nn.wavenet import WN  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 ATOL = 1e-4
 B, TL, C = 2, 40, 32
@@ -212,8 +213,8 @@ def test_generator_with_fused_trio_stages():
     g = (rng.standard_normal((1, 1, 16)) * 0.1).astype(np.float32)
     jm = jnsf.Generator(**kw)
     args = (jnp.asarray(x), jnp.asarray(f0), jnp.asarray(g))
-    params = _init(jm, *args)
-    ref = jm.apply({"params": params}, *args, rng=None)
+    params = jax.tree.map(np.asarray, jax.jit(jm.init)(jax.random.PRNGKey(0), *args)["params"])
+    ref = jax.jit(lambda p, *a: jm.apply({"params": p}, *a, rng=None))(params, *args)
     tm = Generator(resblock_kernel_sizes=(3, 7, 11), resblock_dilation_sizes=((1, 3, 5),) * 3, **kw)
     _load(tm, _sd(from_jax.generator, params))
     got = tm(_cf(x), torch.from_numpy(f0), _cf(g)).transpose(1, 2).detach().numpy()
@@ -246,8 +247,8 @@ TINY_W2V = dict(d_model=64, n_layers=2, n_heads=4, ffn_dim=128, pos_conv_kernel=
 def test_wav2vec2_encoder():
     wav = _x((1, 8000), seed=5, scale=0.3)
     jm = jw2v.Wav2Vec2Encoder(jw2v.Wav2Vec2Config(**TINY_W2V))
-    params = _init(jm, jnp.asarray(wav))
-    ref = jm.apply({"params": params}, jnp.asarray(wav))
+    params = jax.tree.map(np.asarray, jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(wav))["params"])
+    ref = jax.jit(lambda p, w: jm.apply({"params": p}, w))(params, jnp.asarray(wav))
     cfg = Wav2Vec2Config(**TINY_W2V)
     tm = _load(Wav2Vec2Encoder(cfg), from_jax.wav2vec2(params, cfg))
     got = tm(torch.from_numpy(wav)).detach().numpy()
@@ -316,12 +317,14 @@ def test_fused_tail_generator_grads_match_jax():
     g = (rng.standard_normal((1, 1, 16)) * 0.1).astype(np.float32)
     jm = jnsf.Generator(**kw, fused_tail=True)
     args = (jnp.asarray(x), jnp.asarray(f0), jnp.asarray(g))
-    params = _init(jm, *args)
+    # init and gradient each as one compiled program (op by op, the fused
+    # tail's interpreted kernel took over a minute on the CPU)
+    params = jax.tree.map(np.asarray, jax.jit(jm.init)(jax.random.PRNGKey(0), *args)["params"])
 
     def loss(p):
         return jnp.sum(jm.apply({"params": p}, *args, rng=None) ** 2) * 1e3
 
-    ref = _sd(from_jax.generator, jax.grad(loss)(params))
+    ref = _sd(from_jax.generator, jax.jit(jax.grad(loss))(params))
     tm = Generator(resblock_kernel_sizes=(3, 7, 11), resblock_dilation_sizes=((1, 3, 5),) * 3,
                    fused_tail=True, **kw)
     _load(tm, _sd(from_jax.generator, params))

@@ -24,6 +24,7 @@ from sovits_tpu_torch.ops.attention import (  # noqa: E402
 )
 from sovits_tpu_torch.ops.fused_stage import fused_resblock_trio  # noqa: E402
 from tests.test_attention_kernel import _jnp_reference  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 T = torch.from_numpy
 

@@ -53,6 +53,7 @@ from sovits_tpu_torch.parallel import sequence  # noqa: E402
 from tests import parallel_ranks as pr  # noqa: E402
 from tests.test_torch_modules import ATOL, _load, _sd  # noqa: E402
 from tests.test_torch_slice import AUDIO_ATOL, _voiced, svc_pair  # noqa: E402,F401
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 SEAM = dict(rtol=2e-4, atol=2e-5)  # tests/test_sequence_parallel.py's bar
 LOSS_RTOL = 1e-5

@@ -43,6 +43,7 @@ from sovits_tpu_torch.encoders import factory as tfactory  # noqa: E402
 from sovits_tpu_torch.encoders import wavlm as twavlm  # noqa: E402
 from sovits_tpu_torch.encoders import whisper as twhisper  # noqa: E402
 from chip_smoke import write_ppg_checkpoint  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 UNITS_ATOL = 1e-4  # fp32 on both sides (the units' bar of test_torch_encoders.py)
 LOG_MEL_ATOL = 1e-4

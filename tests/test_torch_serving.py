@@ -44,6 +44,7 @@ from sovits_tpu_torch.serving import tts  # noqa: E402
 from sovits_tpu_torch.serving import webui  # noqa: E402
 from tests.test_torch_slice import _voiced  # noqa: E402
 from tests.tiny import TINY_OVERRIDES  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 SR = 8000
 

@@ -29,6 +29,7 @@ from sovits_tpu.models import factory as jfactory  # noqa: E402
 from sovits_tpu_torch.convert import from_jax  # noqa: E402
 from sovits_tpu_torch.models import factory  # noqa: E402
 from tests.tiny import TINY_OVERRIDES, tiny_hps  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 REPO = Path(__file__).resolve().parents[1]
 AUDIO_ATOL = 1e-4  # fp32 on both sides; the sums run in a different order

@@ -51,6 +51,7 @@ from sovits_tpu_torch.train import losses  # noqa: E402
 from sovits_tpu_torch.train.optim import make_optimizer  # noqa: E402
 from sovits_tpu_torch.train.step import train_step  # noqa: E402
 from tests.tiny import make_synthetic_dataset, tiny_hps  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 REPO = Path(__file__).resolve().parents[1]
 T = torch.from_numpy

@@ -45,6 +45,7 @@ from sovits_tpu_torch.train.optim import make_optimizer  # noqa: E402
 from sovits_tpu_torch.train.step import train_step  # noqa: E402
 from tests.test_torch_ops import _bwd_inputs  # noqa: E402
 from tests.test_torch_train import _batch, _hps, _jax_step, _port_d, _port_g, _tree_np  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 BF = torch.bfloat16
 KERNEL_REL = 2e-2  # a few bf16 ulps

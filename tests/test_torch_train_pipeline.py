@@ -60,6 +60,7 @@ from tests.test_torch_encoders import CONVS  # noqa: E402
 from tests.test_torch_modules import TINY_W2V  # noqa: E402
 from tests.test_torch_train import TRAIN_OVERRIDES  # noqa: E402
 from tests.tiny import make_synthetic_dataset, tiny_hps  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 ARTIFACT_REL = 1e-5  # an artifact's max-abs error over its peak, fp32 on both sides
 AUG_MEL_ATOL = 1e-4
