@@ -47,6 +47,7 @@ from ..dsp.audio import change_rms, repeat_expand, resample
 from ..dsp.stft import energy
 from ..f0.base import get_f0_predictor
 from ..models import factory
+from ..utils import annotate, annotated, count
 from . import slicer as slicer_mod
 from .spkmix import build_spk_mix_frames
 
@@ -183,35 +184,43 @@ class Svc:
                 threshold=cr_threshold, device=self.device,
             )
         # launch the encoder first; the f0 predictor's host work then overlaps the card's
-        wav16k = resample(wav, self.target_sample, 16000)
-        pending = self.encoder.encode_async(wav16k)
-        f0, uv = self.f0_predictor_object.compute_f0_uv(wav)
+        with annotate("svc.resample"):
+            wav16k = resample(wav, self.target_sample, 16000)
+        with annotate("svc.encode"):
+            pending = self.encoder.encode_async(wav16k)
+        with annotate("svc.f0"):
+            f0, uv = self.f0_predictor_object.compute_f0_uv(wav)
         if f0_filter and float(np.sum(f0)) == 0.0:
             raise F0FilterException("No voice detected")
         f0 = f0 * 2 ** (tran / 12)
-        units = torch.from_numpy(pending())
+        with annotate("svc.units_wait"):
+            units = torch.from_numpy(pending())
         units = repeat_expand(units, len(f0), self.unit_interpolate_mode).numpy()
         if cluster_infer_ratio != 0 and self.cluster is not None:
             units = self.cluster.blend(units, speaker, cluster_infer_ratio, self.spk2id,
                                        retrieval=self.feature_retrieval)
         return units, f0, uv
 
+    @annotated("svc.frontend")
     def _prepare_chunk(self, speaker, tran, wav, sr, cluster_infer_ratio, f0_filter,
                        f0_predictor, cr_threshold, spk_mix_frames=None) -> dict:
         """Host-side front end for one chunk: resample, f0, units, volume
         (the per-frame RMS, for a ``vol_embedding`` model or
         ``only_diffusion``), speaker."""
+        count("svc.chunks")
         if sr is not None and sr != self.target_sample:
-            wav = resample(wav, sr, self.target_sample)
+            with annotate("svc.resample"):
+                wav = resample(wav, sr, self.target_sample)
         wav = np.asarray(wav, dtype=np.float32)
         c, f0, uv = self.get_unit_f0(
             wav, tran, cluster_infer_ratio, speaker, f0_filter, f0_predictor, cr_threshold
         )
         n_frames = len(f0)
         vol = None
-        if self.vol_embedding or self.only_diffusion:
-            vol = energy(torch.from_numpy(wav[None, : n_frames * self.hop_size]),
-                         self.hop_size)[0].numpy()
+        with annotate("svc.volume"):
+            if self.vol_embedding or self.only_diffusion:
+                vol = energy(torch.from_numpy(wav[None, : n_frames * self.hop_size]),
+                             self.hop_size)[0].numpy()
         if spk_mix_frames is not None:
             spk = ("mix", np.asarray(spk_mix_frames[:n_frames], np.float32))
         else:
@@ -227,6 +236,7 @@ class Svc:
                          seed: int, max_batch: int = 8, sample_noise: bool = True) -> list:
         """Run the synthesizer over prepared chunks, one batch per (bucket,
         speaker kind), padded to a power of two. Returns audio per item."""
+        count("svc.real_frames", sum(int(it["n_frames"]) for it in items))
         out: list = [None] * len(items)
         groups: dict = {}
         for idx, it in enumerate(items):
@@ -238,25 +248,32 @@ class Svc:
                 sub = idxs[start : start + max_batch]
                 b_pad = 1 << (len(sub) - 1).bit_length()
                 rows = sub + [sub[-1]] * (b_pad - len(sub))
+                count("svc.dispatches")
+                count("svc.dispatch_rows", b_pad)
+                count("svc.synth_frames", b_pad * bucket)
 
                 def stack(values, dtype=np.float32):
                     arrs = [np.asarray(v, dtype) for v in values]
                     arrs = [np.pad(a, [(0, bucket - a.shape[0])] + [(0, 0)] * (a.ndim - 1)) for a in arrs]
                     return torch.from_numpy(np.stack(arrs)).to(self.device)
 
-                if spk_kind == "mix":
-                    spk = stack([items[i]["spk"][1] for i in rows])
-                else:
-                    spk = torch.tensor([items[i]["spk"][1] for i in rows], device=self.device)
-                lengths = torch.tensor([items[i]["n_frames"] for i in rows], device=self.device)
-                vol = stack([items[i]["vol"] for i in rows]) if self.vol_embedding else None
-                audio, _f0 = self.model.infer(
-                    stack([items[i]["c"] for i in rows]), stack([items[i]["f0"] for i in rows]),
-                    stack([items[i]["uv"] for i in rows]), spk, noise_scale=noice_scale,
-                    predict_f0=bool(auto_predict_f0), sample_noise=sample_noise,
-                    lengths=lengths, generator=generator, vol=vol,
-                )
-                audio = audio.float().cpu().numpy()
+                with annotate("svc.dispatch"):
+                    with annotate("svc.stack"):
+                        if spk_kind == "mix":
+                            spk = stack([items[i]["spk"][1] for i in rows])
+                        else:
+                            spk = torch.tensor([items[i]["spk"][1] for i in rows], device=self.device)
+                        lengths = torch.tensor([items[i]["n_frames"] for i in rows], device=self.device)
+                        vol = stack([items[i]["vol"] for i in rows]) if self.vol_embedding else None
+                        c, f0, uv = (stack([items[i][k] for i in rows]) for k in ("c", "f0", "uv"))
+                    with annotate("svc.synth"):
+                        audio, _f0 = self.model.infer(
+                            c, f0, uv, spk, noise_scale=noice_scale,
+                            predict_f0=bool(auto_predict_f0), sample_noise=sample_noise,
+                            lengths=lengths, generator=generator, vol=vol,
+                        )
+                    with annotate("svc.fetch"):
+                        audio = audio.float().cpu().numpy()
                 for row, i in enumerate(sub):
                     out[i] = audio[row, : items[i]["n_frames"] * self.hop_size, 0]
         return out
@@ -296,6 +313,7 @@ class Svc:
             audio = change_rms(item["wav"], self.target_sample, audio, self.target_sample, adjustment)
         return audio
 
+    @annotated("svc.infer")
     def infer(self, speaker, tran: int, wav: np.ndarray, sr: int | None = None,
               cluster_infer_ratio: float = 0.0, auto_predict_f0: bool = False,
               noice_scale: float = 0.4, f0_filter: bool = False, f0_predictor: str = "pm",
@@ -307,6 +325,7 @@ class Svc:
         ``k_step`` and ``second_encoding`` steer the diffusion refiner,
         ``enhancer_adaptive_key`` the enhancer.
         """
+        count("svc.takes")
         item = self._prepare_chunk(speaker, tran, wav, sr, cluster_infer_ratio, f0_filter,
                                    f0_predictor, cr_threshold, spk_mix_frames)
         if self.only_diffusion:
@@ -319,6 +338,7 @@ class Svc:
         return audio, audio.shape[-1], item["n_frames"]
 
     # ------------------------------------------------------------------
+    @annotated("svc.slice_inference")
     def slice_inference(self, raw_audio: np.ndarray, sr: int, spk, tran: int,
                         slice_db: float = -40, cluster_infer_ratio: float = 0.0,
                         auto_predict_f0: bool = False, noice_scale: float = 0.4,
@@ -341,8 +361,10 @@ class Svc:
         post stage (shallow diffusion or the enhancer, and the loudness mix);
         with ``only_diffusion`` each chunk is diffused from its input instead.
         """
-        chunks = slicer_mod.cut(raw_audio, sr, db_thresh=slice_db)
-        audio_data = slicer_mod.chunks2audio(raw_audio, chunks)
+        count("svc.takes")
+        with annotate("svc.slice"):
+            chunks = slicer_mod.cut(raw_audio, sr, db_thresh=slice_db)
+            audio_data = slicer_mod.chunks2audio(raw_audio, chunks)
         per_size = int(clip_seconds * sr)
         pad_len = int(sr * pad_seconds)
 
@@ -376,17 +398,18 @@ class Svc:
                 continue
             datas = list(split_list_by_n(data, per_size, overlap_len)) if per_size else [data]
             for k, dat in enumerate(datas):
-                per_length = int(np.ceil(len(dat) / sr * self.target_sample)) if clip_seconds else length
-                dat = np.concatenate([np.zeros(pad_len), dat, np.zeros(pad_len)])
-                chunk_mix = None
-                if mix_weights is not None:
-                    n_chunk = int(np.ceil(len(dat) / sr * self.target_sample)) // self.hop_size
-                    idx = np.minimum(np.arange(global_frame, global_frame + n_chunk),
-                                     len(mix_weights) - 1)
-                    chunk_mix = mix_weights[idx]
-                item = self._prepare_chunk(None if mix_weights is not None else spk, tran,
-                                           dat.astype(np.float32), sr, cluster_infer_ratio, False,
-                                           f0_predictor, cr_threshold, spk_mix_frames=chunk_mix)
+                with annotate("svc.pad"):
+                    per_length = int(np.ceil(len(dat) / sr * self.target_sample)) if clip_seconds else length
+                    dat = np.concatenate([np.zeros(pad_len), dat, np.zeros(pad_len)]).astype(np.float32)
+                    chunk_mix = None
+                    if mix_weights is not None:
+                        n_chunk = int(np.ceil(len(dat) / sr * self.target_sample)) // self.hop_size
+                        idx = np.minimum(np.arange(global_frame, global_frame + n_chunk),
+                                         len(mix_weights) - 1)
+                        chunk_mix = mix_weights[idx]
+                item = self._prepare_chunk(None if mix_weights is not None else spk, tran, dat, sr,
+                                           cluster_infer_ratio, False, f0_predictor, cr_threshold,
+                                           spk_mix_frames=chunk_mix)
                 global_frame += item["n_frames"]
                 plan.append(("chunk", len(items), per_length, k))
                 items.append(item)
@@ -399,30 +422,30 @@ class Svc:
             outs = self._run_synth_batch(items, noice_scale, auto_predict_f0, 52468)
             outs = [self._post_chunk(it, out, k_step, second_encoding, loudness_envelope_adjustment,
                                      enhancer_adaptive_key) for it, out in zip(items, outs)]
-
-        pieces: list[np.ndarray] = []
-        out_pad = int(self.target_sample * pad_seconds)
-        for entry in plan:
-            if entry[0] == "sil":
-                pieces.append(np.zeros(entry[1]))
-                continue
-            _, item_idx, per_length, k = entry
-            _audio = pad_array(np.asarray(outs[item_idx])[out_pad:-out_pad], per_length)
-            if overlap_len and k != 0:
-                # blend the assembled tail into the new clip's head over the
-                # fade window; the previous clip's last keep_right samples and
-                # the new clip's first keep_left are dropped (with lgr_num 1
-                # both margins are empty and the whole overlap is blended)
-                head = np.concatenate(pieces)
-                n = len(head)
-                blended = (head[n - fade_len - keep_right : n - keep_right] * (1 - fade_ramp)
-                           + _audio[keep_left : keep_left + fade_len] * fade_ramp)
-                pieces = [head[: n - fade_len - keep_right], blended]
-                _audio = _audio[keep_left + fade_len :]
-            pieces.append(_audio)
-        if not pieces:
-            return np.zeros(0, np.float32)
-        return np.concatenate(pieces).astype(np.float32)
+        with annotate("svc.join"):
+            pieces: list[np.ndarray] = []
+            out_pad = int(self.target_sample * pad_seconds)
+            for entry in plan:
+                if entry[0] == "sil":
+                    pieces.append(np.zeros(entry[1]))
+                    continue
+                _, item_idx, per_length, k = entry
+                _audio = pad_array(np.asarray(outs[item_idx])[out_pad:-out_pad], per_length)
+                if overlap_len and k != 0:
+                    # blend the assembled tail into the new clip's head over the
+                    # fade window; the previous clip's last keep_right samples and
+                    # the new clip's first keep_left are dropped (with lgr_num 1
+                    # both margins are empty and the whole overlap is blended)
+                    head = np.concatenate(pieces)
+                    n = len(head)
+                    blended = (head[n - fade_len - keep_right : n - keep_right] * (1 - fade_ramp)
+                               + _audio[keep_left : keep_left + fade_len] * fade_ramp)
+                    pieces = [head[: n - fade_len - keep_right], blended]
+                    _audio = _audio[keep_left + fade_len :]
+                pieces.append(_audio)
+            if not pieces:
+                return np.zeros(0, np.float32)
+            return np.concatenate(pieces).astype(np.float32)
 
     # ------------------------------------------------------------------
     def infer_seq_parallel(self, speaker, tran: int, wav: np.ndarray, sr: int | None = None,

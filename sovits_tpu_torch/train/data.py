@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -20,6 +21,7 @@ from scipy.io import wavfile
 
 from ..dsp.audio import repeat_expand
 from ..dsp.stft import spectrogram
+from ..utils import annotate, count
 
 
 def load_filelist(path: str) -> list[str]:
@@ -132,7 +134,10 @@ PREFETCH = 4  # batches the producer thread keeps ready
 def batch_iterator(dataset: FeatureDataset, batch_size: int, seed: int = 1234):
     """Infinite shuffled epochs of numpy batches, prefetched by a thread.
     Closing the generator stops the thread; an error in the thread is
-    raised here."""
+    raised here. While a profiler window is open, each batch taken counts
+    ``train.feed_batches``, its build seconds in the thread
+    (``train.feed_build_s``) and whether the queue was empty when asked
+    (``train.feed_empty``); the wait is the ``train.data_wait`` span."""
     q: queue.Queue = queue.Queue(maxsize=PREFETCH)
     stop = threading.Event()
 
@@ -153,8 +158,10 @@ def batch_iterator(dataset: FeatureDataset, batch_size: int, seed: int = 1234):
                 if len(order) < batch_size:  # tiny datasets: sample with replacement
                     order = rng.choice(len(dataset), batch_size, replace=True)
                 for i in range(0, len(order) - batch_size + 1, batch_size):
+                    t0 = time.perf_counter()
                     examples = [dataset.padded_example(j, rng) for j in order[i : i + batch_size]]
-                    if not put({k: np.stack([e[k] for e in examples]) for k in examples[0]}):
+                    batch = {k: np.stack([e[k] for e in examples]) for k in examples[0]}
+                    if not put((batch, time.perf_counter() - t0)):
                         return
         except Exception as exc:  # handed to the consumer, which raises it
             put(exc)
@@ -163,10 +170,16 @@ def batch_iterator(dataset: FeatureDataset, batch_size: int, seed: int = 1234):
     thread.start()
     try:
         while True:
-            item = q.get()
+            with annotate("train.data_wait"):
+                empty = q.empty()
+                item = q.get()
             if isinstance(item, Exception):
                 raise item
-            yield item
+            batch, build_s = item
+            count("train.feed_batches")
+            count("train.feed_build_s", build_s)
+            count("train.feed_empty", empty)
+            yield batch
     finally:
         stop.set()
         thread.join()

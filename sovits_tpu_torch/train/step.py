@@ -27,6 +27,7 @@ from torch.nn.parallel import DistributedDataParallel
 from ..dsp.sequence import slice_segments
 from ..dsp.stft import mel_spectrogram, spec_to_mel
 from ..parallel.mesh import data_size
+from ..utils import annotate
 from .losses import discriminator_loss, feature_loss, generator_loss, kl_loss
 from .optim import global_norm
 
@@ -59,53 +60,56 @@ def train_step(net_g, net_d, optim_g, optim_d, batch: dict, hps,
     hop = d.hop_length
     mel_kw = dict(n_fft=d.filter_length, n_mels=d.n_mel_channels, sample_rate=d.sampling_rate,
                   fmin=d.mel_fmin, fmax=d.mel_fmax)
-    y_hat, ids_slice, spec_mask, (z, z_p, m_p, logs_p, m_q, logs_q), pred_lf0, _norm_lf0, lf0 = net_g(
-        batch["c"], batch["f0"], batch["uv"], batch["spec"], batch["spk"], batch["lengths"],
-        vol=batch.get("volume"),
-        deterministic=deterministic, generator=generator,
-    )
-    y_seg = slice_segments(batch["wav"], ids_slice * hop, hps.train.segment_size)
+    with annotate("train.g_forward"):
+        y_hat, ids_slice, spec_mask, (z, z_p, m_p, logs_p, m_q, logs_q), pred_lf0, _norm_lf0, lf0 = net_g(
+            batch["c"], batch["f0"], batch["uv"], batch["spec"], batch["spk"], batch["lengths"],
+            vol=batch.get("volume"),
+            deterministic=deterministic, generator=generator,
+        )
+        y_seg = slice_segments(batch["wav"], ids_slice * hop, hps.train.segment_size)
 
     # ---- D step on the detached generator output
-    net_d.requires_grad_(True)
-    y_d_r, y_d_g, _, _ = net_d(y_seg, y_hat.detach())
-    loss_disc, _, _ = discriminator_loss(y_d_r, y_d_g)
-    optim_d.zero_grad(set_to_none=True)
-    loss_disc.backward()
-    grad_norm_d = global_norm(net_d.parameters())
-    optim_d.step()
+    with annotate("train.d_step"):
+        net_d.requires_grad_(True)
+        y_d_r, y_d_g, _, _ = net_d(y_seg, y_hat.detach())
+        loss_disc, _, _ = discriminator_loss(y_d_r, y_d_g)
+        optim_d.zero_grad(set_to_none=True)
+        loss_disc.backward()
+        grad_norm_d = global_norm(net_d.parameters())
+        optim_d.step()
 
     # ---- G step against the updated D; D's weights take no gradient here.
     # A DDP wrapper would wait for D gradients that never come: call its module
-    d_module = _unwrapped(net_d)
-    d_module.requires_grad_(False)
-    with torch.no_grad():
-        y_mel = slice_segments(spec_to_mel(batch["spec"], **mel_kw), ids_slice,
-                               hps.train.segment_size // hop)
-    y_hat_mel = mel_spectrogram(y_hat[..., 0], hop_length=hop, win_length=d.win_length, **mel_kw)
-    _, y_d_g, fmap_r, fmap_g = d_module(y_seg, y_hat)
-    d_module.requires_grad_(True)
-    loss_mel = F.l1_loss(y_hat_mel, y_mel) * hps.train.c_mel
-    # the KL's normaliser is the global batch's mask sum (rows differ in
-    # length); times the data ranks, as their gradients are averaged
-    mask_sum = None
-    n_data = data_size(mesh)
-    if n_data > 1:
-        mask_sum = spec_mask.float().sum()
-        dist.all_reduce(mask_sum, group=mesh["data"].get_group())
-        mask_sum = mask_sum / n_data
-    loss_kl = kl_loss(z_p, logs_q, m_p, logs_p, spec_mask, mask_sum) * hps.train.c_kl
-    loss_fm = feature_loss(fmap_r, fmap_g)
-    loss_gen, _ = generator_loss(y_d_g)
-    if hps.model.use_automatic_f0_prediction:
-        loss_lf0 = F.mse_loss(pred_lf0, lf0)
-    else:
-        loss_lf0 = torch.zeros((), device=y_hat.device)
-    total = loss_gen + loss_fm + loss_mel + loss_kl + loss_lf0
-    optim_g.zero_grad(set_to_none=True)
-    total.backward()
-    grad_norm_g = global_norm(net_g.parameters())
-    optim_g.step()
+    with annotate("train.g_step"):
+        d_module = _unwrapped(net_d)
+        d_module.requires_grad_(False)
+        with torch.no_grad():
+            y_mel = slice_segments(spec_to_mel(batch["spec"], **mel_kw), ids_slice,
+                                   hps.train.segment_size // hop)
+        y_hat_mel = mel_spectrogram(y_hat[..., 0], hop_length=hop, win_length=d.win_length, **mel_kw)
+        _, y_d_g, fmap_r, fmap_g = d_module(y_seg, y_hat)
+        d_module.requires_grad_(True)
+        loss_mel = F.l1_loss(y_hat_mel, y_mel) * hps.train.c_mel
+        # the KL's normaliser is the global batch's mask sum (rows differ in
+        # length); times the data ranks, as their gradients are averaged
+        mask_sum = None
+        n_data = data_size(mesh)
+        if n_data > 1:
+            mask_sum = spec_mask.float().sum()
+            dist.all_reduce(mask_sum, group=mesh["data"].get_group())
+            mask_sum = mask_sum / n_data
+        loss_kl = kl_loss(z_p, logs_q, m_p, logs_p, spec_mask, mask_sum) * hps.train.c_kl
+        loss_fm = feature_loss(fmap_r, fmap_g)
+        loss_gen, _ = generator_loss(y_d_g)
+        if hps.model.use_automatic_f0_prediction:
+            loss_lf0 = F.mse_loss(pred_lf0, lf0)
+        else:
+            loss_lf0 = torch.zeros((), device=y_hat.device)
+        total = loss_gen + loss_fm + loss_mel + loss_kl + loss_lf0
+        optim_g.zero_grad(set_to_none=True)
+        total.backward()
+        grad_norm_g = global_norm(net_g.parameters())
+        optim_g.step()
     losses = {"loss/g/total": total, "loss/g/mel": loss_mel, "loss/g/kl": loss_kl,
               "loss/g/fm": loss_fm, "loss/g/gen": loss_gen, "loss/g/lf0": loss_lf0,
               "loss/d/total": loss_disc}

@@ -25,6 +25,7 @@ from .. import config as scfg
 from ..dsp.stft import mel_spectrogram
 from ..models import factory
 from ..parallel.mesh import data_rank, data_size, rank, shard_batch
+from ..utils import annotated
 from . import checkpoint as ckpt
 from .data import FeatureDataset, batch_iterator
 from .optim import epoch_lr, make_optimizer, set_learning_rate
@@ -100,6 +101,7 @@ def _record_git_hash(model_dir: Path) -> None:
         path.write_text(cur)
 
 
+@annotated("train.to_device")
 def _to_device(batch: dict, device: torch.device) -> dict:
     return {k: torch.from_numpy(v).to(device, non_blocking=True) for k, v in batch.items()}
 

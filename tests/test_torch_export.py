@@ -18,7 +18,8 @@
     live Synthesizer.infer (rtol 1e-5, atol 1e-6), with the sovits ops in
     its graph; the CLI's --onnx (sidecar equal to JAX's ``moevs_config``)
     and --diffusion (from a so-vits-svc .pt and from the JAX trainer's .npz).
-(e) utils: StageTimer, annotate, trace.
+(e) utils: StageTimer, and annotate and count recorded only inside trace()'s
+    window, which writes the trace and its counters.
 
 Weights are drawn for the JAX tree (shapes by ``jax.eval_shape``, no init
 graph compiled) with weight-norm gains scaled off their kernels' norms, so
@@ -454,19 +455,27 @@ def test_export_cli_diffusion(tmp_path, diffusion_pair):
 
 # ---------------------------------------------------------------- (e) utils
 def test_stage_timer_annotate_trace(tmp_path):
-    from sovits_tpu_torch.utils import StageTimer, annotate, trace
+    from sovits_tpu_torch.utils import StageTimer, annotate, count, counters, trace
 
     timer = StageTimer()
     x = torch.ones(4)
+    with annotate("outside"):
+        count("outside")
     with trace(tmp_path / "trace") as log_dir:
         for _ in range(2):
-            with timer.stage("a", block_on=x), annotate("region"):
+            with timer.stage("a"), annotate("region"):
                 x = x * 2
+                count("region.calls")
+                count("region.items", 4)
+    with annotate("after"):
+        count("after")
     s = timer.summary()
     assert set(s) == {"a"} and s["a"]["count"] == 2 and s["a"]["total_s"] >= 0
     assert s["a"]["mean_s"] == pytest.approx(s["a"]["total_s"] / 2)
     assert float(x.sum()) == 16.0
     traces = list(log_dir.glob("trace-*.json"))
-    assert len(traces) == 1 and "region" in traces[0].read_text()
-    timer.dump(tmp_path / "stages.json")
-    assert json.loads((tmp_path / "stages.json").read_text()) == s
+    assert len(traces) == 1
+    names = [e.get("name") for e in json.loads(traces[0].read_text())["traceEvents"]]
+    assert names.count("region") == 2 and "outside" not in names and "after" not in names
+    written = json.loads(traces[0].with_name(traces[0].name.replace("trace-", "counters-")).read_text())
+    assert written == counters() == {"region.calls": 2, "region.items": 8}
